@@ -1,0 +1,98 @@
+"""Numeric tools of the round trip: exact fringe phases and safe inverses.
+
+Port of the fringe subset of ``draco_tpu.ops.tools``
+(``threefloat_split``, ``phase_frac3``, ``sincos_turns``) and
+``invert_no_zero``.
+
+The exact-phase scheme rests on every high product being an exact
+float32 value and on no fused multiply-add changing a rounded product.
+Eager PyTorch runs each elementwise op as its own kernel, so the
+expressions below are kept as separate multiplies and adds: do not
+rewrite them with ``addcmul`` or compile them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+__all__ = ["invert_no_zero", "threefloat_split", "phase_frac3", "sincos_turns"]
+
+
+def invert_no_zero(x: torch.Tensor) -> torch.Tensor:
+    """Reciprocal returning exactly zero where ``|x|`` is below the smallest normal."""
+    small = torch.abs(x) < torch.finfo(x.real.dtype).tiny
+    return torch.where(small, torch.zeros_like(x), 1.0 / torch.where(small, torch.ones_like(x), x))
+
+
+def threefloat_split(a64: np.ndarray):
+    """Split an f64 array into three f32 parts (12 + 12 + 24-bit mantissas).
+
+    ``a64 ~= a + b + c`` with ``a``/``b`` carrying at most 12 significant
+    bits each (the top and bottom halves of ``float32(a64)``'s mantissa)
+    and ``c`` the f32 of the remainder.  Products of two 12-bit parts fit
+    the 24-bit f32 significand exactly.  Host numpy.
+    """
+    a64 = np.asarray(a64, dtype=np.float64)
+    hi = a64.astype(np.float32)
+    a = (hi.view(np.uint32) & np.uint32(0xFFFFF000)).view(np.float32)
+    b = hi - a
+    c = (a64 - hi.astype(np.float64)).astype(np.float32)
+    return a, b, c
+
+
+def phase_frac3(ba, bb, bc, va, vb, vc):
+    """``frac(b . n)`` in turns from three-part operands.
+
+    ba/bb/bc [..., 3] broadcast against va/vb/vc [K, 3] -> [..., K].  The
+    high products a*a, a*b, b*a are exact and reduced mod 1 term by term;
+    the remaining cross terms are ~2^-24 relative and summed directly.
+    Absolute error ~3e-7 turns independent of ``|b . n|``.
+    """
+    y = None
+    for x in range(3):
+        b_a = ba[..., x][..., None]
+        b_b = bb[..., x][..., None]
+        b_c = bc[..., x][..., None]
+        v_a = va[:, x]
+        v_b = vb[:, x]
+        v_c = vc[:, x]
+        paa = b_a * v_a
+        pab = b_a * v_b
+        pba = b_b * v_a
+        r = (paa - torch.round(paa)) + (pab - torch.round(pab))
+        r = r + (pba - torch.round(pba))
+        small = b_b * v_b + (b_a * v_c + b_c * v_a) + (b_b * v_c + b_c * v_b)
+        rc = r + small
+        rc = rc - torch.round(rc)
+        y = rc if y is None else y + rc
+    return y - torch.round(y)
+
+
+def sincos_turns(t: torch.Tensor):
+    """(cos, sin) of ``2*pi*t`` for turns ``t`` near [-0.5, 0.5].
+
+    float32: reduce to the nearest quarter turn and evaluate short
+    Taylor polynomials on the residual (|x| <= pi/4; max abs error ~1e-7),
+    then rotate by the quadrant.  float64 takes exact ``cos``/``sin``, so
+    reference runs are not limited by the polynomial truncation.
+    """
+    if t.dtype == torch.float64:
+        ph = 2 * math.pi * t
+        return torch.cos(ph), torch.sin(ph)
+    q = torch.round(4.0 * t)
+    x = 2 * math.pi * (t - 0.25 * q)
+    x2 = x * x
+    c = 1.0 + x2 * (-0.5 + x2 * (1.0 / 24 + x2 * (-1.0 / 720 + x2 * (1.0 / 40320))))
+    s = x * (1.0 + x2 * (-1.0 / 6 + x2 * (1.0 / 120 + x2 * (-1.0 / 5040 + x2 / 362880))))
+    qm = q - 4.0 * torch.floor(q * 0.25)
+    odd = (qm == 1.0) | (qm == 3.0)
+    neg_c = (qm == 1.0) | (qm == 2.0)
+    neg_s = (qm == 2.0) | (qm == 3.0)
+    cos_v = torch.where(odd, s, c)
+    sin_v = torch.where(odd, c, s)
+    cos_v = torch.where(neg_c, -cos_v, cos_v)
+    sin_v = torch.where(neg_s, -sin_v, sin_v)
+    return cos_v, sin_v

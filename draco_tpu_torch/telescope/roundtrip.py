@@ -1,0 +1,473 @@
+"""Fused simulate -> map round trip (windowed form).
+
+Port of ``draco_tpu.telescope.roundtrip._fused_roundtrip``:
+
+  sky map --SHT--> alm --windowed beam projection--> V_m --(weights)-->
+  --adjoint--> dirty alm --inverse SHT--> map
+
+The task chain this fuses (``SimulateSidereal -> MModeTransform ->
+DirtyMapMaker``) also materialises the sidereal stream between simulation
+and mapping; that iFFT -> FFT pair is the identity on the m-modes, so the
+program skips it and runs forward projection and weighted adjoint in one
+pass over baseline chunks.  Each chunk's fringe x beam planes are built
+once and consumed by both sets of products.
+
+Baselines are sorted by their m-support bound and chunks grouped by the
+rounded support ``Mb``: a chunk of short baselines contracts only its
+first ``Mb`` m-columns.
+
+The prepared state (:func:`prepare_state`, or :func:`state_from_numpy`
+from the JAX package's own constants) is a dict of tensors on one device
+in one real dtype: float32 with two-float Legendre tables and three-float
+fringe phases, or float64 with exact tables for reference runs.  The
+full-sphere form for wide (cylinder) beams is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import healpix
+from ..ops.sht import SHT
+from ..ops.tools import phase_frac3, sincos_turns, threefloat_split
+
+__all__ = [
+    "prepare_state",
+    "state_from_numpy",
+    "fused_roundtrip",
+    "fused_roundtrip_fn",
+    "fused_simulate_to_map",
+]
+
+# HBM budget that sizes the baseline chunk when none is given
+CHUNK_BUDGET_BYTES = 4 * 2**30
+
+
+def _pad_to(n: int, chunk: int) -> int:
+    return (n + chunk - 1) // chunk * chunk
+
+
+def _uniform_grid(inv_wl: np.ndarray) -> bool:
+    """Whether 1/lambda is an arithmetic progression (within fit tolerance)."""
+    nfreq = len(inv_wl)
+    if nfreq == 1:
+        return True
+    step = (inv_wl[-1] - inv_wl[0]) / (nfreq - 1)
+    fit = inv_wl[0] + step * np.arange(nfreq)
+    return bool(np.abs(inv_wl - fit).max() <= 1e-12 * np.abs(inv_wl).max())
+
+
+def _baseline_prep(tel, nfreq: int, nbase: int, chunk: int, order=None):
+    """Chunk-padded baseline phase coefficients, in turns per unit direction.
+
+    Returns ``(npad, nchunk, coeff [G, npad, 3] float64, uniform)``.  On a
+    uniform frequency grid G = 2: ``b nu_0 / c`` and ``b dnu / c``, the
+    base phase and the per-step increment.  Otherwise G = nfreq with
+    ``b / lambda_f``.
+    """
+    npad = _pad_to(nbase, chunk)
+    nchunk = npad // chunk
+    bl3 = tel.baseline_vectors_3d().astype(np.float64)
+    if order is not None:
+        bl3 = bl3[order]
+    blp = np.zeros((npad, 3), np.float64)
+    blp[:nbase] = bl3
+    inv_wl = 1.0 / np.asarray(tel.wavelengths, dtype=np.float64)
+    uniform = _uniform_grid(inv_wl)
+    if uniform:
+        step = 0.0 if nfreq == 1 else (inv_wl[-1] - inv_wl[0]) / (nfreq - 1)
+        coeff = np.stack([blp * inv_wl[0], blp * step])
+    else:
+        coeff = blp[None] * inv_wl[:, None, None]
+    return npad, nchunk, coeff, uniform
+
+
+def _split3(a64: np.ndarray, rdt, device):
+    """Three-part operands of the exact phase: the float32 split, or
+    (a64, 0, 0) for float64 reference runs."""
+    if rdt == torch.float64:
+        a = torch.as_tensor(np.asarray(a64, np.float64), device=device)
+        z = torch.zeros_like(a)
+        return a, z, z.clone()
+    return tuple(torch.as_tensor(p, device=device) for p in threefloat_split(a64))
+
+
+def _fringe_trig(ba, bb, bc, va, vb, vc, c0, chunk, nfreq, uniform):
+    """(cos, sin) fringe planes [nfreq, chunk, K] for the chunk starting at ``c0``.
+
+    Uniform grids rotate the base phasor by the per-step phasor once per
+    frequency.
+    """
+    Ba = ba[:, c0 : c0 + chunk]
+    Bb = bb[:, c0 : c0 + chunk]
+    Bc = bc[:, c0 : c0 + chunk]
+    if not uniform:
+        return sincos_turns(phase_frac3(Ba, Bb, Bc, va, vb, vc))
+    c_f, s_f = sincos_turns(phase_frac3(Ba[0], Bb[0], Bc[0], va, vb, vc))
+    if nfreq == 1:
+        return c_f[None], s_f[None]
+    cd, sd = sincos_turns(phase_frac3(Ba[1], Bb[1], Bc[1], va, vb, vc))
+    cs, ss = [c_f], [s_f]
+    for _ in range(nfreq - 1):
+        c_f, s_f = cs[-1] * cd - ss[-1] * sd, cs[-1] * sd + ss[-1] * cd
+        cs.append(c_f)
+        ss.append(s_f)
+    return torch.stack(cs), torch.stack(ss)
+
+
+def _beam_prep(bt, nfreq: int, npad: int, nbase: int, gather, order=None):
+    """Per-frequency deduped beam products ``gather``-ed to the window.
+
+    Returns (u_re, u_im [nfreq, nuniq, npol, Kf] float64, uidx_pad [npad],
+    uniform_real): ``uniform_real`` when every baseline shares one real
+    product (identical dishes).
+    """
+    u_res, u_ims, uidx = [], [], None
+    for fi in range(nfreq):
+        u_idx, bprod = bt._beam_products(fi)
+        bw = gather(bprod)
+        u_res.append(bw.real)
+        u_ims.append(bw.imag)
+        uidx = u_idx
+    uidx_pad = np.zeros(npad, np.int64)
+    uidx_pad[:nbase] = uidx if order is None else np.asarray(uidx)[order]
+    u_re = np.stack(u_res)
+    u_im = np.stack(u_ims)
+    uniform_real = u_re.shape[1] == 1 and not u_im.any()
+    return u_re, u_im, uidx_pad, uniform_real
+
+
+def _auto_chunk(nbase: int, nfreq: int, npol: int, per_pixel: int) -> int:
+    """Baselines per chunk from ``CHUNK_BUDGET_BYTES`` of fringe planes."""
+    c = int(CHUNK_BUDGET_BYTES // max(1, 4 * 4 * nfreq * npol * per_pixel))
+    c = max(64, min(c, nbase))
+    return (c + 7) // 8 * 8
+
+
+def _beam_m_support(bt, info, tau: float) -> int:
+    """Measured azimuthal band width of the deduped beam products.
+
+    Largest ``|m|`` at which any product's per-ring azimuthal Fourier
+    coefficient stays above ``tau`` of the global peak coefficient, over
+    a sample of frequencies spanning the band (both edges included).
+    """
+    nfreq = bt.telescope.nfreq
+    fis = sorted(set(np.linspace(0, nfreq - 1, min(nfreq, 8)).astype(int)))
+    ring_specs = None
+    gmax = 0.0
+    for fi in fis:
+        _, bprod = bt._beam_products(fi)
+        flat = np.asarray(bprod).reshape(-1, bprod.shape[-1])
+        off = 0
+        specs = []
+        for r in range(info.nring):
+            n = int(info.nphi[r])
+            F = np.abs(np.fft.fft(flat[:, off : off + n], axis=-1)) / n
+            off += n
+            specs.append(F.max(axis=0))
+            gmax = max(gmax, float(F.max()))
+        if ring_specs is None:
+            ring_specs = specs
+        else:
+            ring_specs = [np.maximum(a, b) for a, b in zip(ring_specs, specs)]
+    m_sup = 0
+    for spec in ring_specs:
+        n = spec.shape[0]
+        above = spec > tau * gmax
+        if above.any():
+            m_abs = np.minimum(np.arange(n), n - np.arange(n))
+            m_sup = max(m_sup, int(m_abs[above].max()))
+    return m_sup
+
+
+def _chunk_groups(m_cut_sorted: np.ndarray, nchunk: int, chunk: int, mmax: int):
+    """(chunk_start, chunk_end, Mb) runs of chunks sharing their 128-rounded
+    m-support; ``m_cut`` is an inclusive max-m bound, so mb + 1 columns
+    are needed before rounding."""
+    groups = []
+    for ci in range(nchunk):
+        in_chunk = m_cut_sorted[ci * chunk : (ci + 1) * chunk]
+        mb = int(in_chunk.max()) if len(in_chunk) else 1
+        mb = min(mmax + 1, (mb + 1 + 127) // 128 * 128)
+        if groups and groups[-1][2] == mb:
+            groups[-1][1] = ci + 1
+        else:
+            groups.append([ci, ci + 1, mb])
+    return tuple(tuple(g) for g in groups)
+
+
+def prepare_state(bt, chunk: int | None = None, dtype=torch.float32, device=None) -> dict:
+    """Build the round trip's prepared state for ``bt`` on ``device``.
+
+    ``dtype`` float32 is the production mode; float64 builds exact tables
+    for reference runs.
+    """
+    win = bt._beam_window()
+    if win is None:
+        raise NotImplementedError(
+            "the beam is not compact: the full-sphere round trip is not ported yet"
+        )
+    device = torch.device(device) if device is not None else torch.device("cpu")
+    tel = bt.telescope
+    s = win.sht
+    mmax = s.mmax
+    npol = tel.num_pol_sky
+    nfreq = tel.nfreq
+    nbase = len(tel.uniquepairs)
+    if chunk is None:
+        chunk = _auto_chunk(nbase, nfreq, npol, win.Kf)
+
+    # m-support bound per baseline: the fringe's Jacobi-Anger band edge
+    # 2 pi |u_perp| sin(theta)_max, a Bessel-tail margin, and the beam
+    # product's measured azimuthal band width
+    bl3 = tel.baseline_vectors_3d()
+    u_perp = np.hypot(bl3[:, 0], bl3[:, 1]) / tel.wavelengths.min()
+    s_max = float(np.sin(s.info.theta[win.band]).max())
+    x = 2 * np.pi * u_perp * s_max
+    m_margin = _beam_m_support(bt, s.info, 1e-6) + np.ceil(
+        4.0 * np.cbrt(np.maximum(x, 1.0))
+    ).astype(int)
+    m_cut = np.minimum(np.ceil(x).astype(int) + m_margin, mmax + 1)
+    order = np.argsort(m_cut, kind="stable")
+
+    _, lam, lam_lo, plan = bt._streaming_ops2(device, dtype)
+    if lam_lo is not None:
+        lam_band, band_lo = win.lam_band_2f(device)
+    else:
+        lam_band, band_lo = win.lam_band(dtype, device), None
+    Ecf, Esf, flat_ring, ring_onehot = win.flat_tables(dtype, device)
+    vec = np.asarray(healpix.pix2vec(bt.beam_nside), np.float64)[win.flat_index]
+    va, vb, vc = _split3(vec, dtype, device)
+    npad, nchunk, coeff, uniform_freq = _baseline_prep(tel, nfreq, nbase, chunk, order)
+    bla, blb, blc = _split3(coeff, dtype, device)
+    u_re, u_im, uidx_pad, uniform_real = _beam_prep(
+        bt, nfreq, npad, nbase, lambda bprod: bprod[..., win.flat_index], order=order
+    )
+    groups = _chunk_groups(m_cut[order], nchunk, chunk, mmax)
+    return {
+        "sht": s,
+        "lam": lam,
+        "lam_lo": lam_lo,
+        "plan": plan,
+        "lam_band": lam_band,
+        "band_lo": band_lo,
+        "Ecf": Ecf,
+        "Esf": Esf,
+        "flat_ring": flat_ring,
+        "ring_onehot": ring_onehot,
+        "va": va,
+        "vb": vb,
+        "vc": vc,
+        "u_re": torch.as_tensor(u_re, dtype=dtype, device=device),
+        "u_im": torch.as_tensor(u_im, dtype=dtype, device=device),
+        "uidx": torch.as_tensor(uidx_pad, device=device),
+        "bla": bla,
+        "blb": blb,
+        "blc": blc,
+        "dims": (nfreq, npol, chunk, nchunk, nbase, win.Kf, mmax, groups),
+        "order": torch.as_tensor(order, device=device),
+        "uniform_real": bool(uniform_real),
+        "uniform_freq": bool(uniform_freq),
+    }
+
+
+def state_from_numpy(consts: dict, device=None) -> dict:
+    """The port's state from the JAX program's prepared constants.
+
+    ``consts`` holds, as numpy (nested dicts/lists for ``lam``, ``lam_lo``
+    and ``plan``; ``lam_lo``/``band_lo`` may be None), the leaves of the
+    ``consts`` tuple that ``draco_tpu.telescope.roundtrip.fused_roundtrip_fn``
+    hands its program: ``lam, lam_lo, plan, lam_band, band_lo, Ecf, Esf,
+    flat_ring, ring_onehot, va, vb, vc, u_re, u_im, uidx_pad, bla, blb,
+    blc``; plus ``dims``, ``order`` (or None), ``uniform_freq``, and the
+    SHT's ``nside`` and ``lmax``.  A one-hot ``uidx_pad`` [npad, U] becomes
+    the index it encodes.
+    """
+    device = torch.device(device) if device is not None else torch.device("cpu")
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+    def bf16(a):
+        return t(a, np.float32).to(torch.bfloat16)
+
+    def sections(d, conv):
+        return {"belt": conv(d["belt"]), "caps": [conv(c) for c in d["caps"]]}
+
+    def reim(a):
+        a = np.asarray(a)
+        return t(a.real), t(a.imag)
+
+    dims = tuple(consts["dims"])
+    mmax = dims[6]
+    uidx = np.asarray(consts["uidx_pad"])
+    if uidx.ndim == 2:
+        uidx = uidx.argmax(axis=-1)
+    u_re = t(consts["u_re"])
+    u_im = t(consts["u_im"])
+    order = consts.get("order")
+    return {
+        "sht": SHT(int(consts["nside"]), int(consts["lmax"]), mmax),
+        "lam": sections(consts["lam"], t),
+        "lam_lo": None if consts["lam_lo"] is None else sections(consts["lam_lo"], bf16),
+        "plan": {
+            "W": reim(consts["plan"]["W"]),
+            "P": [reim(p) for p in consts["plan"]["P"]],
+        },
+        "lam_band": t(consts["lam_band"]),
+        "band_lo": None if consts["band_lo"] is None else bf16(consts["band_lo"]),
+        "Ecf": t(consts["Ecf"]),
+        "Esf": t(consts["Esf"]),
+        "flat_ring": t(consts["flat_ring"], np.int64),
+        "ring_onehot": t(consts["ring_onehot"]),
+        "va": t(consts["va"]),
+        "vb": t(consts["vb"]),
+        "vc": t(consts["vc"]),
+        "u_re": u_re,
+        "u_im": u_im,
+        "uidx": t(uidx, np.int64),
+        "bla": t(consts["bla"]),
+        "blb": t(consts["blb"]),
+        "blc": t(consts["blc"]),
+        "dims": dims,
+        "order": None if order is None else t(order, np.int64),
+        "uniform_real": bool(u_re.shape[1] == 1 and not bool(u_im.any())),
+        "uniform_freq": bool(consts["uniform_freq"]),
+    }
+
+
+def _fringe_planes(state, c: int):
+    """(re, im) fringe x beam planes [nfreq, chunk, npol*Kf] of chunk ``c``."""
+    nfreq, npol, chunk, _, _, Kf, _, _ = state["dims"]
+    cph, sph = _fringe_trig(
+        state["bla"], state["blb"], state["blc"], state["va"], state["vb"], state["vc"],
+        c * chunk, chunk, nfreq, state["uniform_freq"],
+    )  # [f, C, Kf]
+    K = npol * Kf
+    if state["uniform_real"]:
+        b = state["u_re"][:, 0][:, None]  # [f, 1, p, Kf]
+        re = (b * cph[:, :, None]).reshape(nfreq, chunk, K)
+        im = (b * sph[:, :, None]).reshape(nfreq, chunk, K)
+        return re, im
+    idx = state["uidx"][c * chunk : (c + 1) * chunk]
+    br = state["u_re"].index_select(1, idx)  # [f, C, p, Kf]
+    bi = state["u_im"].index_select(1, idx)
+    cp = cph[:, :, None]
+    sp = sph[:, :, None]
+    re = (br * cp - bi * sp).reshape(nfreq, chunk, K)
+    im = (br * sp + bi * cp).reshape(nfreq, chunk, K)
+    return re, im
+
+
+def fused_roundtrip(state: dict, sky: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Dirty-map round trip of ``sky`` [nfreq, npol, npix] through ``state``.
+
+    ``weight`` [mmax+1, 2, nfreq, nbase] (original baseline order) weights
+    the m-modes before the adjoint; unit weights when None.  Runs on the
+    state's device in its dtype; returns [nfreq, npol, npix].
+    """
+    s = state["sht"]
+    nfreq, npol, chunk, nchunk, npairs, Kf, mmax, groups = state["dims"]
+    K = npol * Kf
+    Ecf, Esf = state["Ecf"], state["Esf"]
+    rdt, dev = Ecf.dtype, Ecf.device
+    scale = 1.0 / (4 * np.pi / s.npix)
+    lam, lam_lo, plan = state["lam"], state["lam_lo"], state["plan"]
+    lam_band, band_lo = state["lam_band"], state["band_lo"]
+    sky = sky.to(device=dev, dtype=rdt)
+
+    # forward: sky -> alm -> windowed phase tensors
+    alm = s._analysis_impl(sky, lam, plan, lam_lo)  # [f, p, L+1, M+1]
+    Sr = torch.einsum("fplm,lmr->fprm", alm.real, lam_band)
+    Si = torch.einsum("fplm,lmr->fprm", alm.imag, lam_band)
+    if band_lo is not None:
+        blo = band_lo.to(rdt)
+        Sr = Sr + torch.einsum("fplm,lmr->fprm", alm.real, blo)
+        Si = Si + torch.einsum("fplm,lmr->fprm", alm.imag, blo)
+    # ring -> pixel gather, then the per-pixel DFT factors
+    Srk = Sr.index_select(2, state["flat_ring"])  # [f, p, Kf, M+1]
+    Sik = Si.index_select(2, state["flat_ring"])
+    a1 = (Ecf * Srk - Esf * Sik).reshape(nfreq, K, mmax + 1)
+    a2 = (Ecf * Sik + Esf * Srk).reshape(nfreq, K, mmax + 1)
+
+    if weight is not None:
+        w = torch.as_tensor(weight).to(device=dev, dtype=rdt)
+        if state["order"] is not None:
+            w = w[..., state["order"]]
+        w_pad = torch.zeros(mmax + 1, 2, nfreq, chunk * nchunk, dtype=rdt, device=dev)
+        w_pad[..., :npairs] = w
+        weight_t = w_pad.permute(1, 2, 3, 0)  # [2, f, npad, M+1]
+
+    # one pass over the baseline chunks: project, weight, and accumulate
+    # the adjoint while the chunk's fringe planes are live
+    Yr = torch.zeros(nfreq, K, mmax + 1, dtype=rdt, device=dev)
+    Yi = torch.zeros(nfreq, K, mmax + 1, dtype=rdt, device=dev)
+    bidx = torch.arange(chunk, device=dev)
+    for c0, c1, Mb in groups:
+        a1b = a1[:, :, :Mb]
+        a2b = a2[:, :, :Mb]
+        mpos = (torch.arange(Mb, device=dev) > 0).to(rdt)
+        for c in range(c0, c1):
+            re, im = _fringe_planes(state, c)
+            G1 = re @ a1b
+            G2 = im @ a2b
+            G3 = re @ a2b
+            G4 = im @ a1b
+            vp_r = (G1 - G2) * scale
+            vp_i = (G3 + G4) * scale
+            vm_r = (G1 + G2) * scale
+            vm_i = (G3 - G4) * scale
+            # padded baselines carry no data; m = 0 has no negative mode
+            valid = (c * chunk + bidx < npairs).to(rdt)[None, :, None]
+            vp_r, vp_i = vp_r * valid, vp_i * valid
+            vm_r, vm_i = vm_r * valid * mpos, vm_i * valid * mpos
+            if weight is not None:
+                wc = weight_t[:, :, c * chunk : (c + 1) * chunk, :Mb]
+                vp_r, vp_i = vp_r * wc[0], vp_i * wc[0]
+                vm_r, vm_i = vm_r * wc[1], vm_i * wc[1]
+            vs_r, vs_i = vp_r + vm_r, vp_i + vm_i
+            vd_r, vd_i = vm_r - vp_r, vm_i - vp_i
+            reT = re.transpose(1, 2)
+            imT = im.transpose(1, 2)
+            Yr[:, :, :Mb] += reT @ vs_r - imT @ vd_i
+            Yi[:, :, :Mb] += reT @ vs_i + imT @ vd_r
+
+    # per-pixel conjugate DFT factors, then the pixel -> ring reduction
+    Yr = Yr.reshape(nfreq, npol, Kf, mmax + 1)
+    Yi = Yi.reshape(nfreq, npol, Kf, mmax + 1)
+    Tr = Ecf * Yr + Esf * Yi
+    Ti = Ecf * Yi - Esf * Yr
+    Tr = torch.einsum("rk,fpkm->fprm", state["ring_onehot"], Tr)
+    Ti = torch.einsum("rk,fpkm->fprm", state["ring_onehot"], Ti)
+    ar = torch.einsum("lmr,fprm->fplm", lam_band, Tr)
+    ai = torch.einsum("lmr,fprm->fplm", lam_band, Ti)
+    if band_lo is not None:
+        ar = ar + torch.einsum("lmr,fprm->fplm", blo, Tr)
+        ai = ai + torch.einsum("lmr,fprm->fplm", blo, Ti)
+    a_dirty = torch.complex(ar, ai) * scale
+    return s._synthesis_impl(a_dirty, lam, plan, lam_lo)
+
+
+def fused_roundtrip_fn(bt, chunk: int | None = None, dtype=torch.float32, device=None):
+    """A reusable ``run(sky, weight=None)`` over a state prepared once."""
+    state = prepare_state(bt, chunk=chunk, dtype=dtype, device=device)
+
+    def run(sky, weight=None):
+        return fused_roundtrip(state, sky, weight)
+
+    return run
+
+
+def fused_simulate_to_map(bt, sky: torch.Tensor, chunk: int | None = None, weight=None) -> torch.Tensor:
+    """Simulate -> dirty-map round trip of ``sky`` [nfreq, npol_sky, npix].
+
+    Runs on ``sky.device`` in ``sky.dtype`` (float32, or float64 for
+    reference runs).  ``weight`` [mmax+1, 2, nfreq, nbase] weights the
+    m-modes (unit weights when omitted).  The prepared state is cached on
+    ``bt`` per (chunk, device, dtype).
+    """
+    key = (chunk, sky.device, sky.dtype)
+    if key not in bt._fused_fns:
+        bt._fused_fns[key] = fused_roundtrip_fn(bt, chunk=chunk, dtype=sky.dtype, device=sky.device)
+    return bt._fused_fns[key](sky, weight=weight)

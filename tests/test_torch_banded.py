@@ -1,0 +1,111 @@
+"""Banded covariance and banded Cholesky: draco_tpu_torch against draco_tpu.
+
+Tolerances: float32 against float32, max|diff| / max|ref| <= 2e-5 (the
+sums run in another order); the zeros past the band end are exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from draco_tpu.ops import banded as jbanded
+from draco_tpu.ops.pallas_kernels import banded_covariance_pallas
+from draco_tpu_torch.ops import banded, cuda_kernels
+
+TOL32 = 2e-5
+
+
+def _rel(got, ref):
+    return np.abs(np.asarray(got) - np.asarray(ref)).max() / np.abs(np.asarray(ref)).max()
+
+
+def _problem(m, n, B, seed=5):
+    rng = np.random.Generator(np.random.SFC64(seed))
+    R = rng.standard_normal((m, n)).astype(np.float32)
+    Ni = rng.uniform(0.5, 2.0, (B, n)).astype(np.float32)
+    Ni[:, n // 3 : n // 3 + 7] = 0.0  # a zero-weight gap
+    return R, Ni
+
+
+@pytest.mark.parametrize("m,n,B,bw", [(100, 300, 3, 5), (64, 256, 2, 11), (97, 130, 4, 9)])
+def test_banded_covariance_matches_jax(m, n, B, bw):
+    R, Ni = _problem(m, n, B)
+    got = banded.banded_covariance(torch.from_numpy(R), torch.from_numpy(Ni), bw).numpy()
+    ref = np.stack([np.asarray(jbanded.banded_covariance(R, Ni[b], bw)) for b in range(B)])
+    pallas = np.asarray(
+        banded_covariance_pallas(R, Ni, bw, tile_j=32, tile_t=128, interpret=True)
+    )
+    assert got.shape == ref.shape == pallas.shape == (B, bw + 1, m)
+    assert _rel(got, ref) <= TOL32
+    assert _rel(got, pallas) <= TOL32
+    for d in range(bw + 1):
+        assert np.all(got[:, d, m - d :] == 0.0)
+
+
+def test_wrapper_on_cpu_runs_the_plain_version():
+    R, Ni = _problem(40, 90, 3)
+    Rt, Nit = torch.from_numpy(R), torch.from_numpy(Ni)
+    before = cuda_kernels.launches["banded_covariance"]
+    out = cuda_kernels.banded_covariance_batched(Rt, Nit, 4)
+    assert cuda_kernels.launches["banded_covariance"] == before
+    assert torch.equal(out, banded.banded_covariance(Rt, Nit, 4))
+
+
+def test_wrapper_rejects_bad_shapes():
+    R, Ni = _problem(40, 90, 3)
+    with pytest.raises(ValueError):
+        cuda_kernels.banded_covariance_batched(torch.from_numpy(R), torch.from_numpy(Ni[:, :50]), 4)
+    with pytest.raises(ValueError):
+        cuda_kernels.banded_covariance_batched(torch.from_numpy(R), torch.from_numpy(Ni), -1)
+
+
+def _spd_band(m, bw, B, dtype, seed=7):
+    rng = np.random.Generator(np.random.SFC64(seed))
+    R = rng.standard_normal((m, 3 * m)).astype(dtype)
+    # a banded Gram matrix: zero R outside a band of rows per column
+    for i in range(m):
+        R[i, : max(0, 3 * (i - bw // 2))] = 0.0
+        R[i, 3 * (i + bw // 2 + 1) :] = 0.0
+    Ni = rng.uniform(0.5, 2.0, (B, 3 * m)).astype(dtype)
+    ab = np.stack([np.asarray(jbanded.banded_covariance(R, Ni[b], bw)) for b in range(B)])
+    ab[:, 0] += 1e-2
+    rhs = rng.standard_normal((B, m)).astype(dtype)
+    return ab, rhs
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10), (np.float32, TOL32)])
+def test_solveh_banded_matches_jax(dtype, tol):
+    m, bw, B = 60, 5, 3
+    ab, rhs = _spd_band(m, bw, B, dtype)
+    got = banded.solveh_banded_lower(torch.from_numpy(ab), torch.from_numpy(rhs), bw).numpy()
+    ref = np.stack(
+        [np.asarray(jbanded.solveh_banded_lower(ab[b], rhs[b], bw)) for b in range(B)]
+    )
+    assert got.dtype == dtype
+    # the factor and solves follow the same recurrences in the same order
+    assert _rel(got, ref) <= tol
+    lb = banded.banded_cholesky(torch.from_numpy(ab), bw).numpy()
+    lb_ref = np.stack([np.asarray(jbanded.banded_cholesky(ab[b], bw)) for b in range(B)])
+    assert _rel(lb, lb_ref) <= (1e-12 if dtype == np.float64 else TOL32)
+
+
+def test_solveh_banded_against_dense_solve():
+    m, bw, B = 40, 3, 2
+    ab, rhs = _spd_band(m, bw, B, np.float64, seed=3)
+    x = banded.solveh_banded_lower(torch.from_numpy(ab), torch.from_numpy(rhs), bw).numpy()
+    for b in range(B):
+        A = np.zeros((m, m))
+        for d in range(bw + 1):
+            idx = np.arange(m - d)
+            A[idx + d, idx] = ab[b, d, : m - d]
+            A[idx, idx + d] = ab[b, d, : m - d]
+        assert np.allclose(A @ x[b], rhs[b], atol=1e-9 * np.abs(rhs[b]).max())
+
+
+def test_singular_band_gives_nan():
+    ab = torch.zeros(2, 3, 10, dtype=torch.float64)
+    ab[:, 0] = 1.0
+    ab[1, 0, 4] = -1.0
+    lb = banded.banded_cholesky(ab, 2)
+    assert torch.isfinite(lb[0]).all()
+    assert torch.isnan(lb[1, 0, 4:]).all()

@@ -1,0 +1,160 @@
+"""SHT tables and transforms: draco_tpu_torch against draco_tpu.
+
+Tolerances: float32 against float32, max|diff| / max|ref| <= 2e-5; the
+two-float Legendre sum hi + lo against the float64 recurrence, 1e-9 of
+the table's scale; ``threefloat_split`` exactly.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from draco_tpu.ops import sht as jsht
+from draco_tpu.ops import tools as jtools
+from draco_tpu_torch.ops import healpix, sht, tools
+
+TOL32 = 2e-5
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return sht.SHT(16, 47, 47), jsht.get_sht(16, 47, 47)
+
+
+def test_geometry_is_the_reference(pair):
+    s, js = pair
+    assert s._belt_rings == js._belt_rings and s._cap_rings == js._cap_rings
+    assert len(s._cap_wgroups) == len(js._cap_wgroups)
+    for (ra, wa), (rb, wb) in zip(s._cap_wgroups, js._cap_wgroups):
+        assert wa == wb and np.array_equal(ra, rb)
+    info, jinfo = healpix.ring_info(16), jsht.healpix.ring_info(16)
+    assert np.array_equal(info.theta, jinfo.theta) and np.array_equal(info.phi0, jinfo.phi0)
+
+
+def test_two_float_legendre_matches_jax(pair):
+    s, js = pair
+    hi, lo = s.precompute_legendre_split_2f()
+    jhi, jlo = js.precompute_legendre_split_2f_streamed()
+    with jax.enable_x64(True):
+        ref = np.asarray(js._legendre_block(np.arange(48), jnp.float64))
+    ring_ids = np.asarray(js._cap_rings)
+    sections = [("belt", None)] + [("caps", i) for i in range(len(js._cap_wgroups))]
+    for name, i in sections:
+        h = hi[name] if i is None else hi[name][i]
+        l = lo[name] if i is None else lo[name][i]
+        jh = jhi[name] if i is None else jhi[name][i]
+        if i is None:
+            r = ref[:, :, js._belt_rings[0] : js._belt_rings[-1] + 1]
+        else:
+            r = ref[:, :, ring_ids[js._cap_wgroups[i][0]]]
+        assert h.dtype == torch.float32 and l.dtype == torch.bfloat16
+        assert _rel(h.numpy(), jh) <= TOL32
+        two = h.double().numpy() + l.double().numpy()
+        assert np.abs(two - r).max() <= 1e-9 * np.abs(ref).max()
+
+
+def test_float32_legendre_is_stable(pair):
+    s, _ = pair
+    lam32 = s.legendre(np.arange(s.info.nring), torch.float32)
+    lam64 = s.legendre(np.arange(s.info.nring), torch.float64)
+    assert torch.isfinite(lam32).all()
+    assert _rel(lam32.double().numpy(), lam64.numpy()) <= TOL32
+
+
+def test_exact_turns_dft_factors(pair):
+    s, js = pair
+    plan = s.precompute_ring_plan(torch.float32)
+    jplan = js.precompute_ring_plan_streamed()
+    Wr, Wi = plan["W"]
+    W = Wr.numpy() + 1j * Wi.numpy()
+    assert _rel(W, jplan["W"]) <= TOL32
+    j = np.arange(s._belt_nphi, dtype=np.float64)[:, None]
+    m = np.arange(s.mmax + 1, dtype=np.float64)[None, :]
+    assert np.abs(W - np.exp(-2j * np.pi * j * m / s._belt_nphi)).max() < 5e-7
+    w = 4 * np.pi / s.npix
+    for (Pr, Pi), jP, (rows_arr, wd) in zip(plan["P"], jplan["P"], js._cap_wgroups):
+        P = Pr.numpy() + 1j * Pi.numpy()
+        assert _rel(P, jP) <= TOL32
+        phi = js._cap_phi[rows_arr][:, :wd]
+        mask = js._cap_mask[rows_arr][:, :wd]
+        exact = np.exp(-1j * phi[:, :, None] * m[None]) * mask[:, :, None] * w
+        assert np.abs(P - exact).max() < 5e-7 * w
+    pr, pi = s._ring_phase(s._belt_rings, torch.float32, None)
+    phi0 = s.info.phi0[s._belt_rings]
+    exact = np.exp(-1j * phi0[:, None] * np.arange(s.mmax + 1)[None, :])
+    assert np.abs(pr.numpy() + 1j * pi.numpy() - exact).max() < 5e-7
+
+
+def test_map2alm_alm2map_match_jax():
+    rng = np.random.Generator(np.random.SFC64(3))
+    maps = rng.standard_normal((2, healpix.npix_of(16))).astype(np.float32)
+    alm = sht.map2alm(torch.from_numpy(maps), lmax=47, iter=3)
+    jalm = np.asarray(jsht.map2alm(maps, lmax=47, iter=3))
+    assert alm.shape == jalm.shape and alm.dtype == torch.complex64
+    assert _rel(alm.numpy(), jalm) <= TOL32
+    back = sht.alm2map(alm, 16)
+    jback = np.asarray(jsht.alm2map(jalm.astype(np.complex64), 16))
+    assert back.dtype == torch.float32
+    assert _rel(back.numpy(), jback) <= TOL32
+
+
+def test_float64_transforms_match_jax():
+    rng = np.random.Generator(np.random.SFC64(6))
+    maps = rng.standard_normal((healpix.npix_of(16),))
+    alm = sht.map2alm(torch.from_numpy(maps), lmax=31, iter=2)
+    jalm = np.asarray(jsht.map2alm(maps, lmax=31, iter=2))
+    assert alm.dtype == torch.complex128
+    assert _rel(alm.numpy(), jalm) <= 1e-10
+    back = sht.alm2map(alm, 16)
+    assert _rel(back.numpy(), np.asarray(jsht.alm2map(jalm, 16))) <= 1e-10
+
+
+def test_analysis_rejects_aliased_mmax():
+    s = sht.SHT(4, 20, 20)
+    with pytest.raises(ValueError, match="analysis requires mmax"):
+        s.analysis(torch.zeros(healpix.npix_of(4)))
+
+
+def test_threefloat_split_is_exact():
+    rng = np.random.Generator(np.random.SFC64(1))
+    a64 = rng.standard_normal((50, 3)) * 10.0 ** rng.integers(-3, 4, (50, 3))
+    parts = tools.threefloat_split(a64)
+    for got, ref in zip(parts, jtools.threefloat_split(a64)):
+        assert got.dtype == np.float32 and np.array_equal(got, ref)
+    a, b, c = (p.astype(np.float64) for p in parts)
+    assert np.abs(a + b + c - a64).max() <= 1e-14 * np.abs(a64).max()
+
+
+def test_phase_frac3_and_sincos_turns_match_jax():
+    rng = np.random.Generator(np.random.SFC64(2))
+    b64 = rng.uniform(-300, 300, (20, 3))
+    v64 = rng.standard_normal((64, 3))
+    v64 /= np.linalg.norm(v64, axis=1, keepdims=True)
+    b3, v3 = tools.threefloat_split(b64), tools.threefloat_split(v64)
+    t = tools.phase_frac3(*(torch.from_numpy(p) for p in b3), *(torch.from_numpy(p) for p in v3))
+    jt = np.asarray(jtools.phase_frac3(*b3, *v3))
+    assert np.abs(t.numpy() - jt).max() <= 1e-6
+    exact = b64 @ v64.T
+    err = (t.numpy() - exact) - np.round(t.numpy() - exact)
+    assert np.abs(err).max() < 1e-6
+    c, s_ = tools.sincos_turns(t)
+    jc, js_ = jtools.sincos_turns(jnp.asarray(jt))
+    assert np.abs(c.numpy() - np.asarray(jc)).max() <= 1e-6
+    assert np.abs(s_.numpy() - np.asarray(js_)).max() <= 1e-6
+    assert np.abs(c.numpy() - np.cos(2 * np.pi * exact)).max() < 2e-6
+    c64, s64 = tools.sincos_turns(t.double())
+    # float64 takes the library trig (last-ulp differences between libms)
+    assert np.abs(c64.numpy() - np.cos(2 * np.pi * t.double().numpy())).max() <= 1e-15
+    assert np.abs(s64.numpy() - np.sin(2 * np.pi * t.double().numpy())).max() <= 1e-15
+
+
+def test_invert_no_zero():
+    x = torch.tensor([0.0, 1e-45, 2.0, -4.0], dtype=torch.float32)
+    assert torch.equal(tools.invert_no_zero(x), torch.tensor([0.0, 0.0, 0.5, -0.25]))
