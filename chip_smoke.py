@@ -8,10 +8,14 @@ Phases, each of which raises on failure (exit code != 0):
 1. set-up: needs a CUDA device; prints the card's name and power limit;
    builds the CUDA kernel from ``draco_tpu_torch/csrc`` with nvcc;
 2. the banded-covariance kernel against its plain PyTorch version in
-   float64 on the card, at the regridder's shape (R [2098, 8640] from a
-   Lanczos matrix of one jittered sidereal day, Ni [2080, 8640] with
-   zero-weight gaps, bw 9): max|diff| / max|ref| <= 1e-5, band-end zeros
-   exact; both timed with CUDA events;
+   float64 on the card, on the operands that phase 3's regrid hands it
+   (R [2098, 8640] from a Lanczos matrix of one jittered sidereal day,
+   Ni [2017, 8640], the time stream's weights with their zero-weight gaps,
+   bw 9): the float32 kernel within 1e-5 and the
+   float64 kernel within 1e-12 (max|diff| / max|ref|), band-end zeros
+   exact, two launches bitwise equal; each timed with CUDA events beside
+   the plain version in its type.  At R [300, 1000]: an R with permuted
+   columns (every sample window full width) and bw 33, within 1e-5;
 3. the slice at the bench headline's width: a time stream from ``--seed``
    (every baseline of the 64-dish array x 8640 samples, with zero-weight
    gaps) -> ``regrid_sidereal`` to
@@ -45,8 +49,8 @@ NTIME = 8640
 SAMPLES = 2048
 KERNEL_WIDTH = 5
 EPSILON = 1e-3
-KERNEL_BATCH = 2080
 TOL_KERNEL = 1e-5
+TOL_KERNEL_F64 = 1e-12
 TOL_MAP = 1e-5
 
 
@@ -95,17 +99,16 @@ def time_stream(nfreq: int, nbase: int, ntime: int, seed: int):
     return times, vis, weight
 
 
-def regrid_operands(times: np.ndarray, samples: int, ntime_batch: int, seed: int):
-    """R and Ni exactly as ``regrid_sidereal`` hands them to the kernel."""
+def regrid_operands(times: np.ndarray, weight: np.ndarray, samples: int):
+    """R and Ni exactly as the slice's ``regrid_sidereal`` hands them to the
+    kernel: R [samples + 2 pad, ntime], Ni [nfreq * nbase, ntime]."""
     from draco_tpu_torch.ops import regrid
 
     pad = 5 * KERNEL_WIDTH
     end = float(times[-1])
     grid = end * np.arange(-pad, samples + pad, dtype=np.float64) / samples
     R = np.ascontiguousarray(regrid.lanczos_forward_matrix(grid, times, KERNEL_WIDTH).T, np.float32)
-    rng = np.random.Generator(np.random.SFC64(seed))
-    Ni = rng.uniform(0.5, 2.0, (ntime_batch, times.size)).astype(np.float32)
-    Ni[:, times.size // 3 : times.size // 3 + 40] = 0.0
+    Ni = np.ascontiguousarray(weight.reshape(-1, times.size), np.float32)
     return R, Ni
 
 
@@ -123,35 +126,90 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def check_kernel(device, times, seed: int):
-    """Phase 2: the kernel against its plain version at the slice's shape."""
+def _rel_err(out, ref) -> tuple[float, float]:
+    err = (out.double() - ref).abs().max().item()
+    return err, err / ref.abs().max().item()
+
+
+def _band_end_zeros(out, bw: int) -> bool:
+    m = out.shape[-1]
+    return all(bool((out[:, d, max(m - d, 0) :] == 0).all()) for d in range(bw + 1))
+
+
+def check_kernel(device, times, weight, seed: int):
+    """Phase 2: the kernel against its plain version on the slice's operands."""
     import torch
 
     from draco_tpu_torch.ops import banded, cuda_kernels
 
     bw = 2 * KERNEL_WIDTH - 1
-    R_h, Ni_h = regrid_operands(times, SAMPLES, KERNEL_BATCH, seed=seed)
+    R_h, Ni_h = regrid_operands(times, weight, SAMPLES)
     R = torch.from_numpy(R_h).to(device)
     Ni = torch.from_numpy(Ni_h).to(device)
+    R64, Ni64 = R.double(), Ni.double()
     out = cuda_kernels.banded_covariance_batched(R, Ni, bw)
+    again = cuda_kernels.banded_covariance_batched(R, Ni, bw)
+    out64 = cuda_kernels.banded_covariance_batched(R64, Ni64, bw)
     torch.cuda.synchronize()
-    ref = banded.banded_covariance(R.double(), Ni.double(), bw)
-    err = (out.double() - ref).abs().max().item()
-    rel = err / ref.abs().max().item()
-    m = R.shape[0]
-    tail_zero = all(bool((out[:, d, m - d :] == 0).all()) for d in range(bw + 1))
+    ref = banded.banded_covariance(R64, Ni64, bw)
+    err, rel = _rel_err(out, ref)
+    err64, rel64 = _rel_err(out64, ref)
+    tail_zero = _band_end_zeros(out, bw) and _band_end_zeros(out64, bw)
+    bitwise = torch.equal(out, again)
     log(f"kernel banded_covariance R{tuple(R.shape)} Ni{tuple(Ni.shape)} bw={bw}: "
-        f"max_abs_err={err:.3e} rel={rel:.3e} band_end_zeros_exact={tail_zero}")
-    if not (rel <= TOL_KERNEL and tail_zero and torch.isfinite(out).all()):
-        raise RuntimeError(f"banded_covariance kernel disagrees with its plain version: rel {rel:.3e}")
-    del ref
-    # plain, kernel, kernel, plain
-    plain1 = cuda_ms(lambda: banded.banded_covariance(R, Ni, bw), 3)
-    kern1 = cuda_ms(lambda: cuda_kernels.banded_covariance_batched(R, Ni, bw), 5)
-    kern2 = cuda_ms(lambda: cuda_kernels.banded_covariance_batched(R, Ni, bw), 5)
-    plain2 = cuda_ms(lambda: banded.banded_covariance(R, Ni, bw), 3)
-    log(f"kernel banded_covariance ms: kernel {kern1:.4f} {kern2:.4f}, plain float32 {plain1:.4f} {plain2:.4f}")
-    return {"max_abs_err": err, "rel_err": rel, "ms": min(kern1, kern2), "plain_ms": min(plain1, plain2)}
+        f"float32 max_abs_err={err:.3e} rel={rel:.3e}, float64 max_abs_err={err64:.3e} rel={rel64:.3e}, "
+        f"band_end_zeros_exact={tail_zero} two_launches_bitwise_equal={bitwise}")
+    if not (rel <= TOL_KERNEL and torch.isfinite(out).all()):
+        raise RuntimeError(f"float32 banded_covariance kernel disagrees with its plain version: rel {rel:.3e}")
+    if not (rel64 <= TOL_KERNEL_F64 and torch.isfinite(out64).all()):
+        raise RuntimeError(f"float64 banded_covariance kernel disagrees with its plain version: rel {rel64:.3e}")
+    if not (tail_zero and bitwise):
+        raise RuntimeError("banded_covariance kernel: band-end zeros not exact or launches not bitwise equal")
+    del ref, out, again, out64
+    # plain, kernel, kernel, plain, in each type
+    times_ms = {}
+    for name, (r, ni) in (("f32", (R, Ni)), ("f64", (R64, Ni64))):
+        plain1 = cuda_ms(lambda: banded.banded_covariance(r, ni, bw), 3)
+        kern1 = cuda_ms(lambda: cuda_kernels.banded_covariance_batched(r, ni, bw), 10)
+        kern2 = cuda_ms(lambda: cuda_kernels.banded_covariance_batched(r, ni, bw), 10)
+        plain2 = cuda_ms(lambda: banded.banded_covariance(r, ni, bw), 3)
+        log(f"kernel banded_covariance {name} ms: kernel {kern1:.4f} {kern2:.4f}, "
+            f"plain {plain1:.4f} {plain2:.4f}")
+        times_ms[name] = (min(kern1, kern2), min(plain1, plain2))
+    check_small_cases(device, seed)
+    return {
+        "max_abs_err": err, "ms": times_ms["f32"][0], "plain_ms": times_ms["f32"][1],
+        "max_abs_err_f64": err64, "ms_f64": times_ms["f64"][0], "plain_ms_f64": times_ms["f64"][1],
+    }
+
+
+def check_small_cases(device, seed: int, m: int = 300, n: int = 1000, batch: int = 64):
+    """Phase 2, small shapes: an R whose columns are permuted, and bw 33."""
+    import torch
+
+    from draco_tpu_torch.ops import banded, cuda_kernels, regrid
+
+    rng = np.random.Generator(np.random.SFC64(seed))
+    samples = np.sort(rng.uniform(0.0, 1.0, n))
+    R_h = regrid.lanczos_forward_matrix(np.linspace(0.0, 1.0, m), samples, KERNEL_WIDTH).T
+    Ni = torch.from_numpy(rng.uniform(0.5, 2.0, (batch, n)).astype(np.float32)).to(device)
+    permuted = torch.from_numpy(np.ascontiguousarray(R_h[:, rng.permutation(n)], np.float32)).to(device)
+    # the nonzeros of every tile of rows span the samples: full-width windows
+    win = cuda_kernels.tile_windows(permuted, cuda_kernels.tile_rows())
+    full = bool(((win[:, 1] - win[:, 0] >= 0.9 * n) | (win[:, 1] <= win[:, 0])).all())
+    banded_R = torch.from_numpy(np.ascontiguousarray(R_h, np.float32)).to(device)
+    for name, R, bw in (("permuted columns", permuted, 2 * KERNEL_WIDTH - 1), ("bw 33", banded_R, 33)):
+        out = cuda_kernels.banded_covariance_batched(R, Ni, bw)
+        ref = banded.banded_covariance(R.double(), Ni.double(), bw)
+        err, rel = _rel_err(out, ref)
+        tail_zero = _band_end_zeros(out, bw)
+        log(f"kernel banded_covariance {name} R{tuple(R.shape)} Ni{tuple(Ni.shape)} bw={bw}: "
+            f"max_abs_err={err:.3e} rel={rel:.3e} band_end_zeros_exact={tail_zero}"
+            + (f" full_width_windows={full}" if name == "permuted columns" else ""))
+        if not (rel <= TOL_KERNEL and tail_zero and torch.isfinite(out).all()):
+            raise RuntimeError(f"banded_covariance kernel, {name}: rel {rel:.3e} or band-end zeros not exact")
+    if not full:
+        raise RuntimeError("the permuted R did not give full-width windows")
 
 
 def run_slice(bt, tel, sky, times, vis, weight, device, samples, chunk):
@@ -225,7 +283,7 @@ def main() -> int:
     tel, bt = telescope(NSIDE)
     nbase = len(tel.uniquepairs)
     times, vis, weight = time_stream(tel.nfreq, nbase, NTIME, seed=args.seed)
-    kern = check_kernel(device, times, seed=args.seed + 1)
+    kern = check_kernel(device, times, weight, seed=args.seed + 1)
 
     # phase 3: the slice at headline width
     rng = np.random.Generator(np.random.SFC64(1))
@@ -276,6 +334,9 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+        "max_abs_err_f64": kern["max_abs_err_f64"],
+        "ms_f64": kern["ms_f64"],
+        "plain_ms_f64": kern["plain_ms_f64"],
     }]}
     print(json.dumps(record))
     print(card)

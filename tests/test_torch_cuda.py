@@ -6,8 +6,8 @@ file imports no JAX, so it runs on a machine with only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the kernel against its plain version in float64 on the same
-inputs, max|diff| / max|ref| <= 1e-5 (float32 sums of the kernel); the
-band-end zeros exactly.
+inputs, max|diff| / max|ref| <= 1e-5 for the float32 kernel (float32 sums)
+and <= 1e-12 for the float64 kernel; the band-end zeros exactly.
 """
 
 import numpy as np
@@ -17,6 +17,8 @@ import torch
 from draco_tpu_torch.ops import banded, cuda_kernels, regrid
 
 pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 @pytest.fixture
@@ -30,51 +32,97 @@ def _rel(got, ref):
     return ((got.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
 
 
-@pytest.mark.parametrize("m,n,B,bw", [(300, 1000, 5, 9), (128, 64, 2, 0), (97, 130, 3, 31), (2, 77, 1, 4)])
-def test_banded_covariance_kernel_matches_plain(cuda, m, n, B, bw):
-    g = torch.Generator(device="cpu").manual_seed(m * n + bw)
-    R = torch.randn(m, n, generator=g).to(cuda)
-    Ni = torch.rand(B, n, generator=g).to(cuda)
-    Ni[:, n // 3 : n // 3 + 5] = 0.0
+def _lanczos_R(m, n, a=5, seed=4, permute=False):
+    """A Lanczos regrid matrix [m, n] with empty pad rows, as the regridder
+    builds it; with ``permute`` its columns are shuffled, so that every
+    tile's sample window is full width."""
+    rng = np.random.Generator(np.random.SFC64(seed))
+    samples = np.sort(rng.uniform(0, 1, n))
+    R = regrid.lanczos_forward_matrix(np.linspace(-0.1, 1.1, m), samples, a=a).T
+    if permute:
+        R = R[:, rng.permutation(n)]
+    return torch.from_numpy(np.ascontiguousarray(R))
+
+
+def _check(cuda, R, Ni, bw, dtype):
+    R, Ni = R.to(dtype).to(cuda), Ni.to(dtype).to(cuda)
     before = cuda_kernels.launches["banded_covariance"]
     out = cuda_kernels.banded_covariance_batched(R, Ni, bw)
     torch.cuda.synchronize()
     assert cuda_kernels.launches["banded_covariance"] == before + 1
     ref = banded.banded_covariance(R.double(), Ni.double(), bw)
-    assert out.shape == (B, bw + 1, m) and out.dtype == torch.float32
-    assert _rel(out, ref) <= 1e-5
+    m = R.shape[0]
+    assert out.shape == (Ni.shape[0], bw + 1, m) and out.dtype == dtype
+    assert _rel(out, ref) <= TOL[dtype]
     for d in range(bw + 1):
         assert (out[:, d, max(m - d, 0) :] == 0).all()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "m,n,B,bw",
+    [(300, 1000, 5, 9), (128, 64, 2, 0), (97, 130, 3, 31), (2, 77, 1, 4), (300, 1000, 70, 33), (30, 100, 3, 40)],
+)
+def test_banded_covariance_kernel_matches_plain(cuda, m, n, B, bw, dtype):
+    g = torch.Generator(device="cpu").manual_seed(m * n + bw)
+    R = torch.randn(m, n, generator=g)
+    Ni = torch.rand(B, n, generator=g)
+    Ni[:, n // 3 : n // 3 + 5] = 0.0
+    _check(cuda, R, Ni, bw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("permute", [False, True])
+@pytest.mark.parametrize("m,n,B,bw", [(300, 1000, 37, 9), (300, 1000, 5, 33), (20, 500, 4, 9)])
+def test_banded_covariance_kernel_on_a_lanczos_band(cuda, m, n, B, bw, permute, dtype):
+    R = _lanczos_R(m, n, permute=permute)
+    Ni = torch.from_numpy(np.random.Generator(np.random.SFC64(m + B)).uniform(0.5, 2.0, (B, n)))
+    _check(cuda, R, Ni, bw, dtype)
+
+
+def test_banded_covariance_kernel_is_deterministic(cuda):
+    R = _lanczos_R(300, 1000).float().to(cuda)
+    Ni = torch.rand(70, 1000, device=cuda)
+    a = cuda_kernels.banded_covariance_batched(R, Ni, 9)
+    b = cuda_kernels.banded_covariance_batched(R, Ni, 9)
+    assert torch.equal(a, b)
 
 
 def test_banded_covariance_kernel_rejects_what_it_does_not_take(cuda):
     R = torch.randn(40, 64, device=cuda)
     Ni = torch.rand(3, 64, device=cuda)
     with pytest.raises(TypeError):
-        cuda_kernels.banded_covariance_batched(R.double(), Ni.double(), 3)
+        cuda_kernels.banded_covariance_batched(R.half(), Ni.half(), 3)
+    with pytest.raises(TypeError):
+        cuda_kernels.banded_covariance_batched(R, Ni.double(), 3)
     with pytest.raises(ValueError):
         cuda_kernels.banded_covariance_batched(R.T.contiguous().T, Ni, 3)
-    with pytest.raises(ValueError):
-        cuda_kernels.banded_covariance_batched(R, Ni, 32)
     with pytest.raises(ValueError):
         cuda_kernels.banded_covariance_batched(R, Ni.cpu(), 3)
 
 
-def test_band_wiener_on_the_card_matches_the_cpu(cuda):
+@pytest.mark.parametrize(
+    "a,ydtype", [(5, torch.complex64), (5, torch.complex128), (17, torch.complex64), (17, torch.complex128)]
+)
+def test_band_wiener_on_the_card_matches_the_cpu(cuda, a, ydtype):
     rng = np.random.Generator(np.random.SFC64(4))
-    m, n, k, bw = 120, 500, 4, 9
+    m, n, k, bw = 120, 500, 4, 2 * a - 1
     grid = np.linspace(0, 1, m)
-    R = regrid.lanczos_forward_matrix(grid, np.sort(rng.uniform(0, 1, n)), a=5).T
+    R = regrid.lanczos_forward_matrix(grid, np.sort(rng.uniform(0, 1, n)), a=a).T
     R = torch.as_tensor(R, dtype=torch.float64)
     Ni = torch.as_tensor(rng.uniform(0.5, 2.0, (k, n)))
     y = torch.as_tensor(rng.standard_normal((k, n)) + 1j * rng.standard_normal((k, n)))
     Si = torch.full((m,), 1e-1, dtype=torch.float64)
     xh, nw = regrid.band_wiener(R, Ni, Si, y, bw)
+    rdt = torch.float64 if ydtype == torch.complex128 else torch.float32
     before = cuda_kernels.launches["banded_covariance"]
     xg, ng = regrid.band_wiener(
-        R.float().to(cuda), Ni.float().to(cuda), Si.float().to(cuda), y.to(torch.complex64).to(cuda), bw
+        R.to(rdt).to(cuda), Ni.to(rdt).to(cuda), Si.to(rdt).to(cuda), y.to(ydtype).to(cuda), bw
     )
     assert cuda_kernels.launches["banded_covariance"] == before + 1
-    assert _rel(ng.cpu(), nw) <= 1e-5
-    # the float32 banded solve against the float64 one on the CPU
-    assert _rel(torch.view_as_real(xg.cpu()), torch.view_as_real(xh)) <= 1e-5
+    assert xg.dtype == ydtype and ng.dtype == rdt
+    # the card's banded solve in its own type against float64 on the CPU
+    tol = 1e-5 if rdt == torch.float32 else 1e-10
+    assert _rel(ng.cpu(), nw) <= tol
+    assert _rel(torch.view_as_real(xg.cpu()), torch.view_as_real(xh)) <= tol

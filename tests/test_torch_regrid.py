@@ -61,6 +61,21 @@ def test_band_wiener_matches_jax(complex_y):
     assert _rel(nw.numpy(), jnw) <= TOL32
 
 
+@pytest.mark.parametrize("complex_y", [False, True])
+def test_band_wiener_float64_matches_jax(complex_y):
+    R, Ni, Si, y, bw = _wiener_problem(complex_y)
+    R, Ni, Si = R.astype(np.float64), Ni.astype(np.float64), Si.astype(np.float64)
+    y = y.astype(np.complex128 if complex_y else np.float64)
+    xh, nw = regrid.band_wiener(
+        torch.from_numpy(R), torch.from_numpy(Ni), torch.from_numpy(Si), torch.from_numpy(y), bw
+    )
+    jxh, jnw = jregrid.band_wiener(R, Ni, Si, y, bw, use_pallas=False)
+    assert xh.dtype == (torch.complex128 if complex_y else torch.float64)
+    assert nw.dtype == torch.float64
+    assert _rel(xh.numpy(), jxh) <= TOL64
+    assert _rel(nw.numpy(), jnw) <= TOL64
+
+
 def test_band_wiener_rejects_complex_R():
     R, Ni, Si, y, bw = _wiener_problem(False)
     with pytest.raises(TypeError):
@@ -95,6 +110,23 @@ def test_regrid_sidereal_matches_lanczos_regridder():
     )
     assert np.array_equal(grid, jgrid)
     assert out.dtype == torch.complex128 and out.shape == jvis.shape
+    assert _rel(out.numpy(), jvis) <= TOL64
+    assert _rel(ni.numpy(), jni) <= TOL64
+
+
+def test_regrid_sidereal_wide_kernel_matches_lanczos_regridder():
+    # kernel width 17: band width 33, past the 31 the first CUDA kernel took
+    times, vis, weight = _stream(2, 500, seed=6)
+    task = LanczosRegridder()
+    task.samples, task.start, task.end = 48, 0.0, 1.0
+    task.kernel_width, task.epsilon = 17, 1e-3
+    jgrid, jvis, jni = task._regrid(vis, weight, times)
+
+    grid, out, ni = transform.regrid_sidereal(
+        torch.from_numpy(vis), torch.from_numpy(weight), times, 48, 0.0, 1.0, 17, 1e-3
+    )
+    assert np.array_equal(grid, jgrid)
+    assert out.shape == jvis.shape and ni.shape == jni.shape
     assert _rel(out.numpy(), jvis) <= TOL64
     assert _rel(ni.numpy(), jni) <= TOL64
 
