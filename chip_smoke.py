@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the draco_tpu_torch slice on one NVIDIA GPU.
+"""Smoke run of the draco_tpu_torch slices on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -16,15 +16,33 @@ Phases, each of which raises on failure (exit code != 0):
    exact, two launches bitwise equal; each timed with CUDA events beside
    the plain version in its type.  At R [300, 1000]: an R with permuted
    columns (every sample window full width) and bw 33, within 1e-5;
-3. the slice at the bench headline's width: a time stream from ``--seed``
-   (every baseline of the 64-dish array x 8640 samples, with zero-weight
-   gaps) -> ``regrid_sidereal`` to
-   2048 RA bins -> ``make_marray`` and ``mmode_weights`` (mmax 767) ->
+3. the dish slice at the bench headline's width: a time stream from
+   ``--seed`` (every baseline of the 64-dish array x 8640 samples, with
+   zero-weight gaps) -> ``regrid_sidereal`` to 2048 RA bins ->
+   ``make_marray`` and ``mmode_weights`` (mmax 767) ->
    ``fused_simulate_to_map`` at nside 256 with those weights (chunk 520).
    The kernel launch counts are zeroed just before and read just after;
    the kernel must have launched;
 4. accuracy: the same weighted round trip at nside 64 in float32 and
-   float64 on the card, within 1e-5 relative error.
+   float64 on the card, within 1e-5 relative error;
+5. the kernel on the cylinder path's operands (R [2098, 8640], Ni [1789,
+   8640] from phase 6's time stream), as in phase 2;
+6. the cylinder slice at CHIME width (4 cylinders x 256 feeds, 1789
+   unique baselines, nside 256, lmax = mmax = 767): time stream ->
+   regrid -> m-modes and weights -> the weighted full-sphere round trip
+   (chunk 256), with the launch counts zeroed just before and read just
+   after; one warm round trip under ``torch.profiler`` splits the
+   full-sphere loop by stage;
+7. the 2048-feed dual-pol cylinder (7155 stacked products, T/Q/U/V sky):
+   the unweighted full-sphere round trip at chunk 96 with the geometry
+   dedup engaged;
+8. accuracy at nside 64: the full-sphere round trip in float32 against
+   float64 within 1e-5 relative (a weighted 2 x 16 cylinder and a 2 x 8
+   dual-pol cylinder), and the fused map against the composed streaming
+   stages within 3e-5 of the map's peak;
+9. at nside 32, a small cylinder and a small dish array: ``generate``,
+   the batched projection against the streaming one within 2e-5, and the
+   SVD projector finite and idempotent within 1e-4.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -43,8 +61,11 @@ import numpy as np
 
 NSIDE = 256
 NSIDE_ACC = 64
+NSIDE_SMALL = 32
 NFEED_SIDE = 8
 CHUNK = 520
+CHUNK_CHIME = 256
+CHUNK_CHIME_POL = 96
 NTIME = 8640
 SAMPLES = 2048
 KERNEL_WIDTH = 5
@@ -52,6 +73,15 @@ EPSILON = 1e-3
 TOL_KERNEL = 1e-5
 TOL_KERNEL_F64 = 1e-12
 TOL_MAP = 1e-5
+TOL_COMPOSED = 3e-5
+TOL_PROJECTION = 2e-5
+TOL_SVD = 1e-4
+# CHIME-class cylinders: the JAX bench's ``run_cylinder`` geometry
+CHIME = dict(cylinder_width=20.0, cylinder_spacing=22.0, feed_spacing=0.5, latitude=49.0)
+# one H100 SXM (NVIDIA's data sheet): HBM rate, and the peak rates outside
+# the tensor cores, which the float32 and float64 sums run on
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 def log(*args):
@@ -75,6 +105,32 @@ def telescope(nside: int):
         grid_ew=NFEED_SIDE, grid_ns=NFEED_SIDE, spacing_ew=7.0, spacing_ns=7.0,
         jitter=1.0, jitter_seed=1, latitude=45.0, dish_width=5.0, fwhm_factor=1.0,
         freq_lower=f0, freq_upper=f0, num_freq=1, auto_correlations=True,
+        force_lmax=3 * nside - 1, force_mmax=3 * nside - 1,
+    )
+    return tel, BeamTransfer(tel, nside=nside)
+
+
+def cylinder(nside: int, ncyl: int, nfeed: int, pol: bool = False, nfreq: int = 1):
+    """A CHIME-class cylinder array at lambda = 0.6 m (``nfreq`` 1), or over
+    400-500 MHz; ``pol`` gives X and Y feeds at every position."""
+    from draco_tpu_torch.telescope import BeamTransfer, PolarisedCylinderTelescope, UnpolarisedCylinderTelescope
+
+    f0 = 299.792458 / 0.6
+    band = dict(freq_lower=f0, freq_upper=f0) if nfreq == 1 else dict(freq_lower=400.0, freq_upper=500.0)
+    cls = PolarisedCylinderTelescope if pol else UnpolarisedCylinderTelescope
+    tel = cls(
+        num_cylinders=ncyl, num_feeds=nfeed, num_freq=nfreq, auto_correlations=True,
+        force_lmax=3 * nside - 1, force_mmax=3 * nside - 1, **band, **CHIME,
+    )
+    return tel, BeamTransfer(tel, nside=nside)
+
+
+def small_dishes(nside: int):
+    from draco_tpu_torch.telescope import BeamTransfer, UnpolarisedDishArray
+
+    tel = UnpolarisedDishArray(
+        grid_ew=2, grid_ns=2, spacing_ew=4.0, spacing_ns=4.0, latitude=30.0, freq_lower=400.0,
+        freq_upper=500.0, num_freq=2, dish_width=8.0, auto_correlations=True,
         force_lmax=3 * nside - 1, force_mmax=3 * nside - 1,
     )
     return tel, BeamTransfer(tel, nside=nside)
@@ -131,13 +187,42 @@ def _rel_err(out, ref) -> tuple[float, float]:
     return err, err / ref.abs().max().item()
 
 
+def _rel(got, ref) -> float:
+    """max|diff| / max|ref| of real or complex tensors, in float64."""
+    import torch
+
+    if got.is_complex():
+        got, ref = torch.view_as_real(got), torch.view_as_real(ref)
+    got, ref = got.double(), ref.double()
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
 def _band_end_zeros(out, bw: int) -> bool:
     m = out.shape[-1]
     return all(bool((out[:, d, max(m - d, 0) :] == 0).all()) for d in range(bw + 1))
 
 
-def check_kernel(device, times, weight, seed: int):
-    """Phase 2: the kernel against its plain version on the slice's operands."""
+def covariance_bound(R, Ni, bw: int) -> tuple[float, str]:
+    """Least time (ms) the card could take for ``banded_covariance`` on these
+    operands, and what sets it: each input read once and the output written
+    once at the HBM rate, against 2 flops a batch row for every (row, diagonal,
+    sample) whose two R entries are both nonzero, at the peak rate outside
+    the tensor cores for the operands' type."""
+    import torch
+
+    m = R.shape[0]
+    nbytes = (R.numel() + Ni.numel() + Ni.shape[0] * (bw + 1) * m) * R.element_size()
+    nz = R != 0
+    pairs = sum(int((nz[d:] & nz[: m - d]).sum()) for d in range(min(bw, m - 1) + 1))
+    flops = 2.0 * Ni.shape[0] * pairs
+    peak = PEAK_FLOPS["float64" if R.dtype == torch.float64 else "float32"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_kernel(device, label: str, times, weight):
+    """The kernel against its plain version on one path's regrid operands,
+    then timed beside it (plain, kernel, kernel, plain) in each type."""
     import torch
 
     from draco_tpu_torch.ops import banded, cuda_kernels
@@ -156,8 +241,9 @@ def check_kernel(device, times, weight, seed: int):
     err64, rel64 = _rel_err(out64, ref)
     tail_zero = _band_end_zeros(out, bw) and _band_end_zeros(out64, bw)
     bitwise = torch.equal(out, again)
-    log(f"kernel banded_covariance R{tuple(R.shape)} Ni{tuple(Ni.shape)} bw={bw}: "
-        f"float32 max_abs_err={err:.3e} rel={rel:.3e}, float64 max_abs_err={err64:.3e} rel={rel64:.3e}, "
+    log(f"kernel banded_covariance [{label}] R{tuple(R.shape)} Ni{tuple(Ni.shape)} bw={bw}: "
+        f"float32 max_abs_err={err:.3e} rel={rel:.3e} (tol {TOL_KERNEL}), "
+        f"float64 max_abs_err={err64:.3e} rel={rel64:.3e} (tol {TOL_KERNEL_F64}), "
         f"band_end_zeros_exact={tail_zero} two_launches_bitwise_equal={bitwise}")
     if not (rel <= TOL_KERNEL and torch.isfinite(out).all()):
         raise RuntimeError(f"float32 banded_covariance kernel disagrees with its plain version: rel {rel:.3e}")
@@ -166,21 +252,20 @@ def check_kernel(device, times, weight, seed: int):
     if not (tail_zero and bitwise):
         raise RuntimeError("banded_covariance kernel: band-end zeros not exact or launches not bitwise equal")
     del ref, out, again, out64
-    # plain, kernel, kernel, plain, in each type
-    times_ms = {}
-    for name, (r, ni) in (("f32", (R, Ni)), ("f64", (R64, Ni64))):
+    stats = {"max_abs_err": err, "max_abs_err_f64": err64, "library_ms": None}
+    for suffix, (r, ni) in (("", (R, Ni)), ("_f64", (R64, Ni64))):
         plain1 = cuda_ms(lambda: banded.banded_covariance(r, ni, bw), 3)
         kern1 = cuda_ms(lambda: cuda_kernels.banded_covariance_batched(r, ni, bw), 10)
         kern2 = cuda_ms(lambda: cuda_kernels.banded_covariance_batched(r, ni, bw), 10)
         plain2 = cuda_ms(lambda: banded.banded_covariance(r, ni, bw), 3)
-        log(f"kernel banded_covariance {name} ms: kernel {kern1:.4f} {kern2:.4f}, "
-            f"plain {plain1:.4f} {plain2:.4f}")
-        times_ms[name] = (min(kern1, kern2), min(plain1, plain2))
-    check_small_cases(device, seed)
-    return {
-        "max_abs_err": err, "ms": times_ms["f32"][0], "plain_ms": times_ms["f32"][1],
-        "max_abs_err_f64": err64, "ms_f64": times_ms["f64"][0], "plain_ms_f64": times_ms["f64"][1],
-    }
+        bound, bound_by = covariance_bound(r, ni, bw)
+        log(f"kernel banded_covariance [{label}] {r.dtype} ms: kernel {kern1:.4f} {kern2:.4f}, "
+            f"plain {plain1:.4f} {plain2:.4f}, bound {bound:.4f} ({bound_by})")
+        stats.update({
+            "ms" + suffix: min(kern1, kern2), "plain_ms" + suffix: min(plain1, plain2),
+            "bound_ms" + suffix: bound, "bound_by" + suffix: bound_by,
+        })
+    return stats
 
 
 def check_small_cases(device, seed: int, m: int = 300, n: int = 1000, batch: int = 64):
@@ -250,9 +335,188 @@ def _sync_clock(device) -> float:
     return time.perf_counter()
 
 
+def drive_slice(name, bt, tel, sky, stream, device, chunk, npol=1):
+    """One path end to end with the launch counts zeroed just before and read
+    just after, its outputs checked, then twice warm; returns the launches,
+    the m-mode weights and the first run's stage times."""
+    import torch
+
+    from draco_tpu_torch.ops import cuda_kernels, healpix
+
+    times, vis, weight = stream
+    nbase = len(tel.uniquepairs)
+    torch.cuda.reset_peak_memory_stats(device)
+    cuda_kernels.reset_launches()
+    stages, mvis, w, maps = run_slice(bt, tel, sky, times, vis, weight, device, SAMPLES, chunk)
+    launches = dict(cuda_kernels.launches)
+    log(f"{name} stages, first run (s): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    log(f"{name} kernel launches: {launches}")
+    if launches["banded_covariance"] < 1:
+        raise RuntimeError(f"the {name} did not launch the banded_covariance kernel")
+    for what, x, shape in (
+        ("m-modes", mvis, (tel.mmax + 1, 2, tel.nfreq, nbase)),
+        ("m-mode weights", w, (tel.mmax + 1, 2, tel.nfreq, nbase)),
+        ("map", maps, (tel.nfreq, npol, healpix.npix_of(NSIDE))),
+    ):
+        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{name} {what}: shape {tuple(x.shape)} (want {shape}) or non-finite values")
+    if not bool((w > 0).any()):
+        raise RuntimeError(f"{name} m-mode weights are all zero")
+    # the same path again, warm: lazy kernel-module loading and the
+    # round trip's table build fall in the first run only
+    warm = [run_slice(bt, tel, sky, times, vis, weight, device, SAMPLES, chunk)[0] for _ in range(2)]
+    log(f"{name} stages warm (s): " + json.dumps({k: round(min(run[k] for run in warm), 4) for k in stages}))
+    log(f"{name} peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    return launches, w, stages
+
+
+def profile_split(run, label_prefix: str) -> None:
+    """One call of ``run`` under ``torch.profiler``.
+
+    Prints, for each ``record_function`` label of ``label_prefix``, the
+    device time of the kernels launched inside its host ranges and the
+    summed device-side spans of those ranges; then the device time of all
+    kernels against the call's wall time (clock read inside the profiled
+    block, after a synchronise), whose ratio is the device's busy share.
+    """
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_ms(ev, name):
+        for attr in (name, name.replace("device", "cuda")):
+            if hasattr(ev, attr):
+                return getattr(ev, attr) / 1e3
+        return 0.0
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launched, spans, kernels_ms = {}, {}, 0.0
+    for ev in prof.key_averages():
+        if ev.key.startswith(label_prefix):
+            if ev.device_type == DeviceType.CPU:
+                launched[ev.key] = round(dev_ms(ev, "device_time_total"), 3)
+            else:
+                spans[ev.key] = round(dev_ms(ev, "device_time_total"), 3)
+        elif ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
+            kernels_ms += dev_ms(ev, "self_device_time_total")
+    log(f"profile {label_prefix}* (torch.profiler, one warm call) device ms of the kernels launched "
+        f"in each stage: {json.dumps(launched)}; device-side spans: {json.dumps(spans)}")
+    log(f"profile: all kernels {kernels_ms:.3f} ms of device time in {wall_ms:.3f} ms wall "
+        f"(busy share {kernels_ms / wall_ms:.3f})")
+
+
+def run_dualpol(device):
+    """Phase 7: the 2048-feed dual-pol cylinder, unweighted, chunk 96."""
+    import torch
+
+    from draco_tpu_torch.ops import healpix
+    from draco_tpu_torch.telescope.roundtrip import fused_simulate_to_map
+
+    tel, bt = cylinder(NSIDE, 4, 256, pol=True)
+    nprod = len(tel.uniquepairs)
+    log(f"dual-pol cylinder: nside={NSIDE} 4 x 256 dual-pol feeds ({tel.nfeed} feeds), "
+        f"products={nprod} npol_sky={tel.num_pol_sky} chunk={CHUNK_CHIME_POL}")
+    rng = np.random.Generator(np.random.SFC64(3))
+    sky = torch.from_numpy(
+        rng.standard_normal((1, tel.num_pol_sky, healpix.npix_of(NSIDE))).astype(np.float32)
+    ).to(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = _sync_clock(device)
+    maps = fused_simulate_to_map(bt, sky, chunk=CHUNK_CHIME_POL)
+    first = _sync_clock(device) - t0
+    state = next(iter(bt._fused_fns.values())).state
+    Gc = state["dims"][-1]
+    log(f"dual-pol state: form={state['form']} Gc={Gc} chunks={state['dims'][3]}")
+    if state["form"] != "fullsphere" or Gc <= 0:
+        raise RuntimeError(f"dual-pol cylinder: form {state['form']}, geometry dedup Gc={Gc} not engaged")
+    if tuple(maps.shape) != (1, 4, healpix.npix_of(NSIDE)) or not bool(torch.isfinite(maps).all()):
+        raise RuntimeError(f"dual-pol map: shape {tuple(maps.shape)} or non-finite values")
+    warm = []
+    for _ in range(2):
+        t0 = _sync_clock(device)
+        fused_simulate_to_map(bt, sky, chunk=CHUNK_CHIME_POL)
+        warm.append(_sync_clock(device) - t0)
+    log(f"dual-pol round trip: first call {first:.4f} s, warm {min(warm):.4f} s (best of {warm[0]:.4f}, "
+        f"{warm[1]:.4f}); peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+
+
+def check_fullsphere_accuracy(device) -> None:
+    """Phase 8: float32 against float64, and fused against composed stages."""
+    import torch
+
+    from draco_tpu_torch.ops import healpix, mmode, sht
+    from draco_tpu_torch.telescope.roundtrip import fused_simulate_to_map
+
+    rng = np.random.Generator(np.random.SFC64(8))
+    npix = healpix.npix_of(NSIDE_ACC)
+    for name, ncyl, nfeed, pol in (("2 x 16 cylinder", 2, 16, False), ("2 x 8 dual-pol cylinder", 2, 8, True)):
+        tel, bt = cylinder(NSIDE_ACC, ncyl, nfeed, pol=pol)
+        shape = (tel.mmax + 1, 2, tel.nfreq, len(tel.uniquepairs))
+        w = torch.from_numpy(rng.uniform(0.5, 2.0, shape)).to(device)
+        sky = torch.from_numpy(rng.standard_normal((tel.nfreq, tel.num_pol_sky, npix))).to(device)
+        m32 = fused_simulate_to_map(bt, sky.float(), chunk=64, weight=w.float())
+        m64 = fused_simulate_to_map(bt, sky, chunk=64, weight=w)
+        rel = _rel(m32, m64)
+        log(f"accuracy nside={NSIDE_ACC} {name} ({shape[-1]} products): float32 vs float64 weighted "
+            f"full-sphere round trip rel err {rel:.3e} (tol {TOL_MAP})")
+        if not rel <= TOL_MAP:
+            raise RuntimeError(f"{name}: full-sphere accuracy {rel:.3e} exceeds {TOL_MAP}")
+        if not pol:
+            # the same spine as separate streaming stages, through the
+            # sidereal stream and back
+            alm = sht.sphtrans_sky(sky.float(), lmax=tel.lmax)[..., : tel.mmax + 1]
+            vis = bt.project_sky_to_telescope_streaming(alm)
+            stream = mmode.mmodes_to_sidereal(vis, n=2 * tel.mmax + 1, oddra=True)
+            dirty = bt.project_telescope_to_sky_dirty_streaming(mmode.make_marray(stream, mmax=tel.mmax), w.float())
+            composed = sht.sphtrans_inv_sky(dirty, NSIDE_ACC)
+            rel = _rel(m32, composed)
+            log(f"accuracy nside={NSIDE_ACC} {name}: fused vs composed streaming stages "
+                f"max|diff| / max|map| {rel:.3e} (tol {TOL_COMPOSED})")
+            if not rel <= TOL_COMPOSED:
+                raise RuntimeError(f"{name}: fused map is {rel:.3e} from the composed stages (tol {TOL_COMPOSED})")
+
+
+def check_beamtransfer(device) -> None:
+    """Phase 9: generate, batched against streaming projection, SVD projector."""
+    import torch
+
+    from draco_tpu_torch.ops import healpix, sht
+
+    rng = np.random.Generator(np.random.SFC64(9))
+    for name, (tel, bt) in (
+        ("2 x 4 cylinder", cylinder(NSIDE_SMALL, 2, 4, nfreq=2)),
+        ("2 x 2 dishes", small_dishes(NSIDE_SMALL)),
+    ):
+        t0 = _sync_clock(device)
+        bt.generate()
+        gen_s = _sync_clock(device) - t0
+        if bt._bp.device != device or not bool(torch.isfinite(torch.view_as_real(bt._bp)).all()):
+            raise RuntimeError(f"{name}: generate gave {bt._bp.device} or non-finite beam transfer matrices")
+        sky = rng.standard_normal((tel.nfreq, 1, healpix.npix_of(NSIDE_SMALL))).astype(np.float32)
+        alm = sht.sphtrans_sky(sky, lmax=tel.lmax)[..., : tel.mmax + 1]
+        rel = _rel(bt.project_sky_to_telescope(alm), bt.project_sky_to_telescope_streaming(alm))
+        shape = (tel.mmax + 1, 2, tel.nfreq, len(tel.uniquepairs))
+        v = torch.from_numpy(rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).to(device)
+        proj = bt.project_svd_to_telescope(bt.project_telescope_to_svd(v))  # [M+1, f, (msign, b)]
+        proj_vis = proj.reshape(shape[0], shape[2], 2, shape[3]).movedim(2, 1)  # [M+1, msign, f, b]
+        idem = _rel(bt.project_svd_to_telescope(bt.project_telescope_to_svd(proj_vis)), proj)
+        finite = bool(torch.isfinite(torch.view_as_real(proj)).all())
+        log(f"beam transfer nside={NSIDE_SMALL} {name} ({'windowed' if bt._beam_window() else 'full-sphere'}): "
+            f"generate {gen_s:.3f} s, batched vs streaming projection rel {rel:.3e} (tol {TOL_PROJECTION}), "
+            f"SVD projector idempotence rel {idem:.3e} (tol {TOL_SVD}), finite={finite}, "
+            f"modes kept {bt.ndofmax} of {bt.svd_len()}")
+        if not (rel <= TOL_PROJECTION and idem <= TOL_SVD and finite):
+            raise RuntimeError(f"{name}: beam-transfer projections or SVD projector out of tolerance")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--seed", type=int, default=2, help="seed of the time stream and kernel inputs")
+    parser.add_argument("--seed", type=int, default=2, help="seed of the time streams and kernel inputs")
     args = parser.parse_args()
     import torch
 
@@ -265,9 +529,10 @@ def main() -> int:
 
     import draco_tpu_torch  # noqa: F401  (sets the float32 matmul policy)
     from draco_tpu_torch import _build
-    from draco_tpu_torch.ops import cuda_kernels, healpix
+    from draco_tpu_torch.ops import healpix
     from draco_tpu_torch.telescope.roundtrip import fused_simulate_to_map
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = gpu_name_and_power()
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -279,39 +544,20 @@ def main() -> int:
     log(f"build: banded_covariance.cu {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds.get('banded_covariance', 0.0):.2f} s)")
 
-    # phase 2: the kernel at the slice's shape
+    # phase 2: the kernel at the dish slice's shape
     tel, bt = telescope(NSIDE)
     nbase = len(tel.uniquepairs)
-    times, vis, weight = time_stream(tel.nfreq, nbase, NTIME, seed=args.seed)
-    kern = check_kernel(device, times, weight, seed=args.seed + 1)
+    stream = time_stream(tel.nfreq, nbase, NTIME, seed=args.seed)
+    kern = check_kernel(device, "dish path", stream[0], stream[2])
+    check_small_cases(device, seed=args.seed + 1)
 
-    # phase 3: the slice at headline width
+    # phase 3: the dish slice at headline width
     rng = np.random.Generator(np.random.SFC64(1))
     sky = rng.standard_normal((tel.nfreq, 1, healpix.npix_of(NSIDE))).astype(np.float32)
     log(f"slice: nside={NSIDE} lmax=mmax={tel.mmax} pairs={nbase} nfreq={tel.nfreq} "
         f"ntime={NTIME} -> {SAMPLES} RA bins, chunk={CHUNK}")
-    cuda_kernels.reset_launches()
-    stages, mvis, w, maps = run_slice(bt, tel, sky, times, vis, weight, device, SAMPLES, CHUNK)
-    launches = dict(cuda_kernels.launches)
-    log("slice stages, first run (s): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
-    log(f"slice kernel launches: {launches}")
-    if launches["banded_covariance"] < 1:
-        raise RuntimeError("the slice did not launch the banded_covariance kernel")
-    for name, x, shape in (
-        ("m-modes", mvis, (tel.mmax + 1, 2, tel.nfreq, nbase)),
-        ("m-mode weights", w, (tel.mmax + 1, 2, tel.nfreq, nbase)),
-        ("map", maps, (tel.nfreq, 1, healpix.npix_of(NSIDE))),
-    ):
-        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
-            raise RuntimeError(f"slice {name}: shape {tuple(x.shape)} (want {shape}) or non-finite values")
-    if not bool((w > 0).any()):
-        raise RuntimeError("slice m-mode weights are all zero")
-    # the same slice again, warm: lazy kernel-module loading and the
-    # round trip's table build fall in the first run only
-    warm = [run_slice(bt, tel, sky, times, vis, weight, device, SAMPLES, CHUNK)[0] for _ in range(2)]
-    log("slice stages warm (s): " + json.dumps(
-        {k: round(min(run[k] for run in warm), 4) for k in stages}))
-    log(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    launches, w, _ = drive_slice("slice", bt, tel, sky, stream, device, CHUNK)
+    del stream
 
     # phase 4: accuracy at nside 64, float32 against float64
     tel64, bt64 = telescope(NSIDE_ACC)
@@ -324,6 +570,39 @@ def main() -> int:
     log(f"accuracy nside={NSIDE_ACC}: float32 vs float64 weighted round trip rel err {rel:.3e} (tol {TOL_MAP})")
     if not rel <= TOL_MAP:
         raise RuntimeError(f"round-trip accuracy {rel:.3e} exceeds {TOL_MAP}")
+    del bt, bt64, w, w64, m32, m64
+    torch.cuda.empty_cache()
+
+    # phase 5: the kernel on the cylinder path's operands
+    tel_c, bt_c = cylinder(NSIDE, 4, 256)
+    nbase_c = len(tel_c.uniquepairs)
+    stream_c = time_stream(tel_c.nfreq, nbase_c, NTIME, seed=args.seed + 2)
+    kern_c = check_kernel(device, "cylinder path", stream_c[0], stream_c[2])
+
+    # phase 6: the cylinder slice at CHIME width
+    sky_c = np.random.Generator(np.random.SFC64(6)).standard_normal(
+        (tel_c.nfreq, 1, healpix.npix_of(NSIDE))).astype(np.float32)
+    log(f"cylinder slice: nside={NSIDE} lmax=mmax={tel_c.mmax} 4 x 256 feeds, pairs={nbase_c} "
+        f"nfreq={tel_c.nfreq} ntime={NTIME} -> {SAMPLES} RA bins, chunk={CHUNK_CHIME}")
+    launches_c, w_c, _ = drive_slice("cylinder slice", bt_c, tel_c, sky_c, stream_c, device, CHUNK_CHIME)
+    run_c = next(iter(bt_c._fused_fns.values()))
+    if run_c.state["form"] != "fullsphere":
+        raise RuntimeError(f"the cylinder slice ran the {run_c.state['form']} form, not the full-sphere one")
+    sky_cd = torch.from_numpy(sky_c).to(device)
+    profile_split(lambda: run_c(sky_cd, weight=w_c), "fullsphere.")
+    del bt_c, run_c, stream_c, w_c, sky_cd
+    torch.cuda.empty_cache()
+
+    # phase 7: the 2048-feed dual-pol cylinder
+    run_dualpol(device)
+    torch.cuda.empty_cache()
+
+    # phase 8: full-sphere accuracy at nside 64
+    check_fullsphere_accuracy(device)
+
+    # phase 9: generate, projections and SVD at nside 32
+    check_beamtransfer(device)
+    log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [{
         "name": "banded_covariance",
@@ -331,12 +610,8 @@ def main() -> int:
         "source": "draco_tpu_torch/csrc/banded_covariance.cu",
         "replaces": "draco_tpu/ops/pallas_kernels.py:57",
         "launches": launches["banded_covariance"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-        "max_abs_err_f64": kern["max_abs_err_f64"],
-        "ms_f64": kern["ms_f64"],
-        "plain_ms_f64": kern["plain_ms_f64"],
+        **kern,
+        "cylinder_path": {"launches": launches_c["banded_covariance"], **kern_c},
     }]}
     print(json.dumps(record))
     print(card)

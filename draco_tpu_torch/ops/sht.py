@@ -17,7 +17,10 @@ dtype) by :meth:`SHT.tables`:
 
 Both keep the round trip inside the 1e-5 map-error contract in float32.
 The float64 tables (exact trig, single float64 Legendre) are the
-reference runs.  Only real maps are transformed.
+reference runs.  Only real maps are transformed directly; complex maps go
+through :meth:`SHT.analysis_complex`.  The table builders put their
+tables on ``device``, the first CUDA card when none is named
+(:func:`draco_tpu_torch.device.resolve`).
 """
 
 from __future__ import annotations
@@ -27,10 +30,11 @@ import math
 import numpy as np
 import torch
 
+from ..device import as_tensor, resolve
 from . import healpix
 from .tools import sincos_turns
 
-__all__ = ["SHT", "get_sht", "alm2map", "map2alm"]
+__all__ = ["SHT", "get_sht", "alm2map", "map2alm", "sphtrans_sky", "sphtrans_inv_sky"]
 
 # Power-of-two block for the dynamic rescaling of the Legendre recurrence.
 _SCALE_BITS = 60
@@ -268,8 +272,9 @@ class SHT:
         c, sn = self._phase_turns(two_ps[:, :, None] * m_d[None, None, :], den, rdt)
         return c * mask, -sn * mask
 
-    def belt_phase_weight(self, rdt, device):
+    def belt_phase_weight(self, rdt=torch.float32, device=None):
         """(re, im) of exp(-i m phi0_r) * w_r for the belt rings: [nbelt, M+1]."""
+        device = resolve(device)
         w_belt = torch.as_tensor(self._w[self._belt_rings], dtype=rdt, device=device)[:, None]
         c, s = self._ring_phase(self._belt_rings, rdt, device)
         return c * w_belt, s * w_belt
@@ -279,6 +284,7 @@ class SHT:
 
         The cap factors carry the quadrature weight.
         """
+        device = resolve(device)
         ring_ids = np.asarray(self._cap_rings)
         P = []
         for grp in self._cap_wgroups:
@@ -314,6 +320,7 @@ class SHT:
         ``two_float`` returns the (hi float32, lo bfloat16) pair from a
         float64 recurrence; otherwise the recurrence runs in ``rdt``.
         """
+        device = resolve(device)
         wdt = torch.float64 if two_float else rdt
         sdt = torch.float64 if wdt == torch.float64 else torch.float32
         rings = np.asarray(rings)
@@ -337,44 +344,94 @@ class SHT:
         hi, lo = self.legendre(self._section_rings(), device=device, two_float=True)
         return self._split_sections(hi), self._split_sections(lo)
 
-    def tables(self, device, rdt=torch.float32):
+    def tables(self, device=None, rdt=torch.float32):
         """(lam, lam_lo, plan) on ``device``: two-float for float32, exact for float64."""
-        key = (torch.device(device), rdt)
+        key = (resolve(device), rdt)
         if key not in self._tables:
             if rdt == torch.float64:
-                lam, lam_lo = self.precompute_legendre_split(rdt, device), None
+                lam, lam_lo = self.precompute_legendre_split(rdt, key[0]), None
             else:
-                lam, lam_lo = self.precompute_legendre_split_2f(device)
-            self._tables[key] = (lam, lam_lo, self.precompute_ring_plan(rdt, device))
+                lam, lam_lo = self.precompute_legendre_split_2f(key[0])
+            self._tables[key] = (lam, lam_lo, self.precompute_ring_plan(rdt, key[0]))
         return self._tables[key]
 
     # ------------------------------------------------------------------
     # ring Fourier steps
     # ------------------------------------------------------------------
-    def _ring_analysis_parts(self, maps, plan):
+    def _ring_analysis_parts(self, maps, plan, raw_belt: bool = False):
         """Quadrature-weighted per-section ring coefficients of real maps.
 
         Returns (F_belt [..., nbelt, M+1], [F_group [..., rows, M+1], ...])
         as complex tensors, in the layout of :meth:`precompute_legendre_split`.
         """
-        self._require_analysis_band_limit()
-        rdt = maps.dtype
         belt = maps[..., self._belt_off : self._belt_off + self._belt_len].reshape(
             *maps.shape[:-1], len(self._belt_rings), self._belt_nphi
         )
-        Wr, Wi = plan["W"]
-        pr, pi = self.belt_phase_weight(rdt, maps.device)
+        caps = [
+            maps[..., torch.as_tensor(self._cap_idx[rows_arr][:, :w], device=maps.device)]
+            for rows_arr, w in self._cap_wgroups
+        ]
+        return self._analysis_sections(belt, caps, plan, raw_belt)
+
+    def padded_layout(self) -> np.ndarray:
+        """HEALPix pixel of each slot of the padded layout
+        ``[belt | cap group 0 | cap group 1 | ...]`` (-1 = padding).
+
+        Maps generated directly in this layout (fringe x beam) skip the
+        ragged cap gather of :meth:`_ring_analysis_parts`.
+        """
+        idxs = [np.arange(self._belt_off, self._belt_off + self._belt_len)]
+        for rows_arr, w in self._cap_wgroups:
+            idx = self._cap_idx[rows_arr][:, :w].copy()
+            idx[self._cap_mask[rows_arr][:, :w] <= 0] = -1
+            idxs.append(idx.ravel())
+        return np.concatenate(idxs).astype(np.int64)
+
+    def analysis_padded(self, maps_pad, lam, plan, lam_lo=None):
+        """alm of real maps given in the :meth:`padded_layout` order.
+
+        Padding slots may hold anything: the cap DFT factors are masked.
+        """
+        F_belt, group_F = self._ring_analysis_parts_padded(maps_pad, plan)
+        return self._contract_alm(F_belt, group_F, lam, lam_lo)
+
+    def _ring_analysis_parts_padded(self, maps_pad, plan, raw_belt: bool = False, mcut: int | None = None):
+        """Per-section ring coefficients of real :meth:`padded_layout` maps.
+
+        ``raw_belt`` skips the belt phase weight (:meth:`belt_phase_weight`;
+        the caller folds it in elsewhere).  ``mcut`` keeps only the
+        coefficients m < mcut (the caller guarantees no higher azimuthal
+        content).
+        """
+        lead = maps_pad.shape[:-1]
+        belt = maps_pad[..., : self._belt_len].reshape(*lead, len(self._belt_rings), self._belt_nphi)
+        caps = []
+        off = self._belt_len
+        for rows_arr, w in self._cap_wgroups:
+            size = len(rows_arr) * w
+            caps.append(maps_pad[..., off : off + size].reshape(*lead, len(rows_arr), w))
+            off += size
+        return self._analysis_sections(belt, caps, plan, raw_belt, mcut)
+
+    def _analysis_sections(self, belt, caps, plan, raw_belt=False, mcut=None):
+        """Ring DFTs of the belt [..., nbelt, nphi] and the cap groups
+        [..., rows, w]: dense GEMMs against the plan's factors."""
+        self._require_analysis_band_limit()
+        ms = slice(None, mcut)
+        Wr, Wi = (w[:, ms] for w in plan["W"])
         Fr = belt @ Wr
         Fi = belt @ Wi
-        F_belt = torch.complex(Fr * pr - Fi * pi, Fr * pi + Fi * pr)
+        if raw_belt:
+            F_belt = torch.complex(Fr, Fi)
+        else:
+            pr, pi = (p[:, ms] for p in self.belt_phase_weight(belt.dtype, belt.device))
+            F_belt = torch.complex(Fr * pr - Fi * pi, Fr * pi + Fi * pr)
         group_F = []
-        for (rows_arr, w), (Pr, Pi) in zip(self._cap_wgroups, plan["P"]):
-            idx = torch.as_tensor(self._cap_idx[rows_arr][:, :w], device=maps.device)
-            cap = maps[..., idx]
+        for cap, (Pr, Pi) in zip(caps, plan["P"]):
             group_F.append(
                 torch.complex(
-                    torch.einsum("...rj,rjm->...rm", cap, Pr),
-                    torch.einsum("...rj,rjm->...rm", cap, Pi),
+                    torch.einsum("...rj,rjm->...rm", cap, Pr[..., ms]),
+                    torch.einsum("...rj,rjm->...rm", cap, Pi[..., ms]),
                 )
             )
         return F_belt, group_F
@@ -446,8 +503,10 @@ class SHT:
         F_belt, group_F = self._ring_analysis_parts(maps, plan)
         return self._contract_alm(F_belt, group_F, lam, lam_lo)
 
-    def _synthesis_impl(self, alm, lam, plan, lam_lo=None):
-        """Real maps [..., npix] from alm[..., lmax+1, mmax+1]."""
+    @staticmethod
+    def _legendre_sections(alm, lam, lam_lo=None):
+        """Per-section ring coefficients sum_l Lambda[l, m, r] alm[..., l, m]:
+        (G_belt [..., nbelt, M+1], [G_group [..., rows, M+1], ...])."""
         rdt = alm.real.dtype
 
         def contract(lam_s):
@@ -462,6 +521,11 @@ class SHT:
         if lam_lo is not None:
             G_belt = G_belt + contract(lam_lo["belt"])
             G_caps = [g + contract(c) for g, c in zip(G_caps, lam_lo["caps"])]
+        return G_belt, G_caps
+
+    def _synthesis_impl(self, alm, lam, plan, lam_lo=None):
+        """Real maps [..., npix] from alm[..., lmax+1, mmax+1]."""
+        G_belt, G_caps = self._legendre_sections(alm, lam, lam_lo)
         return self._ring_synthesis_parts(G_belt, G_caps, plan)
 
     def analysis(self, maps: torch.Tensor, iter: int = 0) -> torch.Tensor:
@@ -477,6 +541,25 @@ class SHT:
         """alm2map for a real field (m >= 0 coefficients)."""
         lam, lam_lo, plan = self.tables(alm.device, alm.real.dtype)
         return self._synthesis_impl(alm, lam, plan, lam_lo)
+
+    def analysis_complex(self, maps: torch.Tensor):
+        """Full SHT of complex maps: (alm_pos, alm_neg).
+
+        alm_pos[..., l, m] = f_{l m} for m >= 0 and alm_neg[..., l, m] =
+        f_{l, -m} = (-1)^m conj((f*)_{l m}).  Both come from one stacked
+        real transform of [Re, Im]: alm(f) = A(re) + i A(im) and
+        alm(conj f) = A(re) - i A(im).
+        """
+        if maps.is_complex():
+            ri = self.analysis(torch.stack([maps.real, maps.imag]))
+            a_re, a_im = ri[0], ri[1]
+        else:
+            a_re = self.analysis(maps)
+            a_im = torch.zeros_like(a_re)
+        alm_pos = a_re + 1j * a_im
+        alm_conj = a_re - 1j * a_im
+        msign = torch.as_tensor((-1.0) ** self._m, dtype=alm_pos.real.dtype, device=maps.device)
+        return alm_pos, msign * alm_conj.conj()
 
 
 _sht_cache: dict = {}
@@ -502,4 +585,19 @@ def map2alm(maps: torch.Tensor, lmax: int | None = None, iter: int = 3) -> torch
 
 def alm2map(alm: torch.Tensor, nside: int) -> torch.Tensor:
     """healpy-compatible scalar alm2map from dense [l, m] coefficients."""
+    return get_sht(nside, alm.shape[-2] - 1, alm.shape[-1] - 1).synthesis(alm)
+
+
+def sphtrans_sky(sky_map, lmax: int | None = None, device=None) -> torch.Tensor:
+    """SHT of every (freq, pol) map: [freq, pol, npix] -> [freq, pol, l, m].
+
+    A host array goes to ``device`` (:func:`draco_tpu_torch.device.resolve`).
+    """
+    sky_map = as_tensor(sky_map, device)
+    return get_sht(healpix.nside_of(sky_map.shape[-1]), lmax).analysis(sky_map)
+
+
+def sphtrans_inv_sky(alm, nside: int, device=None) -> torch.Tensor:
+    """Inverse of :func:`sphtrans_sky`: [freq, pol, l, m] -> [freq, pol, npix]."""
+    alm = as_tensor(alm, device)
     return get_sht(nside, alm.shape[-2] - 1, alm.shape[-1] - 1).synthesis(alm)

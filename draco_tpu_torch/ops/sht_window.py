@@ -3,10 +3,17 @@
 
 Beam(-product) maps of real instruments are compactly supported, so the
 round trip restricts its work to a per-ring azimuth window derived from a
-support mask.  :class:`WindowedSHT` holds that window in the flat
-(ragged) layout — each band ring's own window concatenated into one
-``[Kf]`` pixel axis — with the per-pixel DFT factors and the band
-Legendre tensor the fused round trip consumes.
+support mask.  :class:`WindowedSHT` holds that window in two layouts:
+
+* the rectangular box ``[Rb, W]`` (every band ring at the widest ring's
+  width), which the windowed analysis and the beam-transfer generator
+  contract against ``Ec``/``Es`` [Rb, W, M+1] in one einsum;
+* the flat (ragged) layout, each band ring's own window concatenated into
+  one ``[Kf]`` pixel axis, with the per-pixel DFT factors the fused round
+  trip and the streaming projections consume.
+
+Table builders put their tables on ``device``, the first CUDA card when
+none is named (:func:`draco_tpu_torch.device.resolve`).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve
 from .sht import SHT
 
 __all__ = ["WindowedSHT", "support_fraction"]
@@ -76,6 +84,22 @@ class WindowedSHT:
         self.Rb = len(band)
         self.W = int(max(widths))
 
+        # box layout: rings shorter than W would count pixels twice through
+        # the modular wrap, so slots past one full cycle get zero weight
+        idx = np.zeros((self.Rb, self.W), np.int64)
+        phi = np.zeros((self.Rb, self.W))
+        valid = np.zeros((self.Rb, self.W))
+        for k, r in enumerate(self.band):
+            o, n = int(info.offset[r]), int(info.nphi[r])
+            p = (starts[k] + np.arange(self.W)) % n
+            idx[k] = o + p
+            phi[k] = info.phi0[r] + 2 * np.pi * p / n
+            valid[k] = np.arange(self.W) < n
+        self.window_index = idx  # [Rb, W] pixel indices
+        self._phi_rw = phi
+        self._w_rw = info.weight[self.band][:, None] * valid
+        self._rect: dict = {}
+
         # flat layout: ring k's min(width, nphi) window pixels back to back,
         # padded to a multiple of 128 with zero-weight slots
         fidx, fring, fphi = [], [], []
@@ -113,12 +137,14 @@ class WindowedSHT:
         shape = phi_rows.shape + (m.shape[0],)
         C = np.empty(shape, out_dtype)
         S = np.empty(shape, out_dtype)
+        phi_flat, w_flat = phi_rows.reshape(-1), w_rows.reshape(-1)
+        Cf, Sf = C.reshape(-1, shape[-1]), S.reshape(-1, shape[-1])
         step = max(1, (1 << 22) // max(1, shape[-1]))
-        for i in range(0, phi_rows.shape[0], step):
-            arg = phi_rows[i : i + step, None] * m
-            w = w_rows[i : i + step, None]
-            C[i : i + step] = np.cos(arg) * w
-            S[i : i + step] = np.sin(arg) * w
+        for i in range(0, phi_flat.shape[0], step):
+            arg = phi_flat[i : i + step, None] * m
+            w = w_flat[i : i + step, None]
+            Cf[i : i + step] = np.cos(arg) * w
+            Sf[i : i + step] = np.sin(arg) * w
         return C, S
 
     def flat_tables(self, rdt=torch.float32, device=None):
@@ -129,6 +155,7 @@ class WindowedSHT:
         [Rb, Kf]: ring membership, for the pixel -> ring reduction as a
         product (deterministic, unlike an atomic scatter).
         """
+        device = resolve(device)
         np_dt = np.float64 if rdt == torch.float64 else np.float32
         m = np.arange(self.sht.mmax + 1)
         C, S = self._trig(self._phi_k, m, self._w_k, np_dt)
@@ -148,3 +175,50 @@ class WindowedSHT:
     def lam_band_2f(self, device=None):
         """Two-float (hi float32, lo bfloat16) band Legendre tensors [L+1, M+1, Rb]."""
         return self.sht.legendre(self.band, device=device, two_float=True)
+
+    def rect_tables(self, rdt=torch.float32, device=None):
+        """(Ec, Es [Rb, W, M+1], lam_band [L+1, M+1, Rb]) of the box layout.
+
+        Ec/Es carry the quadrature weight and the wrap mask.  Cached per
+        (device, dtype): the windowed analysis reuses them call after call.
+        """
+        key = (resolve(device), rdt)
+        if key not in self._rect:
+            np_dt = np.float64 if rdt == torch.float64 else np.float32
+            C, S = self._trig(self._phi_rw, np.arange(self.sht.mmax + 1), self._w_rw, np_dt)
+            self._rect[key] = (
+                torch.as_tensor(C, device=key[0]),
+                torch.as_tensor(S, device=key[0]),
+                self.lam_band(rdt, key[0]),
+            )
+        return self._rect[key]
+
+    def gather(self, maps: torch.Tensor) -> torch.Tensor:
+        """Window view [..., Rb, W] of full maps [..., npix]."""
+        return maps[..., torch.as_tensor(self.window_index, device=maps.device)]
+
+    def analysis(self, maps_win: torch.Tensor) -> torch.Tensor:
+        """alm[..., L+1, M+1] of windowed maps [..., Rb, W].
+
+        Real input gives the real-field alm (m >= 0); complex input the
+        transform of the complex map, from one stacked pass over [re, im].
+        """
+        if maps_win.is_complex():
+            ri = self._analysis_real(torch.stack([maps_win.real, maps_win.imag]))
+            return ri[0] + 1j * ri[1]
+        return self._analysis_real(maps_win)
+
+    def analysis_pair(self, re_win: torch.Tensor, im_win: torch.Tensor):
+        """(alm(B), alm(conj B)) for B = re + i im from one stacked pass."""
+        ri = self._analysis_real(torch.stack([re_win, im_win]))
+        return ri[0] + 1j * ri[1], ri[0] - 1j * ri[1]
+
+    def _analysis_real(self, x: torch.Tensor) -> torch.Tensor:
+        """F = sum_w x (cos - i sin) per band ring, alm = sum_r Lambda F."""
+        Ec, Es, lam = self.rect_tables(x.dtype, x.device)
+        Fc = torch.einsum("...rw,rwm->...rm", x, Ec)
+        Fs = torch.einsum("...rw,rwm->...rm", x, Es)
+        return torch.complex(
+            torch.einsum("lmr,...rm->...lm", lam, Fc),
+            -torch.einsum("lmr,...rm->...lm", lam, Fs),
+        )

@@ -1,8 +1,8 @@
 """Numeric tools of the round trip: exact fringe phases and safe inverses.
 
 Port of the fringe subset of ``draco_tpu.ops.tools``
-(``threefloat_split``, ``phase_frac3``, ``sincos_turns``) and
-``invert_no_zero``.
+(``twofloat_split``, ``phase_frac``, ``threefloat_split``,
+``phase_frac3``, ``sincos_turns``) and ``invert_no_zero``.
 
 The exact-phase scheme rests on every high product being an exact
 float32 value and on no fused multiply-add changing a rounded product.
@@ -18,13 +18,55 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["invert_no_zero", "threefloat_split", "phase_frac3", "sincos_turns"]
+__all__ = [
+    "invert_no_zero", "twofloat_split", "phase_frac", "threefloat_split", "phase_frac3", "sincos_turns",
+]
+
+# Veltkamp split constant for float32 (2^12 + 1)
+_DEKKER_SPLIT = 4097.0
 
 
 def invert_no_zero(x: torch.Tensor) -> torch.Tensor:
     """Reciprocal returning exactly zero where ``|x|`` is below the smallest normal."""
     small = torch.abs(x) < torch.finfo(x.real.dtype).tiny
     return torch.where(small, torch.zeros_like(x), 1.0 / torch.where(small, torch.ones_like(x), x))
+
+
+def twofloat_split(a64: np.ndarray):
+    """Split an f64 array into an (hi, lo) pair of f32 arrays.  Host numpy."""
+    a64 = np.asarray(a64, dtype=np.float64)
+    hi = a64.astype(np.float32)
+    lo = (a64 - hi.astype(np.float64)).astype(np.float32)
+    return hi, lo
+
+
+def phase_frac(bh, bl, vh, vl):
+    """``frac(b . n)`` in turns for two-float operands.
+
+    bh/bl [..., 3] broadcast against vh/vl [K, 3] -> [..., K].  Each
+    component's product gets its rounding error from a Dekker two-product
+    and is reduced mod 1 on its own; absolute error ~eps_f32 independent
+    of ``|b . n|``.
+    """
+    r_sum = None
+    e_sum = None
+    for x in range(3):
+        b1 = bh[..., x][..., None]
+        v1 = vh[:, x]
+        p = b1 * v1
+        bs = b1 * _DEKKER_SPLIT
+        bhh = bs - (bs - b1)
+        bll = b1 - bhh
+        vs = v1 * _DEKKER_SPLIT
+        vhh = vs - (vs - v1)
+        vll = v1 - vhh
+        e = ((bhh * vhh - p) + bhh * vll + bll * vhh) + bll * vll
+        c = b1 * vl[:, x] + bl[..., x][..., None] * v1
+        r = p - torch.round(p)
+        r_sum = r if r_sum is None else r_sum + r
+        e_sum = (e + c) if e_sum is None else e_sum + (e + c)
+    y = r_sum + e_sum
+    return y - torch.round(y)
 
 
 def threefloat_split(a64: np.ndarray):

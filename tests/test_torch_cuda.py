@@ -126,3 +126,59 @@ def test_band_wiener_on_the_card_matches_the_cpu(cuda, a, ydtype):
     tol = 1e-5 if rdt == torch.float32 else 1e-10
     assert _rel(ng.cpu(), nw) <= tol
     assert _rel(torch.view_as_real(xg.cpu()), torch.view_as_real(xh)) <= tol
+
+
+def _cylinder_bt(nside=16):
+    from draco_tpu_torch.telescope import BeamTransfer, UnpolarisedCylinderTelescope
+
+    tel = UnpolarisedCylinderTelescope(
+        num_cylinders=2, cylinder_width=10.0, cylinder_spacing=12.0, num_feeds=3, feed_spacing=2.0,
+        latitude=45.0, freq_lower=400.0, freq_upper=500.0, num_freq=2, auto_correlations=True,
+        force_lmax=3 * nside - 1, force_mmax=3 * nside - 1,
+    )
+    return BeamTransfer(tel, nside=nside)
+
+
+def test_prepare_state_defaults_to_the_card(cuda):
+    from draco_tpu_torch.telescope import roundtrip
+
+    state = roundtrip.prepare_state(_cylinder_bt(), chunk=4)
+    assert state["form"] == "fullsphere"
+    for name in ("va", "u_re", "bla", "uidx"):
+        assert state[name].device == cuda, name
+    assert state["lam"]["belt"].device == cuda and state["plan"]["W"][0].device == cuda
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fullsphere_round_trip_on_the_card_matches_the_cpu(cuda, weighted):
+    """float32 on the card against float32 on the CPU: only the order of
+    the sums differs, max|diff| / max|ref| <= 1e-5."""
+    from draco_tpu_torch.telescope import roundtrip
+
+    bt = _cylinder_bt()
+    tel = bt.telescope
+    rng = np.random.Generator(np.random.SFC64(21))
+    sky = rng.standard_normal((tel.nfreq, 1, 12 * 16**2)).astype(np.float32)
+    w = None
+    if weighted:
+        w = rng.uniform(0.5, 2.0, (tel.mmax + 1, 2, tel.nfreq, len(tel.uniquepairs))).astype(np.float32)
+    on_card = roundtrip.fused_simulate_to_map(bt, sky, chunk=4, weight=w)
+    on_cpu = roundtrip.fused_simulate_to_map(bt, sky, chunk=4, weight=w, device="cpu")
+    assert on_card.device == cuda and on_card.dtype == torch.float32
+    assert _rel(on_card.cpu(), on_cpu) <= 1e-5
+
+
+def test_generate_and_streaming_on_the_card_match_the_cpu(cuda):
+    from draco_tpu_torch.ops import sht
+
+    sky = np.random.Generator(np.random.SFC64(5)).standard_normal((2, 1, 12 * 16**2)).astype(np.float32)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        bt = _cylinder_bt()
+        bt.generate(device=device)
+        alm = sht.sphtrans_sky(sky, device=device)
+        vis = bt.project_sky_to_telescope_streaming(alm)
+        assert bt._bp.device == device and vis.device == device
+        out[device.type] = (bt._bp.cpu(), vis.cpu())
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        assert _rel(torch.view_as_real(card), torch.view_as_real(cpu)) <= 1e-5

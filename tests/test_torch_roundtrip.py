@@ -102,7 +102,7 @@ def test_fused_matches_jax(setup, weighted):
 
 @pytest.mark.parametrize("weighted", [False, True])
 def test_port_program_on_jax_constants(setup, weighted):
-    state = roundtrip.state_from_numpy(setup["consts"])
+    state = roundtrip.state_from_numpy(setup["consts"], device="cpu")
     w = torch.from_numpy(setup["w"]) if weighted else None
     got = roundtrip.fused_roundtrip(state, torch.from_numpy(setup["sky"]), w)
     want = setup["want_w"] if weighted else setup["want"]
@@ -111,7 +111,8 @@ def test_port_program_on_jax_constants(setup, weighted):
 
 def test_prepared_state_matches_jax_constants(setup):
     c = setup["consts"]
-    st = roundtrip.prepare_state(setup["bt"], chunk=CHUNK)
+    st = roundtrip.prepare_state(setup["bt"], chunk=CHUNK, device="cpu")
+    assert st["form"] == "windowed" and st["va"].device == torch.device("cpu")
     assert st["dims"] == tuple(c["dims"])
     assert np.array_equal(st["order"].numpy(), c["order"])
     assert st["uniform_freq"] == c["uniform_freq"]
@@ -144,16 +145,47 @@ def test_beam_fringe_maps_match_jax():
     jbt = JBeamTransfer(telescope=JDishArray(**CONFIG), nside=NSIDE)
     bt = BeamTransfer(UnpolarisedDishArray(**CONFIG), nside=NSIDE)
     for fi in range(2):
-        got = bt._beam_fringe_maps(fi, pair_sel=slice(1, 7))
+        got = bt._beam_fringe_maps(fi, pair_sel=slice(1, 7), device="cpu")
         want = np.asarray(jbt._beam_fringe_maps(fi, pair_sel=slice(1, 7)))
         assert got.dtype == torch.complex64 and got.shape == want.shape
         assert _rel(got.numpy(), want) <= TOL32
 
 
-def test_wide_beam_is_not_ported_yet():
-    cfg = dict(CONFIG, dish_width=0.5)
-    bt = BeamTransfer(UnpolarisedDishArray(**cfg), nside=8)
-    if bt._beam_window() is not None:
-        pytest.fail("a 0.5 m dish should not give a compact window")
-    with pytest.raises(NotImplementedError):
-        roundtrip.prepare_state(bt, chunk=4)
+def _pol_dishes(base):
+    """Four dual-pol dishes (X feeds then Y feeds): ``tests/test_roundtrip.py``'s
+    ``polarised_setup``, npol_sky = 4 with four beamclass-pair products."""
+
+    class PolDishes(base):
+        @property
+        def feedpositions(self):
+            xy = np.array([[0.0, 0.0], [5.0, 1.0], [1.0, 6.0], [6.0, 5.5]])
+            return np.concatenate([xy, xy], axis=0)
+
+        @property
+        def beamclass(self):
+            return np.array([0, 0, 0, 0, 1, 1, 1, 1])
+
+    return PolDishes(
+        latitude=30.0, freq_lower=400.0, freq_upper=500.0, num_freq=2, dish_width=8.0,
+        auto_correlations=True, force_lmax=3 * NSIDE - 1, force_mmax=3 * NSIDE - 1,
+    )
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_windowed_polarised_dishes_match_jax(weighted):
+    from draco_tpu.telescope import SimplePolarisedTelescope as JPolarised
+    from draco_tpu_torch.telescope import SimplePolarisedTelescope
+
+    jtel = _pol_dishes(JPolarised)
+    jbt = JBeamTransfer(telescope=jtel, nside=NSIDE)
+    bt = BeamTransfer(_pol_dishes(SimplePolarisedTelescope), nside=NSIDE)
+    assert bt._beam_window() is not None and jtel.num_pol_sky == 4
+    rng = np.random.Generator(np.random.SFC64(31))
+    sky = rng.standard_normal((jtel.nfreq, 4, 12 * NSIDE**2)).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, (jtel.mmax + 1, 2, jtel.nfreq, len(jtel.uniquepairs))).astype(np.float32)
+    w = w if weighted else None
+    want = np.asarray(jrt.fused_simulate_to_map(jbt, sky, chunk=7, weight=w))
+    got = roundtrip.fused_simulate_to_map(bt, sky, chunk=7, weight=w, device="cpu")
+    assert not roundtrip.prepare_state(bt, chunk=7, device="cpu")["uniform_real"]
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= TOL32

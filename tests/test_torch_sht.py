@@ -40,7 +40,7 @@ def test_geometry_is_the_reference(pair):
 
 def test_two_float_legendre_matches_jax(pair):
     s, js = pair
-    hi, lo = s.precompute_legendre_split_2f()
+    hi, lo = s.precompute_legendre_split_2f("cpu")
     jhi, jlo = js.precompute_legendre_split_2f_streamed()
     with jax.enable_x64(True):
         ref = np.asarray(js._legendre_block(np.arange(48), jnp.float64))
@@ -62,15 +62,15 @@ def test_two_float_legendre_matches_jax(pair):
 
 def test_float32_legendre_is_stable(pair):
     s, _ = pair
-    lam32 = s.legendre(np.arange(s.info.nring), torch.float32)
-    lam64 = s.legendre(np.arange(s.info.nring), torch.float64)
+    lam32 = s.legendre(np.arange(s.info.nring), torch.float32, "cpu")
+    lam64 = s.legendre(np.arange(s.info.nring), torch.float64, "cpu")
     assert torch.isfinite(lam32).all()
     assert _rel(lam32.double().numpy(), lam64.numpy()) <= TOL32
 
 
 def test_exact_turns_dft_factors(pair):
     s, js = pair
-    plan = s.precompute_ring_plan(torch.float32)
+    plan = s.precompute_ring_plan(torch.float32, "cpu")
     jplan = js.precompute_ring_plan_streamed()
     Wr, Wi = plan["W"]
     W = Wr.numpy() + 1j * Wi.numpy()
@@ -86,7 +86,7 @@ def test_exact_turns_dft_factors(pair):
         mask = js._cap_mask[rows_arr][:, :wd]
         exact = np.exp(-1j * phi[:, :, None] * m[None]) * mask[:, :, None] * w
         assert np.abs(P - exact).max() < 5e-7 * w
-    pr, pi = s._ring_phase(s._belt_rings, torch.float32, None)
+    pr, pi = s._ring_phase(s._belt_rings, torch.float32, "cpu")
     phi0 = s.info.phi0[s._belt_rings]
     exact = np.exp(-1j * phi0[:, None] * np.arange(s.mmax + 1)[None, :])
     assert np.abs(pr.numpy() + 1j * pi.numpy() - exact).max() < 5e-7
@@ -158,3 +158,120 @@ def test_phase_frac3_and_sincos_turns_match_jax():
 def test_invert_no_zero():
     x = torch.tensor([0.0, 1e-45, 2.0, -4.0], dtype=torch.float32)
     assert torch.equal(tools.invert_no_zero(x), torch.tensor([0.0, 0.0, 0.5, -0.25]))
+
+
+def test_twofloat_phase_frac_matches_jax():
+    rng = np.random.Generator(np.random.SFC64(12))
+    b64 = rng.uniform(-500, 500, (16, 3))
+    v64 = rng.standard_normal((40, 3))
+    v64 /= np.linalg.norm(v64, axis=1, keepdims=True)
+    b2, v2 = tools.twofloat_split(b64), tools.twofloat_split(v64)
+    for got, ref in zip(b2, jtools.twofloat_split(b64)):
+        assert got.dtype == np.float32 and np.array_equal(got, ref)
+    t = tools.phase_frac(*(torch.from_numpy(p) for p in b2), *(torch.from_numpy(p) for p in v2))
+    assert np.abs(t.numpy() - np.asarray(jtools.phase_frac(*b2, *v2))).max() <= 1e-6
+    err = t.numpy() - b64 @ v64.T
+    assert np.abs(err - np.round(err)).max() < 1e-6
+
+
+def test_padded_layout_is_the_reference(pair):
+    s, js = pair
+    layout = s.padded_layout()
+    assert layout.dtype == np.int64 and np.array_equal(layout, js.padded_layout())
+    # every pixel exactly once, padding marked -1
+    assert np.array_equal(np.sort(layout[layout >= 0]), np.arange(s.npix))
+
+
+@pytest.mark.parametrize("raw_belt", [False, True])
+@pytest.mark.parametrize("mcut", [None, 20])
+def test_ring_analysis_parts_padded_matches_jax(pair, raw_belt, mcut):
+    s, js = pair
+    layout = s.padded_layout()
+    rng = np.random.Generator(np.random.SFC64(7))
+    maps = rng.standard_normal((2, 3, s.npix)).astype(np.float32)
+    pad = np.where(layout >= 0, maps[..., np.clip(layout, 0, None)], 0.0).astype(np.float32)
+    _, _, plan = s.tables("cpu", torch.float32)
+    F_belt, group_F = s._ring_analysis_parts_padded(torch.from_numpy(pad), plan, raw_belt=raw_belt, mcut=mcut)
+    # the reference truncates a phased belt's coefficients but not its phase
+    # weight, and raises; the port truncates both, which the comparison
+    # with its own gathered, untruncated coefficients below holds
+    if raw_belt or mcut is None:
+        jF_belt, jgroup_F = js._ring_analysis_parts_padded(
+            pad, raw_belt=raw_belt, plan=js.precompute_ring_plan_streamed(), mcut=mcut
+        )
+        assert len(group_F) == len(jgroup_F)
+        for got, want in zip((F_belt, *group_F), (jF_belt, *jgroup_F)):
+            want = np.asarray(want)
+            assert got.shape == want.shape and got.dtype == torch.complex64
+            assert _rel(got.numpy(), want) <= TOL32
+    # the padded layout gives the gathered layout's coefficients
+    ref = s._ring_analysis_parts(torch.from_numpy(maps), plan, raw_belt=raw_belt)
+    for got, want in zip((F_belt, *group_F), (ref[0], *ref[1])):
+        assert got.shape[-1] == (mcut or s.mmax + 1)
+        assert _rel(got.numpy(), want[..., : got.shape[-1]].numpy()) <= 1e-6
+
+
+def test_analysis_padded_and_complex_analysis_match_jax(pair):
+    s, js = pair
+    rng = np.random.Generator(np.random.SFC64(9))
+    maps = (rng.standard_normal((2, s.npix)) + 1j * rng.standard_normal((2, s.npix))).astype(np.complex64)
+    pos, neg = s.analysis_complex(torch.from_numpy(maps))
+    jpos, jneg = js.analysis_complex(maps)
+    assert pos.dtype == torch.complex64
+    assert _rel(pos.numpy(), np.asarray(jpos)) <= TOL32
+    assert _rel(neg.numpy(), np.asarray(jneg)) <= TOL32
+    rpos, rneg = s.analysis_complex(torch.from_numpy(maps.real.copy()))
+    jrpos, jrneg = js.analysis_complex(maps.real)
+    assert _rel(rpos.numpy(), np.asarray(jrpos)) <= TOL32 and _rel(rneg.numpy(), np.asarray(jrneg)) <= TOL32
+
+    layout = s.padded_layout()
+    pad = np.where(layout >= 0, maps.real[..., np.clip(layout, 0, None)], 0.0).astype(np.float32)
+    lam, lam_lo, plan = s.tables("cpu", torch.float32)
+    got = s.analysis_padded(torch.from_numpy(pad), lam, plan, lam_lo)
+    jlam = js.precompute_legendre_split(jnp.float32)
+    want = np.asarray(js.analysis_padded(pad, jlam, plan=js.precompute_ring_plan_streamed()))
+    assert _rel(got.numpy(), want) <= TOL32
+
+
+def test_sphtrans_sky_and_inverse_match_jax():
+    rng = np.random.Generator(np.random.SFC64(10))
+    sky = rng.standard_normal((2, 1, healpix.npix_of(16))).astype(np.float32)
+    alm = sht.sphtrans_sky(sky, lmax=47, device="cpu")
+    jalm = np.asarray(jsht.sphtrans_sky(sky, lmax=47))
+    assert alm.shape == jalm.shape and _rel(alm.numpy(), jalm) <= TOL32
+    back = sht.sphtrans_inv_sky(alm, 16)
+    assert _rel(back.numpy(), np.asarray(jsht.sphtrans_inv_sky(jalm.astype(np.complex64), 16))) <= TOL32
+
+
+@pytest.fixture(scope="module")
+def window_pair(pair):
+    from draco_tpu.ops.sht_window import WindowedSHT as JWindowedSHT
+    from draco_tpu_torch.ops.sht_window import WindowedSHT
+
+    s, js = pair
+    vec = healpix.pix2vec(16)
+    centre = np.array([0.5, 0.0, np.sqrt(0.75)])
+    support = np.exp(-((vec - centre) ** 2).sum(axis=1) / (2 * 0.15**2))
+    return WindowedSHT(s, support, tau=1e-6, margin=4), JWindowedSHT(js, support, tau=1e-6, margin=4)
+
+
+def test_window_box_layout_is_the_reference(window_pair):
+    win, jwin = window_pair
+    assert np.array_equal(win.window_index, jwin.window_index)
+    Ec, Es, lam = win.rect_tables(torch.float32, "cpu")
+    assert _rel(Ec.numpy(), np.asarray(jwin._Ec)) <= TOL32 and _rel(Es.numpy(), np.asarray(jwin._Es)) <= TOL32
+    assert _rel(lam.numpy(), np.asarray(jwin._ensure_lam())) <= TOL32
+
+
+def test_windowed_analysis_matches_jax(window_pair):
+    win, jwin = window_pair
+    rng = np.random.Generator(np.random.SFC64(13))
+    full = rng.standard_normal((2, 3, healpix.npix_of(16))).astype(np.float32)
+    x = win.gather(torch.from_numpy(full))
+    assert np.array_equal(x.numpy(), np.asarray(jwin.gather(full)))
+    assert _rel(win.analysis(x).numpy(), np.asarray(jwin.analysis(x.numpy()))) <= TOL32
+    z = torch.complex(x[0], x[1])
+    assert _rel(win.analysis(z).numpy(), np.asarray(jwin.analysis(z.numpy()))) <= TOL32
+    a, b = win.analysis_pair(x[0], x[1])
+    ja, jb = jwin.analysis_pair(x[0].numpy(), x[1].numpy())
+    assert _rel(a.numpy(), np.asarray(ja)) <= TOL32 and _rel(b.numpy(), np.asarray(jb)) <= TOL32
