@@ -42,7 +42,29 @@ Phases, each of which raises on failure (exit code != 0):
    stages within 3e-5 of the map's peak;
 9. at nside 32, a small cylinder and a small dish array: ``generate``,
    the batched projection against the streaming one within 2e-5, and the
-   SVD projector finite and idempotent within 1e-4.
+   SVD projector finite and idempotent within 1e-4;
+10. the task chain at the dish slice's width through the pipeline
+   ``Manager`` (the scheduler ``python -m draco_tpu_torch run`` drives),
+   from a config mapping: ``LoadBeamTransfer`` of a directory that holds
+   only the telescope's ``telescope.pkl``, a seeded sky from this script's
+   ``EmitSky`` task, then chain A: ``SimulateSidereal`` (streaming, 1535
+   RA samples) -> ``MakeSiderealDayStream`` (one LSD) ->
+   ``MakeMultipleTimeStreams`` (8640 samples a sidereal day, from 120 s
+   before the day to 120 s after it, one file) -> ``SiderealRegridder``
+   (2048 bins, Ni [2017, 8665]) -> ``MModeTransform`` -> ``DirtyMapMaker``
+   (streaming, nside 256).  The launch counts are zeroed just before the
+   run and read just after: the kernel must have launched once per
+   regrid.  Every label's container type, shape and finiteness are
+   checked; chain A's m-modes are printed against chain B's; the
+   Manager's per-task times are printed for a first and a second run;
+11. in the same config, chain B (``SimulateSidereal`` -> ``MModeTransform``
+   -> ``DirtyMapMaker``, streaming) against ``SimulateAndMap``: unit
+   sidereal weights give m-mode weights of nra = 1535, so chain B's map
+   must be 1535 times the fused map within 3e-5 of its peak; both are
+   printed against the float64 fused map of the same sky;
+12. the matrix map makers at nside 32 (the small dish array): the dirty
+   map batched against streaming within 2e-5, the maximum-likelihood
+   solution re-projected onto the data within 1e-4, the Wiener map finite.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -76,6 +98,12 @@ TOL_MAP = 1e-5
 TOL_COMPOSED = 3e-5
 TOL_PROJECTION = 2e-5
 TOL_SVD = 1e-4
+TOL_CHAIN_FUSED = 3e-5
+TOL_ML = 1e-4
+# the task chain: the simulated sidereal day and its time stream
+LSD = 8000
+CHAIN_SAMPLES_PER_DAY = 8640
+CHAIN_PAD_S = 120.0
 # CHIME-class cylinders: the JAX bench's ``run_cylinder`` geometry
 CHIME = dict(cylinder_width=20.0, cylinder_spacing=22.0, feed_spacing=0.5, latitude=49.0)
 # one H100 SXM (NVIDIA's data sheet): HBM rate, and the peak rates outside
@@ -514,6 +542,210 @@ def check_beamtransfer(device) -> None:
             raise RuntimeError(f"{name}: beam-transfer projections or SVD projector out of tolerance")
 
 
+def sky_task() -> str:
+    """Define the pipeline phases' source task, ``EmitSky`` (one seeded sky
+    Map on the process default device), in this module; return its path."""
+    from draco_tpu_torch.core import config, containers
+    from draco_tpu_torch.core.task import ContainerTask, PipelineStopIteration
+
+    class EmitSky(ContainerTask):
+        seed = config.int_prop(0)
+        nside = config.int_prop(NSIDE)
+        freq = config.list_prop([])
+
+        def process(self):
+            if self._count:
+                raise PipelineStopIteration()
+            m = containers.Map(nside=self.nside, polarisation=False, freq=np.array(self.freq))
+            rng = np.random.Generator(np.random.SFC64(self.seed))
+            m.map[:] = rng.standard_normal(m.map.shape)
+            m.attrs["tag"] = "sky"
+            return m
+
+    globals()["EmitSky"] = EmitSky
+    return f"{__name__}.EmitSky"
+
+
+def chain_config(product_dir: str, tel, source: str) -> dict:
+    """Phases 10 and 11 as one pipeline config mapping."""
+    day_s = float(tel.lsd_to_unix(LSD + 1) - tel.lsd_to_unix(LSD))
+    streaming = {"streaming": True, "baseline_chunk": CHUNK}
+    to_map = {"nside": NSIDE, **streaming}
+    return {"pipeline": {"tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "bt"],
+         "params": {"product_directory": product_dir, "nside": NSIDE}},
+        {"type": source, "out": "sky", "params": {"seed": 10, "nside": NSIDE, "freq": [float(f) for f in tel.frequencies]}},
+        {"type": "draco.synthesis.stream.SimulateSidereal", "requires": "bt", "in": "sky", "out": "sstream",
+         "params": streaming},
+        {"type": "draco.synthesis.stream.MakeSiderealDayStream", "requires": ["bt", "sstream"], "out": "sday",
+         "params": {"start_time": float(tel.lsd_to_unix(LSD - 0.5)), "end_time": float(tel.lsd_to_unix(LSD + 0.5))}},
+        {"type": "draco.synthesis.stream.MakeMultipleTimeStreams", "requires": ["tel", "sday"], "out": "tstream",
+         "params": {"start_time": float(tel.lsd_to_unix(LSD)) - CHAIN_PAD_S,
+                    "end_time": float(tel.lsd_to_unix(LSD + 1)) + CHAIN_PAD_S,
+                    "integration_time": day_s / CHAIN_SAMPLES_PER_DAY, "samples_per_file": 2 * CHAIN_SAMPLES_PER_DAY}},
+        {"type": "draco.analysis.sidereal.SiderealRegridder", "requires": "tel", "in": "tstream", "out": "sregrid",
+         "params": {"samples": SAMPLES, "kernel_width": KERNEL_WIDTH, "epsilon": EPSILON}},
+        {"type": "draco.analysis.transform.MModeTransform", "requires": "tel", "in": "sregrid", "out": "mmodes_a"},
+        {"type": "draco.analysis.mapmaker.DirtyMapMaker", "requires": "bt", "in": "mmodes_a", "out": "map_a",
+         "params": to_map},
+        {"type": "draco.analysis.transform.MModeTransform", "requires": "tel", "in": "sstream", "out": "mmodes_b"},
+        {"type": "draco.analysis.mapmaker.DirtyMapMaker", "requires": "bt", "in": "mmodes_b", "out": "map_b",
+         "params": to_map},
+        {"type": "draco_tpu.telescope.roundtrip.SimulateAndMap", "requires": "bt", "in": "sky", "out": "map_fused",
+         "params": {"baseline_chunk": CHUNK}},
+    ]}}
+
+
+def check_chain_products(products, tel, device) -> None:
+    """Container type, shape and finiteness at every label of phases 10-11."""
+    import torch
+
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.ops import healpix
+
+    nb, M1, npix = len(tel.uniquepairs), tel.mmax + 1, healpix.npix_of(NSIDE)
+    ntime = products["tstream"][0].vis.shape[-1]
+    want = {
+        "sky": (containers.Map, {"map": (1, 1, npix)}),
+        "sstream": (containers.SiderealStream, {"vis": (1, nb, 2 * tel.mmax + 1)}),
+        "sday": (containers.SiderealStream, {"vis": (1, nb, 2 * tel.mmax + 1)}),
+        "tstream": (containers.TimeStream, {"vis": (1, nb, ntime), "vis_weight": (1, nb, ntime)}),
+        "sregrid": (containers.SiderealStream, {"vis": (1, nb, SAMPLES), "vis_weight": (1, nb, SAMPLES)}),
+        "mmodes_a": (containers.MModes, {"vis": (M1, 2, 1, nb), "vis_weight": (M1, 2, 1, nb)}),
+        "mmodes_b": (containers.MModes, {"vis": (M1, 2, 1, nb), "vis_weight": (M1, 2, 1, nb)}),
+        "map_a": (containers.Map, {"map": (1, 1, npix)}),
+        "map_b": (containers.Map, {"map": (1, 1, npix)}),
+        "map_fused": (containers.Map, {"map": (1, 1, npix)}),
+    }
+    for label, (cls, shapes) in want.items():
+        cont = products[label][0]
+        if len(products[label]) != 1 or not isinstance(cont, cls):
+            raise RuntimeError(f"task chain label {label}: {products[label]} is not one {cls.__name__}")
+        for name, shape in shapes.items():
+            data = cont[name][:]
+            if tuple(data.shape) != shape or data.device != device or not bool(torch.isfinite(data).all()):
+                raise RuntimeError(
+                    f"task chain {label}/{name}: shape {tuple(data.shape)} (want {shape}), "
+                    f"device {data.device} or non-finite values"
+                )
+    if abs(products["tstream"][0].vis.shape[-1] - CHAIN_SAMPLES_PER_DAY * (1 + 2 * CHAIN_PAD_S / 86164.0905)) > 2:
+        raise RuntimeError(f"task chain time stream has {ntime} samples")
+
+
+def run_task_chain(tel, device) -> int:
+    """Phases 10 and 11: the chain through the Manager, twice; returns the
+    kernel launches of the first run."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from draco_tpu_torch.core.pipeline import Manager
+    from draco_tpu_torch.ops import cuda_kernels
+    from draco_tpu_torch.telescope.roundtrip import fused_simulate_to_map
+
+    with tempfile.TemporaryDirectory() as product_dir:
+        with open(Path(product_dir) / "telescope.pkl", "wb") as f:
+            pickle.dump(tel, f)
+        config = chain_config(product_dir, tel, sky_task())
+        torch.cuda.reset_peak_memory_stats(device)
+        cuda_kernels.reset_launches()
+        manager = Manager(config)
+        t0 = time.perf_counter()
+        products = manager.run()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = cuda_kernels.launches["banded_covariance"]
+        log(f"task chain run 1: {wall:.2f} s wall, kernel launches {dict(cuda_kernels.launches)}, "
+            f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+        log("task chain run 1 task_timing (s): " + json.dumps(
+            {name: round(t["wall"], 4) for name, t in manager.task_timing.items()}))
+        nregrid = len(products["sregrid"])
+        if launches != nregrid:
+            raise RuntimeError(f"the task chain launched banded_covariance {launches} times for {nregrid} regrids")
+        check_chain_products(products, tel, device)
+
+        # phase 10: chain A's m-modes against chain B's (the Lanczos sample
+        # and regrid error, no limit: the CPU tests hold each task to JAX)
+        va, vb = products["mmodes_a"][0].vis[:], products["mmodes_b"][0].vis[:]
+        half = tel.mmax // 2
+        log(f"task chain: chain A vs chain B m-modes max|diff| / max|ref| {_rel(va, vb):.3e} over all m, "
+            f"{_rel(va[: half + 1], vb[: half + 1]):.3e} over m <= {half}")
+        wa = products["mmodes_a"][0].weight[:]
+        log(f"task chain: m-mode weights chain A mean {wa.mean().item():.2f}, "
+            f"chain B {products['mmodes_b'][0].weight[:].mean().item():.2f}")
+
+        # phase 11: unit sidereal weights -> m-mode weights nra = 1535
+        nra = products["sstream"][0].vis.shape[-1]
+        wb = products["mmodes_b"][0].weight[:]
+        if not bool(((wb - nra).abs() <= 1e-6 * nra).all()):
+            raise RuntimeError(f"chain B's m-mode weights are not all {nra}")
+        map_b, fused = products["map_b"][0].map[:], products["map_fused"][0].map[:]
+        rel = ((map_b - nra * fused).abs().max() / map_b.abs().max()).item()
+        log(f"task chain: chain B map vs {nra} x SimulateAndMap map max|diff| / max|map| {rel:.3e} "
+            f"(tol {TOL_CHAIN_FUSED})")
+        if not rel <= TOL_CHAIN_FUSED:
+            raise RuntimeError(f"chain B's map is {rel:.3e} from the fused map (tol {TOL_CHAIN_FUSED})")
+        # both against the float64 fused round trip of the same sky (no
+        # limit: the 1e-5 contract is held by phases 4 and 8)
+        truth = fused_simulate_to_map(products["bt"][0], products["sky"][0].map[:], chunk=CHUNK)
+        log(f"task chain: against the float64 fused map, chain B map / {nra} {_rel(map_b / nra, truth):.3e}, "
+            f"float32 SimulateAndMap map {_rel(fused, truth):.3e} (max|diff| / max|map|)")
+        del products, va, vb, wa, wb, map_b, fused, truth
+        torch.cuda.empty_cache()
+
+        manager = Manager(config)
+        t0 = time.perf_counter()
+        manager.run()
+        torch.cuda.synchronize(device)
+        log(f"task chain run 2: {time.perf_counter() - t0:.2f} s wall")
+        log("task chain run 2 task_timing (s): " + json.dumps(
+            {name: round(t["wall"], 4) for name, t in manager.task_timing.items()}))
+    return launches
+
+
+def check_map_makers(device) -> None:
+    """Phase 12: the matrix map makers on the card at nside 32."""
+    import torch
+
+    from draco_tpu_torch.analysis.mapmaker import DirtyMapMaker, MaximumLikelihoodMapMaker, WienerMapMaker
+    from draco_tpu_torch.analysis.transform import MModeTransform
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.synthesis.stream import SimulateSidereal
+
+    def run(task, params, setup, data):
+        task.read_config(params)
+        task.setup(*setup)
+        return task.process(data)
+
+    tel, bt = small_dishes(NSIDE_SMALL)
+    bt.generate()
+    sky = containers.Map(nside=NSIDE_SMALL, polarisation=False, freq=tel.frequencies)
+    sky.map[:] = np.random.Generator(np.random.SFC64(12)).standard_normal(sky.map.shape)
+    mmodes = run(MModeTransform(), {}, (tel,), run(SimulateSidereal(), {}, (bt,), sky))
+    params = {"nside": NSIDE_SMALL}
+    batched = run(DirtyMapMaker(), params, (bt,), mmodes).map[:]
+    streamed = run(DirtyMapMaker(), {**params, "streaming": True}, (bt,), mmodes).map[:]
+    rel_dirty = _rel(batched, streamed)
+    # the float32 SVD resolves modes down to about 3e-5 of the largest
+    ml_params = {**params, "rcond": 3e-5, "acond": 1e-9}
+    ml_map = run(MaximumLikelihoodMapMaker(), ml_params, (bt,), mmodes).map[:]
+    ml = MaximumLikelihoodMapMaker()
+    ml.read_config(ml_params)
+    ml.setup(bt)
+    shape = (tel.mmax + 1, 2, tel.nfreq, tel.npairs)
+    vis = mmodes.vis[:].reshape(shape)
+    alm = ml._solve_all_m(vis, mmodes.weight[:].reshape(shape), list(range(tel.nfreq)), tel.mmax)
+    rel_ml = _rel(bt.project_sky_to_telescope(alm), vis)
+    wiener = run(WienerMapMaker(), {**params, "prior_amp": 10.0}, (bt,), mmodes).map[:]
+    finite = all(bool(torch.isfinite(m).all()) and m.device == device for m in (batched, streamed, ml_map, wiener))
+    log(f"map makers nside={NSIDE_SMALL} 2 x 2 dishes: dirty batched vs streaming {rel_dirty:.3e} "
+        f"(tol {TOL_PROJECTION}), ML re-projected vs data {rel_ml:.3e} (tol {TOL_ML}), "
+        f"Wiener max|map| {wiener.abs().max().item():.3e}, all finite on the card: {finite}")
+    if not (rel_dirty <= TOL_PROJECTION and rel_ml <= TOL_ML and finite):
+        raise RuntimeError("phase 12: a map maker is out of tolerance or not finite on the card")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=2, help="seed of the time streams and kernel inputs")
@@ -602,6 +834,17 @@ def main() -> int:
 
     # phase 9: generate, projections and SVD at nside 32
     check_beamtransfer(device)
+    torch.cuda.empty_cache()
+
+    # phases 10 and 11: the task chain through the pipeline Manager
+    t0 = time.perf_counter()
+    tel, _ = telescope(NSIDE)
+    chain_launches = run_task_chain(tel, device)
+    log(f"phases 10-11 wall time {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 12: the matrix map makers at nside 32
+    check_map_makers(device)
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [{
@@ -612,6 +855,7 @@ def main() -> int:
         "launches": launches["banded_covariance"],
         **kern,
         "cylinder_path": {"launches": launches_c["banded_covariance"], **kern_c},
+        "task_chain": {"launches": chain_launches},
     }]}
     print(json.dumps(record))
     print(card)

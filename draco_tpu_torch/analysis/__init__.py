@@ -1,1 +1,1 @@
-"""Analysis functions of the sidereal regrid -> m-mode slice."""
+"""Analysis tasks of the main path: m-mode transforms, regridding and map making."""

@@ -1,11 +1,19 @@
-"""Sidereal regridding and m-mode weights, as plain functions.
+"""Transforms of the main path: m-modes, RA/frequency reshaping, regridding.
 
-Port of the math of ``draco_tpu.analysis.transform``:
-``LanczosRegridder._regrid`` (the maximum-likelihood inverse of a Lanczos
-interpolation onto a regular sidereal grid, reference
-transform.py:854-986) and the m-mode noise-weight formula of
-``MModeTransform`` (reference transform.py:599-602).  The container and
-task layers are not ported yet.
+Port of ``draco_tpu.analysis.transform`` up to the regridders: reference
+``draco/analysis/transform.py`` (FrequencyRebin:20, SelectFreq:333,
+MModeTransform:535, MModeInverseTransform:708, SiderealMModeResample:795,
+ShiftRA:993, Regridder:854).  Every task works on its container's
+device.
+
+Two plain functions carry the math of the slice:
+
+* :func:`regrid_sidereal`, the maximum-likelihood inverse of a Lanczos
+  interpolation onto a regular grid (``LanczosRegridder._regrid``,
+  reference transform.py:854-986), whose banded covariance is the
+  hand-written CUDA kernel on the card;
+* :func:`mmode_weights`, the m-mode noise weights of ``MModeTransform``
+  (reference transform.py:599-602).
 """
 
 from __future__ import annotations
@@ -13,10 +21,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import config, containers, io
+from ..core.task import ContainerTask, group_tasks
+from ..ops import mmode
 from ..ops import regrid as regrid_ops
 from ..ops.tools import invert_no_zero
 
-__all__ = ["regrid_sidereal", "mmode_weights"]
+__all__ = [
+    "regrid_sidereal",
+    "mmode_weights",
+    "FrequencyRebin",
+    "SelectFreq",
+    "MModeTransform",
+    "MModeInverseTransform",
+    "SiderealMModeResample",
+    "ShiftRA",
+    "LanczosRegridder",
+    "Regridder",
+]
 
 
 def regrid_sidereal(
@@ -78,3 +100,313 @@ def mmode_weights(ni: torch.Tensor, mmax: int) -> torch.Tensor:
     var_sum = invert_no_zero(ni).sum(dim=-1)
     weight_sum = nra**2 * invert_no_zero(var_sum)
     return weight_sum.expand(mmax + 1, 2, *weight_sum.shape).contiguous()
+
+
+def _window(m: int, nra: int, like: torch.Tensor) -> torch.Tensor:
+    """sinc(m / nra) of the rectangular RA integration window, [m, 1, ...]
+    broadcasting against an [m, ...] tensor like ``like``."""
+    w = torch.as_tensor(np.sinc(np.arange(m) / nra), dtype=like.real.dtype, device=like.device)
+    return w.reshape((m,) + (1,) * (like.ndim - 1))
+
+
+class FrequencyRebin(ContainerTask):
+    """Rebin neighbouring frequency channels (reference transform.py:20).
+
+    Attributes
+    ----------
+    channel_bin : int
+        Number of channels to merge.
+    """
+
+    channel_bin = config.int_prop(1)
+
+    def process(self, ss):
+        if "freq" not in ss.index_map:
+            raise RuntimeError("A freq axis is required for rebinning.")
+        cb = self.channel_bin
+        if len(ss.freq) % cb != 0:
+            raise RuntimeError("The channel count is not a multiple of the bin size.")
+
+        freq_map = ss.index_map["freq"]
+        centre = freq_map["centre"].reshape(-1, cb).mean(axis=-1)
+        width = freq_map["width"].reshape(-1, cb).sum(axis=-1)
+        new_freq = np.zeros(len(centre), dtype=freq_map.dtype)
+        new_freq["centre"] = centre
+        new_freq["width"] = width
+
+        sb = ss.__class__(freq=new_freq, axes_from=ss, attrs_from=ss)
+
+        for name, ds in ss.datasets.items():
+            if name not in sb.dataset_spec():
+                continue
+            if name not in sb.datasets:
+                sb.add_dataset(name)
+            if "freq" not in ds.axes:
+                sb.datasets[name][:] = ds[:]
+                continue
+            fax = list(ds.axes).index("freq")
+            arr = ds[:].movedim(fax, 0)
+            shape = (len(centre), cb) + tuple(arr.shape[1:])
+            if name.endswith("weight") or name == "weight":
+                # inverse-variance weights combine as a sum
+                new = arr.reshape(shape).sum(dim=1)
+            elif name == "vis" and "vis" in ss.datasets:
+                # weighted average with the weight dataset
+                w = ss.weight[:].movedim(fax, 0)
+                num = (arr * w).reshape(shape).sum(dim=1)
+                den = w.reshape(shape).sum(dim=1)
+                new = num * invert_no_zero(den)
+            else:
+                new = arr.reshape(shape).mean(dim=1)
+            sb.datasets[name][:] = new.movedim(0, fax)
+        return sb
+
+
+class SelectFreq(ContainerTask):
+    """Select a subset of frequencies (reference transform.py:333).
+
+    Attributes
+    ----------
+    freq_physical : list
+        Physical frequencies (MHz) to select.
+    channel_range : list
+        [start, stop, (step)] channel range.
+    channel_index : list
+        Explicit channel indices.
+    freq_physical_range : list
+        [low, high] physical frequency bounds.
+    """
+
+    freq_physical = config.list_prop([])
+    channel_range = config.list_prop([])
+    channel_index = config.list_prop([])
+    freq_physical_range = config.list_prop([])
+
+    def _chosen_channels(self, freq):
+        """Resolve the configured selection to an index/slice."""
+        if self.freq_physical:
+            return sorted({np.argmin(np.abs(freq - fp)) for fp in self.freq_physical})
+        if self.channel_range and (len(self.channel_range) <= 3):
+            return slice(*self.channel_range)
+        if self.channel_index:
+            return self.channel_index
+        if self.freq_physical_range:
+            low, high = sorted(self.freq_physical_range)
+            return np.where((freq >= low) & (freq < high))[0]
+        raise ValueError(
+            "Must specify one of freq_physical, channel_range, channel_index or freq_physical_range."
+        )
+
+    def process(self, data):
+        freq_map = data.index_map["freq"]
+        freq = freq_map["centre"] if freq_map.dtype.names else freq_map
+
+        fsel = np.arange(len(freq))[self._chosen_channels(freq)]
+        newdata = data.__class__(freq=freq_map[fsel], axes_from=data, attrs_from=data)
+        # also carries freq-independent datasets across unchanged
+        containers.copy_datasets_filter(data, newdata, selection={"freq": fsel})
+        return newdata
+
+
+class MModeTransform(ContainerTask):
+    """Transform a sidereal stream to m-modes (reference transform.py:535).
+
+    One batched FFT over RA and the +/-m packing
+    (:func:`draco_tpu_torch.ops.mmode.make_marray`), on the stream's device.
+
+    Attributes
+    ----------
+    remove_integration_window : bool
+        Deconvolve the finite-width rectangular RA integration window.
+    """
+
+    remove_integration_window = config.bool_prop(False)
+    # accepted for reference-config compatibility (transform.py:555): the
+    # transform is always torch's batched FFT
+    use_fftw = config.bool_prop(True)
+
+    def setup(self, manager=None):
+        """Optionally set the telescope to define mmax."""
+        self.telescope = io.get_telescope(manager) if manager is not None else None
+
+    def process(self, sstream) -> containers.MContainer:
+        contmap = {
+            containers.SiderealStream: containers.MModes,
+            containers.HybridVisStream: containers.HybridVisMModes,
+        }
+        out_cont = None
+        for cls in type(sstream).__mro__:
+            if cls in contmap:
+                out_cont = contmap[cls]
+                break
+        if out_cont is None:
+            raise TypeError(f"No m-mode container for {type(sstream)}")
+
+        sstream.redistribute("freq")
+        svis = sstream.vis[:]
+        sweight = sstream.weight[:]
+        nra = sweight.shape[-1]
+        mmax = svis.shape[-1] // 2 if self.telescope is None else self.telescope.mmax
+
+        ma = out_cont(mmax=mmax, oddra=bool(nra % 2), axes_from=sstream, attrs_from=sstream)
+        mvis = mmode.make_marray(svis, mmax=mmax)
+        # noise variance of the m-modes: the sum of the per-sample
+        # variances (reference transform.py:599-602), for every (m, msign)
+        mw = mmode_weights(sweight, mmax)
+        if self.remove_integration_window:
+            w_win = _window(mmax + 1, nra, mvis)
+            mvis = mvis * invert_no_zero(w_win)
+            mw = mw * w_win**2
+        ma.vis[:] = mvis
+        ma.weight[:] = mw
+        return ma
+
+
+class MModeInverseTransform(ContainerTask):
+    """Transform m-modes back to a sidereal stream (reference transform.py:708).
+
+    Attributes
+    ----------
+    nra : int
+        Number of output RA bins (default: Nyquist for the stored mmax).
+    apply_integration_window : bool
+        Re-apply the rectangular integration window.
+    """
+
+    nra = config.int_prop(None)
+    apply_integration_window = config.bool_prop(False)
+
+    def process(self, mmodes: containers.MContainer):
+        mmodes.redistribute("freq")
+        nra = self.nra
+        if nra is None:
+            # critically-sampled RA count for the stored mmax
+            nra = 2 * mmodes.mmax + int(bool(mmodes.oddra))
+
+        mvis = mmodes.vis[:]
+        mweight = mmodes.weight[:]
+        if self.apply_integration_window:
+            w = _window(mvis.shape[0], nra, mvis)
+            mvis = mvis * w
+            mweight = mweight * invert_no_zero(w) ** 2
+        ssarray = mmode.mmodes_to_sidereal(mvis, n=nra, oddra=bool(mmodes.oddra))
+
+        sstream = containers.SiderealStream(
+            ra=ssarray.shape[-1], axes_from=mmodes, attrs_from=mmodes, distributed=True
+        )
+        sstream.vis[:] = ssarray
+        # no time information is recoverable: spread the m = 0 weight over
+        # RA (reference transform.py:788-790)
+        sstream.weight[:] = (mweight[0, 0] / sstream.vis.shape[-1])[..., None]
+        return sstream
+
+
+class SiderealMModeResample(group_tasks(MModeTransform, MModeInverseTransform)):
+    """Resample a sidereal stream by forward+inverse m-mode transform.
+
+    (reference transform.py:795)
+    """
+
+
+class ShiftRA(ContainerTask):
+    """Add an offset to the RA axis (reference transform.py:993).
+
+    Attributes
+    ----------
+    delta : float
+        Shift in degrees.
+    periodic : bool
+        Wrap and roll so the axis stays in [0, 360).
+    """
+
+    delta = config.float_prop(0.0)
+    periodic = config.bool_prop(False)
+
+    def process(self, sscont: containers.SiderealContainer):
+        if not isinstance(sscont, containers.SiderealContainer):
+            raise TypeError(f"Expected SiderealContainer, got {type(sscont)}")
+        ra = sscont.index_map["ra"] + self.delta
+        if self.periodic:
+            shift = int(np.argmin(ra % 360.0))
+            ra = np.roll(ra % 360.0, -shift)
+            for ds in sscont.datasets.values():
+                if "ra" in ds.axes:
+                    ax = list(ds.axes).index("ra")
+                    data = ds[:]
+                    ds[:] = torch.roll(data, -shift, dims=ax) if isinstance(data, torch.Tensor) else np.roll(
+                        data, -shift, axis=ax
+                    )
+        sscont.create_index_map("ra", ra)
+        return sscont
+
+
+class LanczosRegridder(ContainerTask):
+    """Interpolate the time-like axis onto a regular grid.
+
+    Maximum-likelihood inverse of a Lanczos interpolation via the banded
+    Wiener filter (reference transform.py:854-986): :func:`regrid_sidereal`
+    on the data's device, whose banded covariance is the hand-written CUDA
+    kernel on the card.
+
+    Attributes
+    ----------
+    samples : int
+        Number of output samples.
+    start, end : float
+        Range of the output grid (defaults to the data bounds).
+    kernel_width : int
+        Lanczos kernel width.
+    epsilon : float
+        Regulariser (inverse signal variance).
+    mask_zero_weight : bool
+        Zero output weights where the input weights were all zero.
+    """
+
+    samples = config.int_prop(1024)
+    start = config.float_prop(None)
+    end = config.float_prop(None)
+    kernel_width = config.int_prop(5)
+    epsilon = config.float_prop(1e-3)
+    mask_zero_weight = config.bool_prop(False)
+
+    def setup(self, observer):
+        self.observer = io.get_telescope(observer)
+
+    def process(self, data):
+        data.redistribute("freq")
+        weight = data.weight[:]
+        vis_data = data.vis[:]
+
+        timelike_axis = data.vis.attrs["axis"][-1]
+        times = data.index_map[timelike_axis][:]
+        if times.dtype.names and "ctime" in times.dtype.names:
+            times = times["ctime"]
+
+        if self.start is None:
+            self.start = float(times[0])
+        if self.end is None:
+            self.end = float(times[-1])
+        if self.start < times[0] or self.end > times[-1]:
+            msg = "Start or end points for regridder fall outside bounds of input data."
+            self.log.error(msg)
+            raise RuntimeError(msg)
+
+        new_grid, new_vis, ni = self._regrid(vis_data, weight, times)
+
+        new_data = data.__class__(axes_from=data, attrs_from=data, **{timelike_axis: new_grid})
+        new_data.vis[:] = new_vis
+        new_data.weight[:] = ni
+        return new_data
+
+    def _regrid(self, vis_data, weight, times):
+        grid, solved, ni = regrid_sidereal(
+            vis_data, weight, times, self.samples, self.start, self.end, self.kernel_width, self.epsilon
+        )
+        if self.mask_zero_weight:
+            had_data = weight.sum(dim=-1) != 0.0
+            ni = ni * had_data[..., None]
+        return grid, solved, ni
+
+
+# Alias for compatibility
+Regridder = LanczosRegridder

@@ -16,7 +16,33 @@ __all__ = [
     "unpack_marray",
     "mmodes_to_sidereal",
     "default_mmax",
+    "fast_fft_size",
 ]
+
+
+def fast_fft_size(n: int) -> int:
+    """Smallest 5-smooth size >= n (``draco_tpu.ops.mmode.fast_fft_size``).
+
+    A sidereal axis of this length keeps the same m-modes as the natural
+    minimal length 2*mmax + 1 (1535 = 5 x 307 for mmax 767), and its FFT
+    has only small prime factors.
+    """
+    best = 1
+    while best < n:
+        best *= 2
+    m = best  # power of two >= n is always a candidate
+    p3 = 1
+    while p3 <= m:
+        p35 = p3
+        while p35 <= m:
+            # smallest power of 2 lifting p35 over n
+            p = p35
+            while p < n:
+                p *= 2
+            m = min(m, p)
+            p35 *= 5
+        p3 *= 3
+    return m
 
 
 def default_mmax(nra: int) -> int:

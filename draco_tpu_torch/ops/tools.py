@@ -2,7 +2,8 @@
 
 Port of the fringe subset of ``draco_tpu.ops.tools``
 (``twofloat_split``, ``phase_frac``, ``threefloat_split``,
-``phase_frac3``, ``sincos_turns``) and ``invert_no_zero``.
+``phase_frac3``, ``sincos_turns``), ``invert_no_zero`` and the host key
+lookups ``find_key``/``find_keys``.
 
 The exact-phase scheme rests on every high product being an exact
 float32 value and on no fused multiply-add changing a rounded product.
@@ -20,6 +21,7 @@ import torch
 
 __all__ = [
     "invert_no_zero", "twofloat_split", "phase_frac", "threefloat_split", "phase_frac3", "sincos_turns",
+    "find_key", "find_keys",
 ]
 
 # Veltkamp split constant for float32 (2^12 + 1)
@@ -138,3 +140,49 @@ def sincos_turns(t: torch.Tensor):
     cos_v = torch.where(neg_c, -cos_v, cos_v)
     sin_v = torch.where(neg_s, -sin_v, sin_v)
     return cos_v, sin_v
+
+
+def find_key(key_list, key):
+    """Index of ``key`` in ``key_list`` or None (reference tools.py:66)."""
+    try:
+        entries = [tuple(x) for x in key_list]
+        key = tuple(key)
+    except TypeError:
+        entries = list(key_list)
+    try:
+        return entries.index(key)
+    except ValueError:
+        return None
+
+
+def _norm_key(k):
+    """Normalise a key element: HDF5 round trips turn unicode into bytes."""
+    if isinstance(k, bytes):
+        return k.decode()
+    if isinstance(k, np.str_):
+        return str(k)
+    return k
+
+
+def find_keys(key_list, keys, require_match: bool = False):
+    """Indices of ``keys`` in ``key_list`` (reference tools.py:95).
+
+    String keys compare equal across the bytes/unicode divide (HDF5 stores
+    fixed-width strings as bytes).
+    """
+
+    def _tup(kk):
+        # str/bytes are iterable but are scalar keys, not tuples
+        if isinstance(kk, (str, bytes, np.str_, np.bytes_)):
+            raise TypeError
+        return tuple(_norm_key(x) for x in kk)
+
+    try:
+        positions = {_tup(kk): ii for ii, kk in enumerate(key_list)}
+        found = [positions.get(_tup(key)) for key in keys]
+    except TypeError:
+        positions = {_norm_key(kk): ii for ii, kk in enumerate(key_list)}
+        found = [positions.get(_norm_key(key)) for key in keys]
+    if require_match and None in found:
+        raise ValueError("Some requested keys are absent.")
+    return found

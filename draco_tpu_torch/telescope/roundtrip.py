@@ -36,6 +36,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..core import config
+from ..core.task import ContainerTask
 from ..device import as_tensor, resolve
 from ..ops import healpix
 from ..ops.sht import SHT
@@ -48,6 +50,7 @@ __all__ = [
     "fused_roundtrip_fn",
     "fused_simulate_to_map",
     "fused_simulate_to_map_tiled",
+    "SimulateAndMap",
 ]
 
 # HBM budget that sizes the baseline chunk when none is given
@@ -803,3 +806,45 @@ def fused_simulate_to_map_tiled(
         w = None if weight is None else weight[:, :, f0 : f0 + freq_tile]
         outs.append(bt._fused_tiles[key](sky[f0 : f0 + freq_tile], weight=w))
     return torch.cat(outs)
+
+
+class SimulateAndMap(ContainerTask):
+    """Pipeline task: Map in, dirty-map round trip out, fused.
+
+    The one-pass equivalent of the chain ``SimulateSidereal ->
+    MModeTransform -> DirtyMapMaker`` (reference roundtrip.py:1193-1233):
+    :func:`fused_simulate_to_map` on the map's device, in float32 (the JAX
+    package's device precision).  With unit sidereal weights the chain's
+    m-mode weights are ``nra`` for every m, so its map is ``nra`` times
+    this one.
+
+    Attributes
+    ----------
+    baseline_chunk : int
+        Baselines per chunk of the fused loop (0: sized automatically).
+    """
+
+    baseline_chunk = config.int_prop(0)
+
+    def setup(self, bt):
+        """Keep the beam-transfer manager."""
+        from ..core import io
+
+        self.beamtransfer = io.get_beamtransfer(bt)
+        self.telescope = io.get_telescope(bt)
+
+    def process(self, map_):
+        """Round-trip ``map_`` and return the dirty Map."""
+        from ..core import containers
+
+        sky = map_.map[:].to(torch.float32)
+        maps = fused_simulate_to_map(self.beamtransfer, sky, chunk=self.baseline_chunk or None)
+        out = containers.Map(
+            nside=healpix.nside_of(sky.shape[-1]),
+            polarisation=sky.shape[1] == 4,
+            freq=map_.index_map["freq"][:],
+            attrs_from=map_,
+            device=map_.device,
+        )
+        out.map[:] = maps
+        return out

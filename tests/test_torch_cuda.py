@@ -182,3 +182,53 @@ def test_generate_and_streaming_on_the_card_match_the_cpu(cuda):
         out[device.type] = (bt._bp.cpu(), vis.cpu())
     for card, cpu in zip(out["cuda"], out["cpu"]):
         assert _rel(torch.view_as_real(card), torch.view_as_real(cpu)) <= 1e-5
+
+
+def test_containers_default_to_the_card(cuda):
+    from draco_tpu_torch.core import containers
+
+    ss = containers.SiderealStream(freq=np.array([400.0, 410.0]), input=3, ra=8)
+    assert ss.device == cuda
+    assert ss.vis[:].device == cuda and ss.weight[:].device == cuda
+    ss.vis[:] = np.ones(ss.vis.shape)
+    host = np.asarray(ss.vis)
+    assert isinstance(host, np.ndarray) and host.shape == ss.vis.shape and (host == 1).all()
+    assert containers.empty_like(ss).device == cuda
+
+
+def _chain_b(device, nside=16):
+    """SimulateSidereal -> MModeTransform -> DirtyMapMaker, all streaming,
+    on ``device``."""
+    from draco_tpu_torch.analysis.mapmaker import DirtyMapMaker
+    from draco_tpu_torch.analysis.transform import MModeTransform
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.synthesis.stream import SimulateSidereal
+    from draco_tpu_torch.telescope import BeamTransfer, UnpolarisedDishArray
+
+    tel = UnpolarisedDishArray(
+        grid_ew=2, grid_ns=2, spacing_ew=4.0, spacing_ns=4.0, latitude=30.0, freq_lower=400.0,
+        freq_upper=500.0, num_freq=2, dish_width=8.0, auto_correlations=True,
+        force_lmax=3 * nside - 1, force_mmax=3 * nside - 1,
+    )
+    bt = BeamTransfer(tel, nside=nside)
+    sky = containers.Map(nside=nside, polarisation=False, freq=tel.frequencies, device=device)
+    sky.map[:] = np.random.Generator(np.random.SFC64(16)).standard_normal(sky.map.shape)
+    out = sky
+    for task, params, setup in (
+        (SimulateSidereal(), {"streaming": True, "baseline_chunk": 4}, (bt,)),
+        (MModeTransform(), {}, (tel,)),
+        (DirtyMapMaker(), {"nside": nside, "streaming": True, "baseline_chunk": 4}, (bt,)),
+    ):
+        task.read_config(params)
+        task.setup(*setup)
+        out = task.process(out)
+    return out.map[:]
+
+
+def test_task_chain_on_the_card_matches_the_cpu(cuda):
+    """Chain B at nside 16: float32 on the card against float32 on the CPU,
+    max|diff| / max|ref| <= 1e-5."""
+    on_card = _chain_b(cuda)
+    on_cpu = _chain_b(torch.device("cpu"))
+    assert on_card.device == cuda
+    assert _rel(on_card.cpu(), on_cpu) <= 1e-5

@@ -120,14 +120,15 @@ def test_slice_mmodes_match_jax_in_float64(slice_run):
 
 
 def test_port_imports_no_jax():
-    # every module of the package, found by walking it, and the smoke script
+    # every module of the package (the CLI's __main__ included), found by
+    # walking it, and the smoke script
     code = (
         "import importlib, pkgutil, sys\n"
         "import draco_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(draco_tpu_torch.__path__, 'draco_tpu_torch.')]\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "assert len(names) >= 19, names\n"
+        "assert len(names) >= 33 and 'draco_tpu_torch.__main__' in names, names\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'draco_tpu') or m.startswith(('jax.', 'draco_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
