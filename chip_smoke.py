@@ -64,7 +64,29 @@ Phases, each of which raises on failure (exit code != 0):
    printed against the float64 fused map of the same sky;
 12. the matrix map makers at nside 32 (the small dish array): the dirty
    map batched against streaming within 2e-5, the maximum-likelihood
-   solution re-projected onto the data within 1e-4, the Wiener map finite.
+   solution re-projected onto the data within 1e-4, the Wiener map finite;
+13. the CHIME-scale composite simulation through the pipeline ``Manager``
+   on phase 7's 2048-feed dual-pol cylinder (nside 256, one frequency):
+   ``GenerateGaussianSky`` (foreground, T/Q/U/V) -> ``SimulateSidereal``
+   (streaming, ``fast_ra``: 1536 RA samples) -> ``ExpandProducts`` (the
+   full triangle, 2,098,176 products) -> ``ReceiverTemperature`` ->
+   ``RandomSiderealGains`` -> ``ApplyGain`` -> ``SampleNoise`` (a
+   complex-Wishart sample of every 2048 x 2048 row, ``sample_frac`` 1)
+   -> ``CollateProducts`` -> ``MModeTransform`` -> ``DirtyMapMaker``
+   (streaming).  The receiver temperature is 10 x the largest |vis| of a
+   first simulation of the same sky (the JAX package's test rule), raised
+   to the Gershgorin bound of the sky's visibility matrices where that is
+   larger, so every expectation matrix is positive definite.  Two
+   pass-through probes of this script record 2^20 sampled cross products
+   (with their autos and weights) after ``ApplyGain`` and after
+   ``SampleNoise``.  Checks: ``ApplyGain`` against g_i g_j* V in float64
+   on 10^5 of them within 1e-6; z = (W - V) / sqrt(V_ii V_jj / n) with
+   mean |z|^2 within 0.02 of 1 and |mean z| <= 0.01; autos real and
+   positive; weights n / (W_ii W_jj); the expand -> collate round trip of
+   the noiseless stream within 1e-6; two chunk budgets (2 and 0.25 GiB)
+   giving bit-identical samples on a 4-sample cut; the map finite and
+   [1, 4, npix]; peak device memory under 64 GiB.  Prints the Manager's
+   per-task times.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -100,6 +122,24 @@ TOL_PROJECTION = 2e-5
 TOL_SVD = 1e-4
 TOL_CHAIN_FUSED = 3e-5
 TOL_ML = 1e-4
+# phase 13: the composite chain
+CHUNK_COMPOSITE = 96
+# the map maker's baseline chunk: its working set adds to the full-triangle
+# stream that the Manager still holds
+CHUNK_COMPOSITE_MAP = 48
+SKY_SEED = 13
+N_PROBE = 1 << 20
+N_GAIN_CHECK = 100_000
+TOL_GAIN = 1e-6
+TOL_ROUND_TRIP = 1e-6
+# z = (W - V) / sqrt(V_ii V_jj / n) of a Wishart sample has E z = 0 and
+# E|z|^2 = 1 (+ O(1/n)); |z|^2 is about exponential, so the mean of
+# N = 2^20 of them has standard error 1/sqrt(N) ~ 1e-3, as has mean z.
+# Products that share a row are weakly correlated, so the limits sit at
+# 20 and 10 standard errors.
+TOL_Z2 = 0.02
+TOL_ZMEAN = 0.01
+PEAK_LIMIT_GIB = 64.0
 # the task chain: the simulated sidereal day and its time stream
 LSD = 8000
 CHAIN_SAMPLES_PER_DAY = 8640
@@ -746,6 +786,244 @@ def check_map_makers(device) -> None:
         raise RuntimeError("phase 12: a map maker is out of tolerance or not finite on the card")
 
 
+PROBES: dict = {}
+
+
+def probe_task() -> str:
+    """Define ``ProbeProducts`` (a pass-through task that records sampled
+    cross products of a full-triangle stream, with their autos and
+    weights, into ``PROBES``) in this module; return its path."""
+    import torch
+
+    from draco_tpu_torch.core import config
+    from draco_tpu_torch.core.task import ContainerTask
+    from draco_tpu_torch.ops import tools
+
+    class ProbeProducts(ContainerTask):
+        probe = config.str_prop("probe")
+
+        def process(self, ss):
+            vis, weight = ss.vis[:], ss.weight[:]
+            nfeed, ntime = len(ss.input), vis.shape[-1]
+            i, j, t = probe_samples(nfeed, ntime)
+            flat = {k: torch.as_tensor(tools.cmap(a, b, nfeed) * ntime + t, device=vis.device)
+                    for k, (a, b) in (("ij", (i, j)), ("ii", (i, i)), ("jj", (j, j)))}
+            PROBES[self.probe] = {
+                **{k: vis[0].reshape(-1)[idx].cpu().numpy().astype(np.complex128) for k, idx in flat.items()},
+                "weight": weight[0].reshape(-1)[flat["ij"]].cpu().numpy().astype(np.float64),
+            }
+            return ss
+
+    globals()["ProbeProducts"] = ProbeProducts
+    return f"{__name__}.ProbeProducts"
+
+
+def probe_samples(nfeed: int, ntime: int):
+    """(i, j, t) of ``N_PROBE`` seeded cross products, i < j."""
+    rng = np.random.Generator(np.random.SFC64(SKY_SEED))
+    i, j = rng.integers(0, nfeed, 2 * N_PROBE), rng.integers(0, nfeed, 2 * N_PROBE)
+    keep = np.flatnonzero(i != j)[:N_PROBE]
+    i, j = np.minimum(i[keep], j[keep]), np.maximum(i[keep], j[keep])
+    return i, j, rng.integers(0, ntime, N_PROBE)
+
+
+def composite_config(product_dir: str, tel, recv_temp: float, probe: str) -> dict:
+    """Phase 13 as one pipeline config mapping."""
+    f0 = float(tel.frequencies[0])
+    streaming = {"streaming": True, "baseline_chunk": CHUNK_COMPOSITE}
+    sky = {"model": "foreground", "nside": NSIDE, "freq_start": f0, "freq_end": f0 + 1.0, "nfreq": 1,
+           "polarisation": True, "seed": SKY_SEED}
+    return {"pipeline": {"tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "bt"],
+         "params": {"product_directory": product_dir, "nside": NSIDE}},
+        {"type": "draco.synthesis.skymodel.GenerateGaussianSky", "out": "sky", "params": sky},
+        {"type": "draco.synthesis.stream.SimulateSidereal", "requires": "bt", "in": "sky", "out": "sstream",
+         "params": {**streaming, "fast_ra": True}},
+        {"type": "draco.synthesis.stream.ExpandProducts", "requires": "tel", "in": "sstream", "out": "sstream_full"},
+        {"type": "draco.synthesis.noise.ReceiverTemperature", "in": "sstream_full", "out": "sstream_rt",
+         "params": {"recv_temp": recv_temp}},
+        {"type": "draco.synthesis.gain.RandomSiderealGains", "requires": ["tel", "sstream_rt"], "out": "gain_fluc",
+         "params": {"seed": SKY_SEED, "start_time": "2015-10-05 12:15:00", "end_time": "2015-10-06 12:15:00",
+                    "sigma_amp": 0.001, "sigma_phase": 0.001}},
+        {"type": "draco.analysis.calibration.ApplyGain", "in": ["sstream_rt", "gain_fluc"], "out": "sstream_gain",
+         "params": {"inverse": False}},
+        {"type": probe, "in": "sstream_gain", "out": "sstream_exp", "params": {"probe": "expect"}},
+        {"type": "draco.synthesis.noise.SampleNoise", "in": "sstream_exp", "out": "sstream_noise",
+         "params": {"seed": SKY_SEED, "sample_frac": 1.0, "set_weights": True}},
+        {"type": probe, "in": "sstream_noise", "out": "sstream_sampled", "params": {"probe": "noise"}},
+        {"type": "draco.analysis.transform.CollateProducts", "requires": "bt", "in": "sstream_sampled",
+         "out": "sstream_coll"},
+        {"type": "draco.analysis.transform.MModeTransform", "requires": "tel", "in": "sstream_coll", "out": "mmodes"},
+        {"type": "draco.analysis.mapmaker.DirtyMapMaker", "requires": "bt", "in": "mmodes", "out": "dmap",
+         "params": {"nside": NSIDE, "streaming": True, "baseline_chunk": CHUNK_COMPOSITE_MAP}},
+    ]}}
+
+
+def receiver_temperature(tel, sstream) -> tuple[float, float, float]:
+    """(recv_temp, 10 max|vis|, Gershgorin bound) of a noiseless stacked stream:
+    the bound is the largest sum over j of |V_ij| (autos included), which a
+    receiver temperature must exceed for V + T I to be positive definite."""
+    import torch
+
+    vis = sstream.vis[:][0]  # [nstack, ntime]
+    nfeed = tel.nfeed
+    fmap = tel.feedmap
+    rows, cols = np.nonzero(fmap >= 0)
+    counts = np.zeros((nfeed, vis.shape[0]), np.float32)
+    np.add.at(counts, (rows, fmap[rows, cols]), 1.0)
+    rowsum = torch.as_tensor(counts, device=vis.device) @ vis.abs()
+    ten_max = 10.0 * vis.abs().max().item()
+    gershgorin = rowsum.max().item()
+    return max(ten_max, 1.01 * gershgorin), ten_max, gershgorin
+
+
+def run_composite(device) -> None:
+    """Phase 13: the composite chain at 2048 dual-pol feeds through the Manager."""
+    import os
+    import pickle
+    import tempfile
+
+    import torch
+
+    from draco_tpu_torch.analysis.transform import CollateProducts
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.core.pipeline import Manager
+    from draco_tpu_torch.ops import healpix
+    from draco_tpu_torch.synthesis.noise import ReceiverTemperature, SampleNoise
+    from draco_tpu_torch.synthesis.skymodel import GenerateGaussianSky
+    from draco_tpu_torch.synthesis.stream import ExpandProducts, SimulateSidereal
+
+    def run(task, params, setup, *data):
+        task.read_config(params)
+        task.setup(*setup)
+        return task.process(*data)
+
+    tel, bt = cylinder(NSIDE, 4, 256, pol=True)
+    nfeed, nprod = tel.nfeed, tel.nfeed * (tel.nfeed + 1) // 2
+    log(f"composite chain: 4 x 256 dual-pol feeds ({nfeed} inputs, {nprod} products, {tel.npairs} stacked), "
+        f"nside={NSIDE}, baseline chunk {CHUNK_COMPOSITE} (map maker {CHUNK_COMPOSITE_MAP})")
+
+    # a first simulation of the same sky sets the receiver temperature
+    t0 = _sync_clock(device)
+    config = composite_config("", tel, 0.0, "")
+    sky_params = config["pipeline"]["tasks"][1]["params"]
+    sky = run(GenerateGaussianSky(), sky_params, ())
+    pre = run(SimulateSidereal(), config["pipeline"]["tasks"][2]["params"], (bt,), sky)
+    recv_temp, ten_max, gershgorin = receiver_temperature(tel, pre)
+    log(f"composite chain: first simulation {_sync_clock(device) - t0:.2f} s; receiver temperature {recv_temp:.6e} "
+        f"(10 x max|vis| {ten_max:.6e}, Gershgorin bound {gershgorin:.6e})")
+    del sky, bt
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as product_dir:
+        with open(Path(product_dir) / "telescope.pkl", "wb") as f:
+            pickle.dump(tel, f)
+        config = composite_config(product_dir, tel, recv_temp, probe_task())
+        torch.cuda.reset_peak_memory_stats(device)
+        manager = Manager(config)
+        t0 = time.perf_counter()
+        products = manager.run()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    timing = {name.split(".")[-1]: round(t["wall"], 4) for name, t in manager.task_timing.items()}
+    log(f"composite chain run: {wall:.2f} s wall, peak device memory {peak:.2f} GiB")
+    log("composite chain task_timing (s): " + json.dumps(timing))
+    sample_s = next(t for name, t in timing.items() if name.startswith("SampleNoise"))
+    ntime = products["sstream"][0].vis.shape[-1]
+    gflop_row = (8.0 / 3.0 + 16.0) * nfeed**3 / 1e9  # complex Cholesky + two complex GEMMs
+    log(f"SampleNoise: {ntime} rows of {nfeed} x {nfeed} in {sample_s:.4f} s: {ntime / sample_s:.1f} rows/s, "
+        f"{gflop_row * ntime / sample_s / 1e3:.2f} TFLOP/s at {gflop_row:.1f} GFLOP a row "
+        f"(67 TFLOP/s float32 outside the tensor cores)")
+
+    # the map
+    dmap = products["dmap"][0].map[:]
+    npix = healpix.npix_of(NSIDE)
+    if tuple(dmap.shape) != (1, 4, npix) or not bool(torch.isfinite(dmap).all()):
+        raise RuntimeError(f"composite chain map: shape {tuple(dmap.shape)} or non-finite values")
+
+    # ApplyGain: g_i g_j* V0 in float64 on the sampled products
+    i, j, t = probe_samples(nfeed, ntime)
+    s0 = products["sstream"][0].vis[:][0].cpu().numpy().astype(np.complex128)  # [nstack, ntime]
+    g = products["gain_fluc"][0].gain[:][0].cpu().numpy()  # [nfeed, ntime]
+
+    def expectation(a, b, tt):
+        u = tel.feedmap[a, b]
+        v = np.where(u >= 0, s0[np.maximum(u, 0), tt], 0.0)
+        v = np.where(tel.feedconj[a, b] != 0, v.conj(), v) + recv_temp * (a == b)
+        return g[a, tt] * g[b, tt].conj() * v
+
+    expect, noisy = PROBES["expect"], PROBES["noise"]
+    k = slice(0, N_GAIN_CHECK)
+    v64 = expectation(i[k], j[k], t[k])
+    rel_gain = np.abs(expect["ij"][k] - v64).max() / np.abs(v64).max()
+    rel_auto = np.abs(expect["ii"][k] - expectation(i[k], i[k], t[k])).max() / recv_temp
+
+    # SampleNoise: z-scores, autos, weights
+    nsamp = int(1.0 * 240 * (products["sstream"][0].ra[1] - products["sstream"][0].ra[0])
+                * (86164.0905 / 86400.0) * products["sstream"][0].index_map["freq"]["width"][0] * 1e6)
+    z = (noisy["ij"] - expect["ij"]) / np.sqrt(expect["ii"].real * expect["jj"].real / nsamp)
+    z2, zmean = float(np.mean(np.abs(z) ** 2)), float(np.abs(np.mean(z)))
+    autos = np.concatenate([noisy["ii"], noisy["jj"]])
+    autos_ok = bool((autos.real > 0).all() and (np.abs(autos.imag) <= 1e-5 * autos.real).all())
+    w_want = expect["weight"] * nsamp / (noisy["ii"].real * noisy["jj"].real)
+    rel_w = float(np.abs(noisy["weight"] - w_want).max() / np.abs(w_want).max())
+    log(f"composite chain checks: ApplyGain vs g_i g_j* V (float64) on {N_GAIN_CHECK} products "
+        f"{rel_gain:.3e} (autos {rel_auto:.3e}; tol {TOL_GAIN}); SampleNoise n={nsamp} on {N_PROBE} cross products: "
+        f"mean|z|^2 {z2:.5f} (tol 1 +- {TOL_Z2}), |mean z| {zmean:.2e} (tol {TOL_ZMEAN}), autos real and "
+        f"positive {autos_ok}, weights vs n / (W_ii W_jj) {rel_w:.3e}")
+    s_noiseless = products["sstream"][0]
+    # the Manager holds every product, the full-triangle stream among them
+    del manager, products, expect, noisy, PROBES["expect"], PROBES["noise"], dmap
+    torch.cuda.empty_cache()
+
+    # the expand -> collate round trip of the noiseless stream
+    t0 = _sync_clock(device)
+    full = run(ExpandProducts(), {}, (tel,), s_noiseless)
+    back = run(CollateProducts(), {}, (tel,), full)
+    del full
+    rel_rt = _rel(back.vis[:], s_noiseless.vis[:])
+    log(f"composite chain: expand -> collate round trip of the noiseless stream max|diff| / max|ref| {rel_rt:.3e} "
+        f"(tol {TOL_ROUND_TRIP}; {_sync_clock(device) - t0:.2f} s)")
+    del back
+    torch.cuda.empty_cache()
+
+    # SampleNoise under two chunk budgets on a 4-sample cut
+    cut = containers.SiderealStream(axes_from=s_noiseless, attrs_from=s_noiseless, ra=s_noiseless.ra[:4])
+    cut.vis[:] = s_noiseless.vis[:][..., :4]
+    cut.weight[:] = 1.0
+    draws = {}
+    budget_before = os.environ.get("DRACO_TPU_SAMPLENOISE_CHUNK_GB")
+    for budget in ("2", "0.25"):
+        os.environ["DRACO_TPU_SAMPLENOISE_CHUNK_GB"] = budget
+        full = run(ReceiverTemperature(), {"recv_temp": recv_temp}, (), run(ExpandProducts(), {}, (tel,), cut))
+        draws[budget] = run(SampleNoise(), {"seed": SKY_SEED, "sample_frac": 1.0}, (), full).vis[:]
+        del full
+    if budget_before is None:
+        del os.environ["DRACO_TPU_SAMPLENOISE_CHUNK_GB"]
+    else:
+        os.environ["DRACO_TPU_SAMPLENOISE_CHUNK_GB"] = budget_before
+    invariant = bool(torch.equal(draws["2"], draws["0.25"]))
+    log(f"composite chain: SampleNoise on a 4-sample cut under 2 and 0.25 GiB budgets bit-identical: {invariant}")
+    del draws, cut, s_noiseless
+    torch.cuda.empty_cache()
+
+    failures = [
+        what for what, ok in (
+            (f"ApplyGain {rel_gain:.3e}", rel_gain <= TOL_GAIN and rel_auto <= TOL_GAIN),
+            (f"mean|z|^2 {z2:.5f}", abs(z2 - 1.0) <= TOL_Z2),
+            (f"|mean z| {zmean:.2e}", zmean <= TOL_ZMEAN),
+            ("autos", autos_ok),
+            (f"weights {rel_w:.3e}", rel_w <= 1e-5),
+            (f"round trip {rel_rt:.3e}", rel_rt <= TOL_ROUND_TRIP),
+            ("chunk invariance", invariant),
+            (f"peak {peak:.2f} GiB", peak < PEAK_LIMIT_GIB),
+        ) if not ok
+    ]
+    if failures:
+        raise RuntimeError(f"phase 13 (composite chain) failed: {', '.join(failures)}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=2, help="seed of the time streams and kernel inputs")
@@ -761,7 +1039,7 @@ def main() -> int:
 
     import draco_tpu_torch  # noqa: F401  (sets the float32 matmul policy)
     from draco_tpu_torch import _build
-    from draco_tpu_torch.ops import healpix
+    from draco_tpu_torch.ops import cuda_kernels, healpix
     from draco_tpu_torch.telescope.roundtrip import fused_simulate_to_map
 
     t_start = time.perf_counter()
@@ -845,6 +1123,15 @@ def main() -> int:
 
     # phase 12: the matrix map makers at nside 32
     check_map_makers(device)
+    torch.cuda.empty_cache()
+
+    # phase 13: the composite simulation at 2048 dual-pol feeds
+    t0 = time.perf_counter()
+    cuda_kernels.reset_launches()
+    run_composite(device)
+    composite_launches = cuda_kernels.launches["banded_covariance"]
+    log(f"phase 13 wall time {time.perf_counter() - t0:.1f} s; banded_covariance launches {composite_launches} "
+        "(the chain has no regrid)")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [{
@@ -856,6 +1143,7 @@ def main() -> int:
         **kern,
         "cylinder_path": {"launches": launches_c["banded_covariance"], **kern_c},
         "task_chain": {"launches": chain_launches},
+        "composite_chain": {"launches": composite_launches},
     }]}
     print(json.dumps(record))
     print(card)

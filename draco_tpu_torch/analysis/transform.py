@@ -1,10 +1,11 @@
 """Transforms of the main path: m-modes, RA/frequency reshaping, regridding.
 
-Port of ``draco_tpu.analysis.transform`` up to the regridders: reference
-``draco/analysis/transform.py`` (FrequencyRebin:20, SelectFreq:333,
-MModeTransform:535, MModeInverseTransform:708, SiderealMModeResample:795,
-ShiftRA:993, Regridder:854).  Every task works on its container's
-device.
+Port of ``draco_tpu.analysis.transform`` up to the regridders and the
+product collation: reference ``draco/analysis/transform.py``
+(TelescopeStreamMixIn:91, CollateProducts:142, FrequencyRebin:20,
+SelectFreq:333, MModeTransform:535, MModeInverseTransform:708,
+SiderealMModeResample:795, ShiftRA:993, Regridder:854).  Every task works
+on its container's device.
 
 Two plain functions carry the math of the slice:
 
@@ -25,6 +26,7 @@ from ..core import config, containers, io
 from ..core.task import ContainerTask, group_tasks
 from ..ops import mmode
 from ..ops import regrid as regrid_ops
+from ..ops import tools
 from ..ops.tools import invert_no_zero
 
 __all__ = [
@@ -38,6 +40,8 @@ __all__ = [
     "ShiftRA",
     "LanczosRegridder",
     "Regridder",
+    "TelescopeStreamMixIn",
+    "CollateProducts",
 ]
 
 
@@ -410,3 +414,143 @@ class LanczosRegridder(ContainerTask):
 
 # Alias for compatibility
 Regridder = LanczosRegridder
+
+
+class TelescopeStreamMixIn:
+    """Telescope-defined prod/stack index maps (reference transform.py:91-139).
+
+    ``bt_prod``, ``bt_stack`` and ``bt_rev`` build streams compatible
+    with a telescope's baseline configuration.
+    """
+
+    def setup(self, tel):
+        """Set the telescope instance and precompute index maps."""
+        self.telescope = tel = io.get_telescope(tel)
+        nfeed = tel.nfeed
+
+        # stack map: each unique pair's upper-triangle product id, with a
+        # conjugation bit when the pair is stored lower-triangle
+        pairs = np.asarray(tel.uniquepairs)
+        self.bt_stack = np.zeros(len(pairs), dtype=[("prod", "<u4"), ("conjugate", "u1")])
+        self.bt_stack["prod"] = tools.cmap(pairs.min(axis=1), pairs.max(axis=1), nfeed)
+        self.bt_stack["conjugate"] = pairs[:, 0] > pairs[:, 1]
+
+        # full upper-triangle product map
+        ia, ib = np.triu_indices(nfeed)
+        self.bt_prod = np.zeros(ia.size, dtype=[("input_a", "<u2"), ("input_b", "<u2")])
+        self.bt_prod["input_a"] = ia
+        self.bt_prod["input_b"] = ib
+
+        # reverse map: product -> stack (masked products park one past the end)
+        ok = tel.feedmask[ia, ib]
+        self.bt_rev = np.zeros(ok.size, dtype=[("stack", "<u4"), ("conjugate", "u1")])
+        self.bt_rev["stack"] = np.where(ok, tel.feedmap[ia, ib], tel.npairs)
+        self.bt_rev["conjugate"] = ok & (tel.feedconj[ia, ib] != 0)
+
+
+class CollateProducts(TelescopeStreamMixIn, ContainerTask):
+    """Extract and order the correlation products for map-making.
+
+    (reference transform.py:142-330).  Each incoming product is mapped
+    onto a telescope stack on the host; the device accumulates the
+    weighted products of each stack with ``index_add_`` in float64, block
+    by block along the time axis, so that a full-triangle stream is never
+    copied whole.
+
+    Attributes
+    ----------
+    weight : "natural" | "uniform" | "inverse_variance"
+        Redundant-baseline weighting for the stack.
+    """
+
+    weight = config.enum(["natural", "uniform", "inverse_variance"], default="natural")
+
+    def _incoming_products(self, ss):
+        """(product pairs, conjugation flags) of the incoming stream."""
+        if not ss.is_stacked:
+            return ss.prod, np.zeros(ss.prod.size, dtype=bool)
+        stack_new, stack_flag = tools.redefine_stack_index_map(
+            self.telescope, ss.input, ss.prod, ss.stack, ss.reverse_map["stack"]
+        )
+        dropped = int((~stack_flag).sum())
+        if dropped:
+            self.log.warning(f"{dropped} stacks are flagged out by the telescope model.")
+        return ss.prod[stack_new["prod"]], stack_new["conjugate"].astype(bool)
+
+    def process(self, ss):
+        """Select and reorder products to match the telescope config."""
+        tel = self.telescope
+        input_ind = tools.find_inputs(tel.input_index, ss.input, require_match=False)
+        rev_input_ind = tools.find_inputs(ss.input, tel.input_index, require_match=True)
+        freq_ind = tools.find_keys(np.asarray(ss.freq), tel.frequencies, require_match=True)
+
+        ss_prod, ss_conj = self._incoming_products(ss)
+
+        sp = ss.__class__(
+            freq=ss.index_map["freq"][freq_ind],
+            input=tel.input_index,
+            prod=self.bt_prod,
+            stack=self.bt_stack,
+            reverse_map_stack=self.bt_rev,
+            axes_from=ss,
+            attrs_from=ss,
+        )
+        dev = sp.device
+
+        if "input_flags" in sp.datasets or "input_flags" in sp.dataset_spec():
+            if "input_flags" not in sp.datasets:
+                sp.add_dataset("input_flags")
+            sp.datasets["input_flags"][:] = ss.input_flags[:][torch.as_tensor(rev_input_ind, device=dev)]
+
+        # gather/scatter indices on the host: each incoming product onto a
+        # telescope feed pair, then onto its output stack
+        fa = np.array([-1 if x is None else x for x in input_ind], dtype=int)
+        bi = fa[ss_prod["input_a"].astype(int)]
+        bj = fa[ss_prod["input_b"].astype(int)]
+        known = (bi >= 0) & (bj >= 0)
+        stack_of = np.where(known, tel.feedmap[np.maximum(bi, 0), np.maximum(bj, 0)], -1)
+        src = np.flatnonzero(known & (stack_of >= 0))
+        conj = tel.feedconj[bi[src], bj[src]] != ss_conj[src]
+
+        src_t = torch.as_tensor(src, device=dev)
+        dst_t = torch.as_tensor(stack_of[src], device=dev)
+        conj_t = torch.as_tensor(conj, device=dev)[None, :, None]
+        fidx = torch.as_tensor(freq_ind, device=dev)
+        vis, weight = ss.vis[:], ss.weight[:]
+        nfreq_out, nstack_out, ntime = sp.vis.shape
+
+        if self.weight != "inverse_variance":
+            red_index = tools.redundancy_index(
+                ss.index_map["prod"], ss.reverse_map["stack"]["stack"], vis.shape[1], len(ss.input), dev
+            )
+
+        for t0, t1 in tools.axis_blocks(ntime, vis.shape[0] * max(1, src.size)):
+            v = vis[:, :, t0:t1].index_select(0, fidx).index_select(1, src_t).to(torch.complex128)
+            w = weight[:, :, t0:t1].index_select(0, fidx).index_select(1, src_t).to(torch.float64)
+            if self.weight == "inverse_variance":
+                wss = w
+            else:
+                # the redundancy of each incoming stack over these samples
+                red = tools.calculate_redundancy(
+                    ss.input_flags[:], None, None, vis.shape[1], times=slice(t0, t1), index=red_index
+                )
+                if self.weight == "uniform":
+                    red = (red > 0).to(red.dtype)
+                wss = (w > 0.0) * red.index_select(0, src_t)[None].to(torch.float64)
+            v = torch.where(conj_t, v.conj(), v)
+            shape = (nfreq_out, nstack_out, t1 - t0)
+            acc_vis = torch.zeros(shape, dtype=torch.complex128, device=dev).index_add_(1, dst_t, wss * v)
+            acc_var = torch.zeros(shape, dtype=torch.float64, device=dev).index_add_(
+                1, dst_t, wss**2 * invert_no_zero(w)
+            )
+            counter = torch.zeros(shape, dtype=torch.float64, device=dev).index_add_(1, dst_t, wss)
+            del v, w, wss
+            sp.vis[:, :, t0:t1] = acc_vis * invert_no_zero(counter)
+            sp.weight[:, :, t0:t1] = counter**2 * invert_no_zero(acc_var)
+
+        # copy any other frequency-filtered datasets (those on the input,
+        # prod or stack axes are handled above)
+        containers.copy_datasets_filter(
+            ss, sp, selection={"freq": freq_ind}, exclude_axes=("input", "prod", "stack")
+        )
+        return sp

@@ -558,17 +558,16 @@ def lint(config_path: str) -> list[str]:
 _NOT_PORTED_COMMANDS = {
     "queue": "the multi-process launch (parallel/multihost.py)",
     "verify": "the determinism check (parallel/validate.py)",
-    "makesky": "the sky models (synthesis/skymodel.py)",
 }
 
 
 def main(argv=None) -> int:
-    """Command line interface: ``python -m draco_tpu_torch {run,lint,makeproducts} ...``.
+    """Command line interface: ``python -m draco_tpu_torch {run,lint,makeproducts,makesky} ...``.
 
     ``run`` and ``lint`` mirror the reference's ``caput-pipeline``;
-    ``makeproducts`` re-provides ``drift-makeproducts`` (reference
-    doc/tutorial.rst:78-119).  ``--platform cpu`` makes the CPU the
-    process default device (the card otherwise).
+    ``makeproducts`` and ``makesky`` re-provide ``drift-makeproducts`` and
+    ``cora-makesky`` (reference doc/tutorial.rst:78-119).  ``--platform
+    cpu`` makes the CPU the process default device (the card otherwise).
     """
     import argparse
 
@@ -594,6 +593,18 @@ def main(argv=None) -> int:
     p_prod.add_argument("configfile", help="product config YAML or directory")
     p_prod.add_argument("--regen", action="store_true", help="force regeneration")
     p_prod.add_argument("--output", default=None, help="directory to save products into")
+    p_sky = sub.add_parser("makesky", help="generate a Gaussian sky map HDF5 (cora-makesky equivalent)")
+    p_sky.add_argument(
+        "model", choices=["synchrotron", "pointsource", "freefree", "galacticfreefree", "foreground", "21cm"]
+    )
+    p_sky.add_argument("output", help="output HDF5 map file")
+    p_sky.add_argument("--nside", type=int, default=64)
+    p_sky.add_argument("--freq-start", type=float, default=400.0)
+    p_sky.add_argument("--freq-end", type=float, default=500.0)
+    p_sky.add_argument("--nfreq", type=int, default=32)
+    p_sky.add_argument("--seed", type=int, default=0)
+    p_sky.add_argument("--pol", action="store_true", help="full-Stokes maps")
+    p_sky.add_argument("--lmax", type=int, default=None)
     for name, what in _NOT_PORTED_COMMANDS.items():
         p = sub.add_parser(name, help=f"not ported yet: needs {what}")
         p.add_argument("args", nargs=argparse.REMAINDER)
@@ -623,6 +634,22 @@ def main(argv=None) -> int:
             if out_dir:
                 man.save(out_dir)
                 print(f"products written to {out_dir}")
+            return 0
+        if args.command == "makesky":
+            from ..synthesis.skymodel import make_sky
+
+            m = make_sky(
+                model=args.model,
+                nside=args.nside,
+                nfreq=args.nfreq,
+                freq_start=args.freq_start,
+                freq_end=args.freq_end,
+                seed=args.seed,
+                pol=args.pol,
+                lmax=args.lmax,
+            )
+            m.save(args.output)
+            print(f"{args.model} map written to {args.output}")
             return 0
         problems = []
         for f in args.configfile:

@@ -223,6 +223,19 @@ class RandomTask(MPILoggedTask):
         seed = np.random.SeedSequence([self.local_seed, self._generator_count]).generate_state(1, np.uint64)[0]
         return torch.Generator(device=resolve(device)).manual_seed(int(seed))
 
+    def row_seeds(self, n: int) -> list[int]:
+        """Seeds of the ``n`` rows of one draw, for ``Generator.manual_seed``.
+
+        Row ``i``'s seed comes from the task seed, the number of draws handed
+        out (this call counts as one) and ``i`` alone, so a draw made row by
+        row does not depend on how its rows are batched.
+        """
+        self._generator_count += 1
+        return [
+            int(np.random.SeedSequence([self.local_seed, self._generator_count, i]).generate_state(1, np.uint64)[0])
+            for i in range(n)
+        ]
+
 
 def group_tasks(*tasks):
     """Create a task class chaining ``tasks``' process methods.

@@ -1,15 +1,23 @@
-"""Numeric tools of the round trip: exact fringe phases and safe inverses.
+"""Numeric tools: exact fringe phases, safe inverses and product arrays.
 
 Port of the fringe subset of ``draco_tpu.ops.tools``
 (``twofloat_split``, ``phase_frac``, ``threefloat_split``,
-``phase_frac3``, ``sincos_turns``), ``invert_no_zero`` and the host key
-lookups ``find_key``/``find_keys``.
+``phase_frac3``, ``sincos_turns``), ``invert_no_zero``, the host key
+lookups (``find_key``, ``find_keys``, ``find_inputs``,
+``redefine_stack_index_map``) and the product-array helpers (``cmap``,
+``icmap``, ``apply_gain``, ``extract_diagonal``,
+``unpack_product_array``, ``calculate_redundancy``).
 
 The exact-phase scheme rests on every high product being an exact
 float32 value and on no fused multiply-add changing a rounded product.
 Eager PyTorch runs each elementwise op as its own kernel, so the
 expressions below are kept as separate multiplies and adds: do not
 rewrite them with ``addcmul`` or compile them.
+
+The product-array helpers take tensors and run on their device.
+``apply_gain`` with ``out=`` works through the product axis in blocks,
+so that a gain applied in place to a full-triangle stream never makes a
+temporary of the stream's size.
 """
 
 from __future__ import annotations
@@ -21,8 +29,14 @@ import torch
 
 __all__ = [
     "invert_no_zero", "twofloat_split", "phase_frac", "threefloat_split", "phase_frac3", "sincos_turns",
-    "find_key", "find_keys",
+    "find_key", "find_keys", "find_inputs", "redefine_stack_index_map", "cmap", "icmap",
+    "unique_pair_indices", "apply_gain", "extract_diagonal", "unpack_product_array", "redundancy_index",
+    "calculate_redundancy",
+    "axis_blocks",
 ]
+
+# elements of the largest temporary a blocked helper makes
+BLOCK_ELEMENTS = 1 << 25
 
 # Veltkamp split constant for float32 (2^12 + 1)
 _DEKKER_SPLIT = 4097.0
@@ -186,3 +200,200 @@ def find_keys(key_list, keys, require_match: bool = False):
     if require_match and None in found:
         raise ValueError("Some requested keys are absent.")
     return found
+
+
+def find_inputs(input_index, inputs, require_match: bool = False):
+    """Indices of ``inputs`` in ``input_index`` keyed on channel id (reference tools.py:130)."""
+    names = input_index.dtype.names or ()
+    if "correlator_input" in names:
+        field = "correlator_input"
+    elif "chan_id" in names:
+        field = "chan_id"
+    else:
+        return find_keys(input_index, inputs, require_match=require_match)
+    if inputs.dtype.names and field not in inputs.dtype.names:
+        raise ValueError(f"`inputs` array does not have a `{field}` field.")
+    return find_keys(input_index[field], inputs[field], require_match=require_match)
+
+
+def redefine_stack_index_map(telescope, inputs, prod, stack, reverse_stack):
+    """Re-pick stack representatives using only unmasked telescope inputs.
+
+    (reference tools.py:359-414).  Returns (stack_new, stack_flag) where
+    ``stack_flag`` is False for stacks with no valid representative.  Host numpy.
+    """
+    tel_index = find_inputs(telescope.input_index, inputs, require_match=False)
+    stack_new = stack.copy()
+    stack_flag = np.zeros(stack_new.size, dtype=bool)
+    prod_pairs = np.stack([prod["input_a"], prod["input_b"]], axis=-1)
+
+    def product_ok(pind):
+        a, b = prod_pairs[pind]
+        ta, tb = tel_index[a], tel_index[b]
+        return ta is not None and tb is not None and telescope.feedmask[ta, tb]
+
+    for sind in range(stack_new.size):
+        if product_ok(stack["prod"][sind]):
+            stack_flag[sind] = True
+            continue
+        # representative masked out: pick any surviving member product
+        for member in np.flatnonzero(reverse_stack["stack"] == sind):
+            if product_ok(member):
+                stack_new["prod"][sind] = member
+                stack_new["conjugate"][sind] = reverse_stack[member]["conjugate"]
+                stack_flag[sind] = True
+                break
+    return stack_new, stack_flag
+
+
+def cmap(i, j, n):
+    """Pair index of feeds (i, j) in upper-triangle order (reference tools.py:21)."""
+    i, j = np.minimum(i, j), np.maximum(i, j)
+    return (n * (n + 1) // 2) - ((n - i) * (n - i + 1) // 2) + (j - i)
+
+
+def icmap(ix, n):
+    """Feed indices (i, j) of pair index ``ix`` (reference tools.py:42); vectorised."""
+    ix = np.asarray(ix)
+    # the largest i with cmap(i, i, n) <= ix
+    t = n * (n + 1) // 2 - ix
+    k = np.ceil((np.sqrt(8 * t.astype(np.float64) + 1) - 1) / 2).astype(np.int64)
+    i = n - k
+    j = ix - cmap(i, i, n) + i
+    if np.ndim(ix) == 0:
+        return int(i), int(j)
+    return i, j
+
+
+def unique_pair_indices(n: int, autos: bool = True) -> np.ndarray:
+    """All upper-triangle feed pairs [(i, j)] of ``n`` feeds."""
+    i, j = np.triu_indices(n, k=0 if autos else 1)
+    return np.stack([i, j], axis=-1)
+
+
+def _pair_inputs(prod_map, nprod: int, ninput: int):
+    """(input_a, input_b) host arrays of every product."""
+    if prod_map is None:
+        if nprod != ninput * (ninput + 1) // 2:
+            raise ValueError("Number of inputs does not match number of products.")
+        pm = unique_pair_indices(ninput)
+        return pm[:, 0], pm[:, 1]
+    if len(prod_map) != nprod:
+        raise ValueError("prod_map must list exactly one entry per product.")
+    pm = np.asarray(prod_map)
+    if pm.dtype.names:
+        return pm["input_a"].astype(np.int64), pm["input_b"].astype(np.int64)
+    return pm[:, 0].astype(np.int64), pm[:, 1].astype(np.int64)
+
+
+def axis_blocks(n: int, elements_per_index: int, max_elements: int = BLOCK_ELEMENTS):
+    """``(start, stop)`` blocks of an axis of length ``n`` whose slices hold at
+    most ``max_elements`` elements (at least one index each)."""
+    step = max(1, max_elements // max(1, elements_per_index))
+    for start in range(0, n, step):
+        yield start, min(start + step, n)
+
+
+def apply_gain(vis: torch.Tensor, gain, axis: int = 1, out: torch.Tensor | None = None, prod_map=None):
+    """Apply per-input gains to products: ``out_p = vis_p g_a conj(g_b)``.
+
+    (reference tools.py:210-272).  ``gain`` has the input axis where ``vis``
+    has the product axis and broadcasts against it elsewhere; ``prod_map``
+    gives (input_a, input_b) per product, the upper-triangle order if
+    omitted.  The product is formed in the promoted type of ``vis`` and
+    ``gain``.  With ``out`` (which may be ``vis`` itself) the result is
+    written there block by block along the product axis, with no
+    temporary of ``vis``'s size; a real ``out`` takes the real part.
+    """
+    gain = torch.as_tensor(gain, device=vis.device)
+    axis = axis % vis.ndim
+    ia, ib = _pair_inputs(prod_map, vis.shape[axis], gain.shape[axis])
+    ia = torch.as_tensor(ia, device=vis.device)
+    ib = torch.as_tensor(ib, device=vis.device)
+
+    def block(p0, p1):
+        v = vis.narrow(axis, p0, p1 - p0)
+        ga = gain.index_select(axis, ia[p0:p1])
+        gb = gain.index_select(axis, ib[p0:p1])
+        return v * ga * gb.conj()
+
+    if out is None:
+        return block(0, vis.shape[axis])
+    per_index = vis.numel() // max(1, vis.shape[axis])
+    for p0, p1 in axis_blocks(vis.shape[axis], per_index):
+        res = block(p0, p1)
+        if res.is_complex() and not out.is_complex():
+            res = res.real
+        out.narrow(axis, p0, p1 - p0).copy_(res)
+    return out
+
+
+def _diagonal_index(nprod: int) -> np.ndarray:
+    nside = int((2 * nprod) ** 0.5)
+    if nprod != nside * (nside + 1) // 2:
+        raise RuntimeError(
+            f"Array length ({nprod}) does not correspond to the upper triangle of a square matrix"
+        )
+    return cmap(np.arange(nside), np.arange(nside), nside)
+
+
+def extract_diagonal(utmat: torch.Tensor, axis: int = 1) -> torch.Tensor:
+    """The autocorrelations of an upper-triangle product axis (reference tools.py:275)."""
+    idx = _diagonal_index(utmat.shape[axis])
+    return utmat.index_select(axis, torch.as_tensor(idx, device=utmat.device))
+
+
+def unpack_product_array(utmat: torch.Tensor, axis: int = 1, nside: int | None = None) -> torch.Tensor:
+    """Expand an upper-triangle product axis into a Hermitian [n, n] pair of axes.
+
+    (reference draco/util/_fast_tools.pyx:91): a gather and a conjugation
+    of the lower triangle.
+    """
+    axis = axis % utmat.ndim
+    nprod = utmat.shape[axis]
+    n_full = int((2 * nprod) ** 0.5)
+    if n_full * (n_full + 1) // 2 != nprod:
+        raise ValueError(f"axis length {nprod} is not a triangular number.")
+    if nside is not None and nside != n_full:
+        # indexing a feed subset still needs cmap over the full packing n
+        raise NotImplementedError(
+            f"feed subsets (nside={nside} != packing n={n_full}) are not supported; pass the full feed count."
+        )
+    ii, jj = np.meshgrid(np.arange(n_full), np.arange(n_full), indexing="ij")
+    pidx = torch.as_tensor(cmap(ii, jj, n_full).ravel(), device=utmat.device)
+    gathered = utmat.index_select(axis, pidx)
+    gathered = gathered.reshape(utmat.shape[:axis] + (n_full, n_full) + utmat.shape[axis + 1 :])
+    if not gathered.is_complex():
+        return gathered
+    lower = torch.as_tensor(ii > jj, device=utmat.device)
+    lower = lower.reshape((1,) * axis + (n_full, n_full) + (1,) * (utmat.ndim - axis - 1))
+    return torch.where(lower, gathered.conj(), gathered)
+
+
+def redundancy_index(prod_map, stack_index, nstack: int, ninput: int, device):
+    """(input_a, input_b, stack) index tensors on ``device`` of the products
+    that :func:`calculate_redundancy` counts (those in a stack below ``nstack``)."""
+    ia, ib = _pair_inputs(prod_map, len(prod_map), ninput)
+    stack_index = np.asarray(stack_index).astype(np.int64)
+    valid = np.flatnonzero((stack_index >= 0) & (stack_index < nstack))
+    return tuple(torch.as_tensor(a[valid], device=device) for a in (ia, ib, stack_index))
+
+
+def calculate_redundancy(input_flags, prod_map, stack_index, nstack: int, times=slice(None), index=None) -> torch.Tensor:
+    """Per-stack redundancy counts from per-input flags (reference tools.py:313).
+
+    ``redundancy[s, t] = sum over products p in stack s of
+    flag[input_a(p), t] * flag[input_b(p), t]`` for the time samples
+    ``times``; flags that are zero at every sample count as all ones.
+    float32 [nstack, nt] on the flags' device, accumulated with
+    ``index_add_``.  ``index`` is :func:`redundancy_index` of the same
+    maps, for a caller that counts block by block.
+    """
+    flags = torch.as_tensor(input_flags)
+    flags = flags.to(torch.float32) if bool(flags.any()) else torch.ones(flags.shape, device=flags.device)
+    flags = flags[:, times]
+    if index is None:
+        index = redundancy_index(prod_map, stack_index, nstack, flags.shape[0], flags.device)
+    ia, ib, seg = index
+    red = torch.zeros(nstack, flags.shape[1], dtype=torch.float32, device=flags.device)
+    return red.index_add_(0, seg, flags[ia] * flags[ib])

@@ -23,7 +23,7 @@ import torch
 from ..core import config, containers, io
 from ..core.task import ContainerTask, PipelineStopIteration
 from ..ops import mmode, regrid, sht
-from ..ops.tools import invert_no_zero
+from ..ops.tools import axis_blocks, invert_no_zero
 
 
 class SimulateSidereal(ContainerTask):
@@ -139,9 +139,13 @@ class ExpandProducts(ContainerTask):
         conj = torch.as_tensor(tel.feedconj[fi, fj], dtype=torch.bool, device=dev)[None, :, None]
         valid = torch.as_tensor(valid_np, device=dev)[None, :, None]
 
-        gathered = sstream.vis[:].index_select(1, idx)  # [f, nprod, ra]
-        new_stream.vis[:] = torch.where(conj, gathered.conj(), gathered) * valid
-        new_stream.weight[:] = valid.to(new_stream.weight.dtype).expand(new_stream.weight.shape)
+        # product blocks written into the new stream's own datasets: no
+        # temporary of the full triangle's size
+        vis_in, vis, weight = sstream.vis[:], new_stream.vis[:], new_stream.weight[:]
+        for p0, p1 in axis_blocks(nprod, vis.shape[0] * vis.shape[2]):
+            gathered = vis_in.index_select(1, idx[p0:p1])  # [f, block, ra]
+            vis[:, p0:p1] = torch.where(conj[:, p0:p1], gathered.conj(), gathered) * valid[:, p0:p1]
+            weight[:, p0:p1] = valid[:, p0:p1]
 
         # Identity stack maps to mimic an N^2 file (reference stream.py:221-230)
         fwd, rev = containers.default_stack_maps(nprod)

@@ -406,14 +406,27 @@ class BeamTransfer:
 
     def _windowed_stream_fns(self, win, device):
         """Constants of the windowed streaming projections on ``device``:
-        (Ecf, Esf, lam_band, (vw_hi, vw_lo), flat_ring, ring_onehot)."""
+        (Ecf, Esf, (lam_hi, lam_lo), (vw_hi, vw_lo), flat_ring, ring_onehot).
+
+        The band Legendre tables are two-float (hi float32, lo bfloat16 from
+        a float64 recurrence), as in the fused program: the single-float
+        table of the JAX package's streaming projections put the task chain
+        1.24e-5 of the peak from the float64 map at nside 256.
+        """
         key = ("win", device)
         if key not in self._stream_consts:
             Ecf, Esf, flat_ring, ring_onehot = win.flat_tables(torch.float32, device)
             vec = np.asarray(healpix.pix2vec(self.beam_nside), np.float64)[win.flat_index]
             vw = tuple(torch.as_tensor(a, device=device) for a in twofloat_split(vec))
-            self._stream_consts[key] = (Ecf, Esf, win.lam_band(torch.float32, device), vw, flat_ring, ring_onehot)
+            self._stream_consts[key] = (Ecf, Esf, win.lam_band_2f(device), vw, flat_ring, ring_onehot)
         return self._stream_consts[key]
+
+    @staticmethod
+    def _band_contract(eq: str, x: torch.Tensor, lam) -> torch.Tensor:
+        """``einsum(eq, x, Lambda)`` against the two-float band table, hi + lo
+        contracted in float32."""
+        hi, lo = lam
+        return torch.einsum(eq, x, hi) + torch.einsum(eq, x, lo.to(hi.dtype))
 
     def _fringe_win(self, vw, bl_w, u_re, u_im, uidx):
         """Windowed fringe x beam planes ([C, p*Kf] re, im)."""
@@ -429,8 +442,8 @@ class BeamTransfer:
         vis = torch.zeros(mmax + 1, 2, tel.nfreq, len(tel.uniquepairs), dtype=torch.complex64, device=dev)
         for fi in range(tel.nfreq):
             a = alm[fi].to(torch.complex64)
-            Sr = torch.einsum("plm,lmr->prm", a.real, lam_band).index_select(1, flat_ring)
-            Si = torch.einsum("plm,lmr->prm", a.imag, lam_band).index_select(1, flat_ring)
+            Sr = self._band_contract("plm,lmr->prm", a.real, lam_band).index_select(1, flat_ring)
+            Si = self._band_contract("plm,lmr->prm", a.imag, lam_band).index_select(1, flat_ring)
             a1 = (Ecf * Sr - Esf * Si).reshape(-1, mmax + 1)
             a2 = (Ecf * Si + Esf * Sr).reshape(-1, mmax + 1)
             u_re, u_im, u_idx = self._stream_beam(fi, dev, win.flat_index)
@@ -467,7 +480,7 @@ class BeamTransfer:
             Ti = torch.einsum("rk,pkm->prm", ring_onehot, Ecf * Yi - Esf * Yr)
             alm_out.append(
                 torch.complex(
-                    torch.einsum("lmr,prm->plm", lam_band, Tr), torch.einsum("lmr,prm->plm", lam_band, Ti)
+                    self._band_contract("prm,lmr->plm", Tr, lam_band), self._band_contract("prm,lmr->plm", Ti, lam_band)
                 ) * scale
             )
         return torch.stack(alm_out)

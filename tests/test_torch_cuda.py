@@ -232,3 +232,84 @@ def test_task_chain_on_the_card_matches_the_cpu(cuda):
     on_cpu = _chain_b(torch.device("cpu"))
     assert on_card.device == cuda
     assert _rel(on_card.cpu(), on_cpu) <= 1e-5
+
+
+def _expectation_stream(device, nfeed, nra, seed=17):
+    """A full-triangle stream of positive-definite expectation matrices
+    V = X X^H / 2n + 10 I, one frequency of 20 MHz, on ``device``."""
+    from draco_tpu_torch.core import containers
+
+    rng = np.random.Generator(np.random.SFC64(seed))
+    ss = containers.SiderealStream(freq=np.array([800.0, 780.0]), input=nfeed, ra=nra, device=device)
+    iu = np.triu_indices(nfeed)
+    X = rng.standard_normal((2, nra, nfeed, 2 * nfeed)) + 1j * rng.standard_normal((2, nra, nfeed, 2 * nfeed))
+    V = X @ X.conj().transpose(0, 1, 3, 2) / (2 * nfeed) + 10 * np.eye(nfeed)
+    ss.vis[:] = np.moveaxis(V[:, :, iu[0], iu[1]], 1, 2).astype(np.complex64)
+    ss.weight[:] = 1.0
+    return ss
+
+
+def test_sample_noise_is_chunk_invariant_on_the_card(cuda, monkeypatch):
+    """64 feeds, 2 x 12 rows: budgets of all rows and of one row a chunk give
+    bit-identical samples (each row is drawn from its own seed and factored
+    on its own)."""
+    from draco_tpu_torch.synthesis.noise import SampleNoise
+
+    def run(budget):
+        monkeypatch.setenv("DRACO_TPU_SAMPLENOISE_CHUNK_GB", budget)
+        task = SampleNoise()
+        task.read_config({"seed": 3, "sample_frac": 1e-6})
+        out = task.process(_expectation_stream(cuda, 64, 12))
+        return out.vis[:]
+
+    whole, rows = run("2"), run("1e-4")
+    assert whole.device == cuda and torch.isfinite(torch.view_as_real(whole)).all()
+    assert torch.equal(whole, rows)
+
+
+def test_sample_noise_statistics_on_the_card(cuda):
+    """64 feeds x 2 x 64 rows, n ~ 1000: z = (W - V) / sqrt(V_ii V_jj / n)
+    of the 258,048 cross products has E|z|^2 = 1; the sample mean's
+    standard error is ~0.002 (rows of one matrix are weakly correlated),
+    held to 0.02, and |mean z| to 0.02.  Autos real and positive."""
+    from draco_tpu_torch.ops import tools
+    from draco_tpu_torch.synthesis.noise import STELLAR_S, SampleNoise
+
+    ss = _expectation_stream(cuda, 64, 64)
+    expect = ss.vis[:].clone()
+    frac = 1000.0 / (240 * 360 / 64 * STELLAR_S * 20e6)
+    task = SampleNoise()
+    task.read_config({"seed": 4, "sample_frac": frac})
+    vis = task.process(ss).vis[:]
+    n = int(frac * 240 * 360 / 64 * STELLAR_S * 20e6)
+    ia, ib = np.triu_indices(64)
+    cross = torch.as_tensor(np.flatnonzero(ia != ib), device=cuda)
+    diag = tools.cmap(np.arange(64), np.arange(64), 64)
+    va = expect[:, torch.as_tensor(diag[ia[ia != ib]], device=cuda)].real
+    vb = expect[:, torch.as_tensor(diag[ib[ia != ib]], device=cuda)].real
+    z = (vis[:, cross] - expect[:, cross]).to(torch.complex128) / (va * vb / n).double().sqrt()
+    assert abs((z.abs() ** 2).mean().item() - 1.0) <= 0.02
+    assert z.mean().abs().item() <= 0.02
+    autos = tools.extract_diagonal(vis)
+    assert (autos.real > 0).all() and (autos.imag.abs() <= 1e-5 * autos.real).all()
+
+
+def test_complex_wishart_statistics_on_the_card(cuda):
+    """N = 4000 draws of CW(n = 50, C), 4 x 4, from a card generator: the
+    sample mean within 5 standard errors sqrt(n C_ii C_jj / N) of n C and
+    E|W_ij - n C_ij|^2 / (n C_ii C_jj) within 0.15 of 1 (standard error
+    ~0.022)."""
+    from draco_tpu_torch.ops import random as trandom
+
+    rng = np.random.Generator(np.random.SFC64(7))
+    X = rng.standard_normal((4, 8)) + 1j * rng.standard_normal((4, 8))
+    C = X @ X.conj().T / 8 + np.eye(4)
+    N, n = 4000, 50
+    Cb = torch.as_tensor(np.broadcast_to(C, (N, 4, 4)).copy(), device=cuda)
+    W = trandom.complex_wishart(Cb, n, generator=torch.Generator(device=cuda).manual_seed(8))
+    assert W.device == cuda
+    W = W.cpu().numpy()
+    d = np.real(np.diag(C))
+    scale = np.sqrt(n * d[:, None] * d[None, :])
+    assert (np.abs(W.mean(0) - n * C) <= 5 * scale / np.sqrt(N)).all()
+    assert np.abs((np.abs(W - n * C) ** 2).mean(0) / scale**2 - 1.0).max() <= 0.15
