@@ -86,7 +86,42 @@ Phases, each of which raises on failure (exit code != 0):
    the noiseless stream within 1e-6; two chunk budgets (2 and 0.25 GiB)
    giving bit-identical samples on a 4-sample cut; the map finite and
    [1, 4, npix]; peak device memory under 64 GiB.  Prints the Manager's
-   per-task times.
+   per-task times;
+14. the analysis example config, task for task, through the pipeline
+   ``Manager`` on a 191-pair cylinder (2 x 64 feeds, 4 frequencies over
+   400-500 MHz, nside 256, lmax = mmax = 767, every m; the dense beam
+   transfer matrices generated on the card): this script's ``EmitObserved``
+   source (a seeded Gaussian sky drawn from the KL transform's own
+   covariance models, foreground amplitude 100 and tilt 3 against signal
+   amplitude 1 and tilt 1, through ``SimulateSidereal``, plus
+   ``GaussianNoise``, plus interference at known (freq, RA) cells) in
+   place of the example's file loader -> ``CollateProducts`` -> ``RFIMask``
+   -> ``ApplyTimeFreqMask`` -> ``MModeTransform`` -> ``SVDFilter`` (5 EM
+   iterations) -> ``MaximumLikelihoodMapMaker``.  Checks: every injected
+   cell masked and under 5% of the clean cells; masked weights exactly 0
+   and the others unchanged; the filter's output within 1e-4 of the
+   unfiltered peak of the same filter run in complex128; the m-mode power
+   over that of the signal and noise alone falling by at least 1e3; the
+   map finite, and on 16 sampled m the ML solution re-projected through
+   the beam transfer within 1e-4 of a complex128 pseudo-inverse's (of the
+   rank the float32 one kept, the two ranks within 2 of each other);
+15. the KL path of the foreground-filter baseline config on the same
+   product: a product config with a ``kltransform`` stanza (a
+   ``KLTransform`` and a ``DoubleKL``) and a ``psfisher`` stanza through
+   ``ProductManager.from_config``, then ``SVDModeProject`` (forward) ->
+   ``KLModeProject`` (forward, then filter) -> ``QuadraticPSEstimation``.
+   Prints the seconds of the beam SVD, the KL solves (with their rate in
+   ``eigh`` calls a second), the projections and the Fisher pass, and the
+   peak device memory.  Checks: ``fwd @ bwd = I`` and ``V^H (S + N) V =
+   diag(lambda + 1)`` within 1e-6 over every m; the eigenvalues of 4
+   sampled m within 1e-7 of the largest of ``scipy.linalg.eigh(S, N)`` on
+   the host in float64; ``DoubleKL`` in filter mode cutting the
+   foreground-only data's power by at least 1e4 and keeping at least 1%
+   of the signal-only data's; ``q_estimator_all`` equal to the sum of
+   ``q_estimator`` over 8 sampled m within 1e-10 when only those m carry
+   data; the Fisher matrix symmetric with a positive diagonal and the band
+   powers finite; two m-chunk sizes giving ``q``, Fisher matrix and bias
+   within 1e-10.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -140,6 +175,27 @@ TOL_ROUND_TRIP = 1e-6
 TOL_Z2 = 0.02
 TOL_ZMEAN = 0.01
 PEAK_LIMIT_GIB = 64.0
+# phases 14 and 15: the foreground-filter paths on the 191-pair cylinder
+ANALYSIS_NFREQ = 4
+ANALYSIS_SEED = 14
+# the KL transform's covariance models, from which the sky is drawn too:
+# the defaults' signal and foreground, thermal noise 100 x below the default
+KL_MODEL = {"signal_amp": 1.0, "signal_tilt": 1.0, "foreground_amp": 100.0, "foreground_tilt": 3.0,
+            "noise_amp": 1e-4}
+KL_THRESHOLD = 0.1
+DKL_FOREGROUND_THRESHOLD = 0.1
+DKL_THRESHOLD = 1.0
+RFI_CELLS = ((1, 200), (2, 777), (2, 778), (3, 1200))  # (freq, RA sample) of the injected interference
+RFI_CLEAN_SHARE = 0.05
+TOL_SVD_FILTER = 1e-4
+FOREGROUND_EXCESS_FALL = 1e3
+N_ML_CHECK = 16
+# the model's noise is 100 x below the default's, its pencil that much worse conditioned
+TOL_KL = 1e-6
+TOL_KL_EVALS = 1e-7
+DKL_FOREGROUND_CUT = 1e4
+DKL_SIGNAL_KEPT = 0.01
+TOL_PS = 1e-10
 # the task chain: the simulated sidereal day and its time stream
 LSD = 8000
 CHAIN_SAMPLES_PER_DAY = 8640
@@ -1024,6 +1080,433 @@ def run_composite(device) -> None:
         raise RuntimeError(f"phase 13 (composite chain) failed: {', '.join(failures)}")
 
 
+ANALYSIS: dict = {}
+
+
+def observed_task() -> str:
+    """Define phase 14's source task, ``EmitObserved``, in this module; return its path.
+
+    It draws a Gaussian foreground and a Gaussian signal sky from the KL
+    transform's covariance models (``KL_MODEL``), simulates each through
+    ``SimulateSidereal``, adds ``GaussianNoise`` of the model's variance
+    per m-mode and interference at ``RFI_CELLS``, and leaves the parts in
+    ``ANALYSIS`` for the checks of phases 14 and 15.
+    """
+    import torch
+
+    from draco_tpu_torch.core import config, containers
+    from draco_tpu_torch.core.task import ContainerTask, PipelineStopIteration
+    from draco_tpu_torch.device import resolve
+    from draco_tpu_torch.ops import sht
+    from draco_tpu_torch.synthesis.noise import GaussianNoise
+    from draco_tpu_torch.synthesis.stream import SimulateSidereal
+    from draco_tpu_torch.telescope.kltransform import KLTransform
+
+    def run(task, params, setup, data):
+        task.read_config(params)
+        task.setup(*setup)
+        return task.process(data)
+
+    def draw_alm(cov_lff, rng):
+        """alm [f, 1, l, m] with <a_lm a_l'm'*> = cov[l, f, f'] (real at m = 0), no monopole."""
+        L1, nf = cov_lff.shape[:2]
+        z = (rng.standard_normal((L1, nf, L1)) + 1j * rng.standard_normal((L1, nf, L1))) / np.sqrt(2.0)
+        z[..., 0] = np.sqrt(2.0) * z[..., 0].real
+        alm = np.einsum("lfg,lgm->flm", np.linalg.cholesky(cov_lff), z)
+        alm *= np.arange(L1)[None, :] <= np.arange(L1)[:, None]  # m <= l
+        alm[:, 0] = 0.0
+        return alm[:, None]
+
+    class EmitObserved(ContainerTask):
+        seed = config.int_prop(0)
+        nside = config.int_prop(NSIDE)
+
+        def setup(self, bt):
+            self.bt = bt
+
+        def process(self):
+            if self._count:
+                raise PipelineStopIteration()
+            bt, tel = self.bt, self.bt.telescope
+            device = resolve()
+            t0 = _sync_clock(device)
+            bt.generate()
+            ANALYSIS["generate_s"] = _sync_clock(device) - t0
+            rng = np.random.Generator(np.random.SFC64(self.seed))
+            model = KLTransform.from_config(KL_MODEL)
+            streams = {}
+            for name, cov in (("foreground", model.foreground), ("signal", model.signal)):
+                alm = torch.as_tensor(draw_alm(cov(tel.lmax, tel.frequencies), rng), device=device).to(torch.complex64)
+                sky = containers.Map(nside=self.nside, polarisation=False, freq=tel.frequencies)
+                sky.map[:] = sht.sphtrans_inv_sky(alm, self.nside)
+                streams[name] = run(SimulateSidereal(), {}, (bt,), sky)
+            total = streams["foreground"].copy()
+            total.vis[:] += streams["signal"].vis[:]
+            # thermal noise of variance noise_amp per m-mode at redundancy 1: an m-mode is the mean of nra samples
+            nra = total.vis.shape[-1]
+            nsamp = int(240 * (total.ra[1] - total.ra[0]) * (86164.0905 / 86400.0) * total.index_map["freq"]["width"][0] * 1e6)
+            noise = {"recv_temp": float(np.sqrt(KL_MODEL["noise_amp"] * nra * nsamp)), "ndays": 1.0, "seed": self.seed}
+            streams["signal+noise"] = run(GaussianNoise(), noise, (bt,), streams["signal"].copy())
+            total = run(GaussianNoise(), noise, (bt,), total)
+            streams["total"] = total.copy()
+            peak = total.vis[:].abs().max()
+            for f, t in RFI_CELLS:
+                total.vis[:][f, :, t] += 2.0 * peak
+            ANALYSIS.update(streams)
+            total.attrs["tag"] = "observed"
+            return total
+
+    globals()["EmitObserved"] = EmitObserved
+    return f"{__name__}.EmitObserved"
+
+
+def analyze_config(product_dir: str, source: str) -> dict:
+    """Phase 14: the analysis example config with the source task in place of its file loader."""
+    return {"pipeline": {"tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "btm"],
+         "params": {"product_directory": product_dir, "nside": NSIDE}},
+        {"type": source, "requires": "btm", "out": "sstream_raw", "params": {"seed": ANALYSIS_SEED, "nside": NSIDE}},
+        {"type": "draco.analysis.transform.CollateProducts", "requires": "tel", "in": "sstream_raw", "out": "sstream"},
+        {"type": "draco.analysis.flagging.RFIMask", "in": "sstream", "out": "rfimask"},
+        {"type": "draco.analysis.flagging.ApplyTimeFreqMask", "in": ["sstream", "rfimask"], "out": "sstream_masked"},
+        {"type": "draco.analysis.transform.MModeTransform", "requires": "btm", "in": "sstream_masked", "out": "mmodes"},
+        {"type": "draco.analysis.svdfilter.SVDFilter", "in": "mmodes", "out": "mmodes_filt", "params": {"niter": 5}},
+        {"type": "draco.analysis.mapmaker.MaximumLikelihoodMapMaker", "requires": "btm", "in": "mmodes_filt",
+         "out": "mlmap", "params": {"nside": NSIDE}},
+    ]}}
+
+
+def _mmodes_of(tel, sstream):
+    from draco_tpu_torch.analysis.transform import MModeTransform
+
+    task = MModeTransform()
+    task.read_config({})
+    task.setup(tel)
+    return task.process(sstream)
+
+
+def _power(x) -> float:
+    return float((x.abs().double() ** 2).sum())
+
+
+def run_analyze(device):
+    """Phase 14: the analysis example's chain through the Manager; returns its beam transfer."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from draco_tpu_torch.analysis import svdfilter
+    from draco_tpu_torch.analysis.mapmaker import MaximumLikelihoodMapMaker, _chunk_operands, pinv_svd
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.core.pipeline import Manager
+    from draco_tpu_torch.ops import healpix
+    from draco_tpu_torch.ops.tools import svd
+
+    tel, _ = cylinder(NSIDE, 2, 64, nfreq=ANALYSIS_NFREQ)
+    nb, M1 = tel.npairs, tel.mmax + 1
+    log(f"analysis chain: 2 x 64 feeds, {nb} pairs, {tel.nfreq} frequencies {tel.frequencies[0]:.1f}-"
+        f"{tel.frequencies[-1]:.1f} MHz, nside={NSIDE}, lmax=mmax={tel.mmax}, every m")
+    with tempfile.TemporaryDirectory() as product_dir:
+        with open(Path(product_dir) / "telescope.pkl", "wb") as f:
+            pickle.dump(tel, f)
+        torch.cuda.reset_peak_memory_stats(device)
+        manager = Manager(analyze_config(product_dir, observed_task()))
+        t0 = time.perf_counter()
+        products = manager.run()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    timing = {name.split(".")[-1]: round(t["wall"], 4) for name, t in manager.task_timing.items()}
+    log(f"analysis chain run: {wall:.2f} s wall (generate inside EmitObserved {ANALYSIS['generate_s']:.2f} s), "
+        f"peak device memory {peak:.2f} GiB")
+    log("analysis chain task_timing (s): " + json.dumps(timing))
+    bt = products["btm"][0]
+    tel = bt.telescope
+    nra = 2 * tel.mmax + 1
+
+    # containers, shapes, devices
+    want = {
+        "sstream": (containers.SiderealStream, "vis", (tel.nfreq, nb, nra)),
+        "sstream_masked": (containers.SiderealStream, "vis_weight", (tel.nfreq, nb, nra)),
+        "mmodes_filt": (containers.MModes, "vis", (M1, 2, tel.nfreq, nb)),
+        "mlmap": (containers.Map, "map", (tel.nfreq, 1, healpix.npix_of(NSIDE))),
+    }
+    for label, (cls, name, shape) in want.items():
+        data = products[label][0][name][:]
+        if not isinstance(products[label][0], cls) or tuple(data.shape) != shape or data.device != device \
+                or not bool(torch.isfinite(torch.view_as_real(data) if data.is_complex() else data).all()):
+            raise RuntimeError(f"analysis chain {label}/{name}: {type(products[label][0]).__name__} {tuple(data.shape)} "
+                               f"on {data.device} (want {cls.__name__} {shape} on {device}) or non-finite values")
+    if bt._bp.device != device:
+        raise RuntimeError(f"the beam transfer matrices lie on {bt._bp.device}")
+
+    # the RFI mask and the masked weights
+    mask = products["rfimask"][0].mask[:]  # host bool [freq, ra]
+    injected = np.zeros_like(mask)
+    for f, t in RFI_CELLS:
+        injected[f, t] = True
+    caught = bool(mask[injected].all())
+    clean_share = float(mask[~injected].mean())
+    w = products["sstream_masked"][0].weight[:]
+    w0 = ANALYSIS["total"].weight[:]
+    bad = torch.as_tensor(mask, device=device)[:, None, :].expand(w.shape)
+    masked_zero = bool((w[bad] == 0).all())
+    others = ((w[~bad] - w0[~bad]).abs().max() / w0.abs().max()).item()
+    log(f"analysis chain: RFIMask caught every injected cell: {caught}; masks {100 * clean_share:.3f}% of the clean cells "
+        f"(limit {100 * RFI_CLEAN_SHARE:.0f}%); masked weights exactly 0: {masked_zero}; the others against the source's "
+        f"{others:.3e} (limit 1e-6)")
+
+    # the SVD filter against the same filter in complex128, and what it takes out
+    raw = _mmodes_of(tel, products["sstream_masked"][0])
+    filt = products["mmodes_filt"][0].vis[:]
+    A, fmask = svdfilter._mmode_matrices(raw, dtype=torch.complex128)
+    t0 = _sync_clock(device)
+    ref, _ = svdfilter._svd_filter_device(A, fmask, niter=5, global_threshold=1e-3, local_threshold=1e-2)
+    ref_s = _sync_clock(device) - t0
+    ref = ref.reshape(M1, tel.nfreq, 2, nb).permute(0, 2, 1, 3)
+    rel_filter = ((filt - ref).abs().max() / raw.vis[:].abs().max()).item()
+    p_sn = _power(_mmodes_of(tel, ANALYSIS["signal+noise"]).vis[:])
+    excess_before, excess_after = _power(raw.vis[:]) / p_sn, _power(filt) / p_sn
+    log(f"analysis chain: SVDFilter vs complex128 max|diff| / max|unfiltered| {rel_filter:.3e} (tol {TOL_SVD_FILTER}; "
+        f"complex128 filter {ref_s:.2f} s); m-mode power over the signal+noise power: {excess_before:.4e} before, "
+        f"{excess_after:.4e} after (fall {excess_before / excess_after:.3e}, at least {FOREGROUND_EXCESS_FALL:.0e})")
+    del A, fmask, ref, raw
+
+    # the ML solve on sampled m against a complex128 pseudo-inverse of the same rank
+    ml = MaximumLikelihoodMapMaker()
+    ml.read_config({"nside": NSIDE})
+    ml.setup(bt)
+    msel = np.unique(np.round(np.linspace(0, tel.mmax, N_ML_CHECK)).astype(int))
+    mm = products["mmodes_filt"][0]
+    shape = (M1, 2, tel.nfreq, nb)
+    bp, bm = ml._bt_tensors(list(range(tel.nfreq)))
+    ops = [_chunk_operands(bp, bm, mm.vis[:].reshape(shape), mm.weight[:].reshape(shape), int(m), 1) for m in msel]
+    Bt, vt = torch.cat([o[0] for o in ops]), torch.cat([o[1] for o in ops])  # [16, f, ntel, nsky], [16, f, ntel]
+    t0 = _sync_clock(device)
+    a64 = torch.einsum("mfst,mft->mfs", pinv_svd(Bt, acond=ml.acond, rcond=ml.rcond), vt)
+    s64 = svd(Bt)[1]
+    k64 = ((s64 > ml.rcond * s64.amax(dim=-1, keepdim=True)) & (s64 > ml.acond)).sum(dim=-1)
+    Bt, vt = Bt.to(torch.complex128), vt.to(torch.complex128)
+    U, s, Vh = svd(Bt)
+    k128 = ((s > ml.rcond * s.amax(dim=-1, keepdim=True)) & (s > ml.acond)).sum(dim=-1)
+    keep = torch.arange(s.shape[-1], device=device) < k64[..., None]
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)), torch.zeros_like(s))
+    a128 = torch.einsum("mfks,mfk,mftk,mft->mfs", Vh.conj(), s_inv.to(U.dtype), U.conj(), vt)
+    r64, r128 = torch.einsum("mfts,mfs->mft", Bt, a64.to(Bt.dtype)), torch.einsum("mfts,mfs->mft", Bt, a128)
+    rel_ml = ((r64 - r128).abs().max() / r128.abs().max()).item()
+    rank_diff = int((k64 - k128).abs().max())
+    log(f"analysis chain: ML solution on {len(msel)} sampled m re-projected vs a complex128 pseudo-inverse of its rank "
+        f"{rel_ml:.3e} (tol {TOL_ML}); ranks float32 {int(k64.min())}-{int(k64.max())}, against complex128 differ by at most "
+        f"{rank_diff} (limit 2); check {_sync_clock(device) - t0:.2f} s")
+    del products, manager, mm, ops, Bt, vt, U, s, Vh, a64, a128, r64, r128, bp, bm
+    torch.cuda.empty_cache()
+
+    failures = [
+        what for what, ok in (
+            ("an injected RFI cell is not masked", caught),
+            (f"mask covers {clean_share:.3f} of the clean cells", clean_share < RFI_CLEAN_SHARE),
+            ("masked weights", masked_zero and others <= 1e-6),
+            (f"SVDFilter {rel_filter:.3e}", rel_filter <= TOL_SVD_FILTER),
+            (f"foreground fall {excess_before / excess_after:.3e}", excess_before / excess_after >= FOREGROUND_EXCESS_FALL),
+            (f"ML {rel_ml:.3e}, ranks differ by {rank_diff}", rel_ml <= TOL_ML and rank_diff <= 2),
+        ) if not ok
+    ]
+    if failures:
+        raise RuntimeError(f"phase 14 (analysis chain) failed: {', '.join(failures)}")
+    return bt
+
+
+def kl_product_config(directory: str) -> dict:
+    """Phase 15's product config: the cylinder of phase 14, a KLTransform, a DoubleKL and a PS estimator."""
+    return {
+        "config": {"output_directory": directory},
+        "telescope": {
+            "type": "UnpolarisedCylinder", "num_cylinders": 2, "num_feeds": 64, "num_freq": ANALYSIS_NFREQ,
+            "auto_correlations": True, "force_lmax": 3 * NSIDE - 1, "force_mmax": 3 * NSIDE - 1,
+            "freq_lower": 400.0, "freq_upper": 500.0, **CHIME,
+        },
+        "beamtransfer": {"nside": NSIDE},
+        "kltransform": [
+            {"type": "KLTransform", "name": "kl", "threshold": KL_THRESHOLD, **KL_MODEL},
+            {"type": "DoubleKL", "name": "dk", "threshold": DKL_THRESHOLD,
+             "foreground_threshold": DKL_FOREGROUND_THRESHOLD, **KL_MODEL},
+        ],
+        "psfisher": [{"type": "MonteCarlo", "name": "ps", "klname": "dk"}],
+    }
+
+
+def check_kl_modes(kl, device, with_diagonal: bool):
+    """Over every m: max|fwd @ bwd - I| and, with the one-stage transform,
+    max|V^H (S + N) V - diag(lambda + 1)| / max(lambda + 1) on the stored modes."""
+    import torch
+
+    from draco_tpu_torch.telescope.kltransform import _regularise
+
+    modes, nmode = kl._ensure_modes()
+    round_trip = diagonal = 0.0
+    for m0, m1, bwd, fwd in modes["chunks"]:
+        if fwd.device != device or fwd.dtype != torch.complex128:
+            raise RuntimeError(f"KL modes of m {m0}-{m1} are {fwd.dtype} on {fwd.device}")
+        kc = fwd.shape[1]
+        if kc == 0:
+            continue
+        keep = torch.arange(kc, device=device)[None] < nmode[m0:m1, None]  # [mc, kc]
+        both = keep[:, :, None] & keep[:, None, :]
+        eye = torch.eye(kc, dtype=fwd.dtype, device=device)
+        round_trip = max(round_trip, ((fwd @ bwd - eye).abs() * both).max().item())
+        if with_diagonal:
+            S, F, Nt = kl._pencil(m0, m1)
+            want = modes["evals"][m0:m1, :kc] + 1.0
+            cov = fwd @ (S + _regularise(F + Nt)) @ fwd.mH
+            diagonal = max(diagonal, ((cov - torch.diag_embed(want).to(cov.dtype)).abs() / want.amax(dim=-1)[:, None, None]).max().item())
+    return round_trip, diagonal
+
+
+def run_kl_path(device, bt) -> None:
+    """Phase 15: SVD -> KL -> quadratic power spectrum through the product manager."""
+    import tempfile
+
+    import scipy.linalg as sla
+    import torch
+    import yaml
+
+    from draco_tpu_torch.analysis.fgfilter import KLModeProject, SVDModeProject
+    from draco_tpu_torch.analysis.powerspectrum import QuadraticPSEstimation
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.telescope.kltransform import _regularise
+    from draco_tpu_torch.telescope.manager import ProductManager
+    from draco_tpu_torch.telescope.psestimation import PSEstimation
+
+    def run(task, params, setup, data):
+        task.read_config(params)
+        task.setup(*setup)
+        return task.process(data)
+
+    with tempfile.TemporaryDirectory() as directory:
+        path = Path(directory) / "products.yaml"
+        path.write_text(yaml.safe_dump(kl_product_config(directory)))
+        pm = ProductManager.from_config(str(path))
+    tel = pm.telescope
+    if not (np.array_equal(tel.uniquepairs, bt.telescope.uniquepairs) and np.array_equal(tel.frequencies, bt.telescope.frequencies)):
+        raise RuntimeError("the product config's telescope is not phase 14's")
+    # the beam transfer matrices phase 14 generated (the same telescope): not generated twice
+    pm.beamtransfer._bp, pm.beamtransfer._bm = bt._bp, bt._bm
+    pm.generate()
+    M = tel.mmax + 1
+    torch.cuda.reset_peak_memory_stats(device)
+    times = {}
+
+    def timed(name, fn):
+        t0 = _sync_clock(device)
+        out = fn()
+        times[name] = round(_sync_clock(device) - t0, 4)
+        return out
+
+    timed("beam SVD", pm.beamtransfer._ensure_svd)
+    n = tel.nfreq * pm.beamtransfer.svd_len()
+    mmodes = {name: _mmodes_of(tel, ANALYSIS[name]) for name in ("total", "foreground", "signal")}
+    svd = timed("SVDModeProject x3", lambda: {
+        name: run(SVDModeProject(), {"mode": "forward"}, (pm,), mm) for name, mm in mmodes.items()})
+    for name, c in svd.items():
+        if not isinstance(c, containers.SVDModes) or tuple(c.vis.shape) != (M, n) or c.vis[:].device != device:
+            raise RuntimeError(f"SVD modes of the {name} data: {c} on {c.vis[:].device}")
+
+    # the one-stage transform
+    kl = pm.kltransforms["kl"]
+    _, nmode = timed("KLTransform solve", kl._ensure_modes)
+    stored = sum(f.numel() + b.numel() for _, _, b, f in kl._modes["chunks"]) * 16 / 2**30
+    log(f"KL path: n = {n}; KLTransform {times['KLTransform solve']:.2f} s for {M} m ({M / times['KLTransform solve']:.1f} "
+        f"eigh/s, {len(kl._modes['chunks'])} chunks); modes above {KL_THRESHOLD}: {int(nmode.sum())} of {M * n} "
+        f"(at most {int(nmode.max())} an m); stored fwd and bwd {stored:.2f} GiB")
+    round_trip, diagonal = timed("KLTransform checks", lambda: check_kl_modes(kl, device, True))
+    evals_err = 0.0
+    t0 = time.perf_counter()
+    for m in (1, M // 4, M // 2, 3 * M // 4):
+        S, F, Nt = kl._pencil(m, m + 1)
+        ref = np.sort(sla.eigh(S[0].cpu().numpy(), _regularise(F + Nt)[0].cpu().numpy(), eigvals_only=True))[::-1]
+        evals_err = max(evals_err, float(np.abs(kl.evals_all()[m].cpu().numpy() - ref).max() / ref.max()))
+    times["scipy eigh x4 (host)"] = round(time.perf_counter() - t0, 4)
+    log(f"KL path: KLTransform over every m: max|fwd @ bwd - I| {round_trip:.3e}, diagonalisation {diagonal:.3e} "
+        f"(tol {TOL_KL}); eigenvalues of 4 m against host float64 scipy.linalg.eigh(S, N) {evals_err:.3e} of the largest "
+        f"(tol {TOL_KL_EVALS})")
+    klm = timed("KLModeProject forward (kl)", lambda: run(KLModeProject(), {"mode": "forward", "klname": "kl"}, (pm,), svd["total"]))
+    back = timed("KLModeProject filter (kl)", lambda: run(KLModeProject(), {"mode": "filter", "klname": "kl"}, (pm,), svd["total"]))
+    kl_ok = (
+        isinstance(klm, containers.KLModes) and type(back) is containers.SVDModes and klm.vis[:].device == device
+        and torch.equal(klm.nmode[:].long(), nmode) and bool(torch.isfinite(torch.view_as_real(back.vis[:])).all())
+        and bool(torch.isfinite(torch.view_as_real(klm.vis[:])).all())
+    )
+    del pm.kltransforms["kl"], kl, klm, back
+    torch.cuda.empty_cache()
+
+    # the two-stage transform: foreground rejection, then signal over noise
+    dk = pm.kltransforms["dk"]
+    _, nmode = timed("DoubleKL solve", dk._ensure_modes)
+    dk_round_trip, _ = timed("DoubleKL checks", lambda: check_kl_modes(dk, device, False))
+    evals = dk.evals_all()
+    kept = torch.arange(n, device=device)[None] < nmode[:, None]
+    expected_share = float(evals[kept].sum() / evals.clamp(min=0).sum())
+    project = {"mode": "forward", "klname": "dk"}
+    klmodes = timed("KLModeProject forward (dk) x3", lambda: {name: run(KLModeProject(), project, (pm,), c) for name, c in svd.items()})
+    p_kl = {name: _power(c.vis[:]) for name, c in klmodes.items()}
+    p_svd = {name: _power(c.vis[:]) for name, c in svd.items()}
+    foreground_cut = (p_kl["signal"] / p_kl["foreground"]) / (p_svd["signal"] / p_svd["foreground"])
+    signal_vs_expected = p_kl["signal"] / float(evals[kept].sum())
+    log(f"KL path: DoubleKL {times['DoubleKL solve']:.2f} s ({2 * M / times['DoubleKL solve']:.1f} eigh/s); modes kept "
+        f"{int(nmode.sum())} (at most {int(nmode.max())} an m); round trip {dk_round_trip:.3e} (tol {TOL_KL}); "
+        f"signal-to-foreground power ratio {p_svd['signal'] / p_svd['foreground']:.3e} in the SVD basis, "
+        f"{p_kl['signal'] / p_kl['foreground']:.3e} in the kept KL modes: better by {foreground_cut:.3e} (at least "
+        f"{DKL_FOREGROUND_CUT:.0e}); the kept modes hold {expected_share:.4f} of the model's signal-to-noise (at least "
+        f"{DKL_SIGNAL_KEPT}), and the simulated signal's power in them is {signal_vs_expected:.4f} of the eigenvalues' sum "
+        f"(0.8 to 1.25)")
+
+    # the quadratic estimator
+    ps = pm.psestimators["ps"]
+    total = klmodes["total"]
+    q = timed("q, Fisher and bias pass", lambda: ps.q_estimator_all(total.vis[:], total.nmode[:]))
+    fisher, bias = ps.fisher_bias()
+    out = timed("QuadraticPSEstimation", lambda: run(QuadraticPSEstimation(), {"psname": "ps"}, (pm,), total))
+    m8 = np.unique(np.round(np.linspace(1, 0.6 * M, 8)).astype(int))
+    only = torch.zeros_like(total.vis[:])
+    only[m8] = total.vis[:][m8]
+    q_all = ps.q_estimator_all(only, total.nmode[:])
+    q_sum = sum(ps.q_estimator(int(m), total.vis[:][int(m)]) for m in m8)
+    rel_q = ((q_all - q_sum).abs().max() / q_sum.abs().max()).item()
+    other = PSEstimation.from_config({"m_chunk": 1}, pm.beamtransfer, dk).genbands()
+    q1 = timed("pass at m_chunk 1", lambda: other.q_estimator_all(total.vis[:], total.nmode[:]))
+    rel_chunk = max(
+        ((a - b).abs().max() / b.abs().max()).item() for a, b in zip((q1, *other.fisher_bias()), (q, fisher, bias)))
+    symmetric = bool(torch.equal(fisher, fisher.T)) and bool((fisher.diagonal() > 0).all())
+    bands = out.powerspectrum[:]
+    ps_ok = isinstance(out, containers.Powerspectrum2D) and bool(torch.isfinite(bands).all()) and fisher.device == device
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"KL path: {ps.nbands} bands; q_estimator_all against the sum of q_estimator over {len(m8)} m {rel_q:.3e}; "
+        f"m_chunk {dk._chunk_len(ps.nbands)} against 1: q, Fisher, bias within {rel_chunk:.3e} (tol {TOL_PS} both); Fisher "
+        f"symmetric with a positive diagonal: {symmetric}; band powers finite: {ps_ok}")
+    log("KL path seconds: " + json.dumps(times))
+    log(f"KL path: peak device memory {peak:.2f} GiB")
+
+    failures = [
+        what for what, ok in (
+            (f"KLTransform round trip {round_trip:.3e}, diagonalisation {diagonal:.3e}", max(round_trip, diagonal) <= TOL_KL),
+            (f"eigenvalues vs scipy {evals_err:.3e}", evals_err <= TOL_KL_EVALS),
+            ("KLModeProject containers", kl_ok),
+            (f"DoubleKL round trip {dk_round_trip:.3e}", dk_round_trip <= TOL_KL),
+            (f"foreground cut {foreground_cut:.3e}", foreground_cut >= DKL_FOREGROUND_CUT),
+            (f"signal kept {expected_share:.4f}, measured/expected {signal_vs_expected:.4f}",
+             expected_share >= DKL_SIGNAL_KEPT and 0.8 <= signal_vs_expected <= 1.25),
+            (f"q per m {rel_q:.3e}", rel_q <= TOL_PS),
+            (f"chunk invariance {rel_chunk:.3e}", rel_chunk <= TOL_PS),
+            ("Fisher matrix", symmetric),
+            ("band powers", ps_ok),
+            (f"peak {peak:.2f} GiB", peak < PEAK_LIMIT_GIB),
+        ) if not ok
+    ]
+    if failures:
+        raise RuntimeError(f"phase 15 (KL path) failed: {', '.join(failures)}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=2, help="seed of the time streams and kernel inputs")
@@ -1132,6 +1615,24 @@ def main() -> int:
     composite_launches = cuda_kernels.launches["banded_covariance"]
     log(f"phase 13 wall time {time.perf_counter() - t0:.1f} s; banded_covariance launches {composite_launches} "
         "(the chain has no regrid)")
+    del tel
+    torch.cuda.empty_cache()
+
+    # phase 14: the analysis example's chain on the 191-pair cylinder
+    t0 = time.perf_counter()
+    cuda_kernels.reset_launches()
+    bt_a = run_analyze(device)
+    analyze_launches = cuda_kernels.launches["banded_covariance"]
+    log(f"phase 14 wall time {time.perf_counter() - t0:.1f} s; banded_covariance launches {analyze_launches} "
+        "(the chain has no regrid)")
+
+    # phase 15: SVD -> KL -> quadratic power spectrum on the same product
+    t0 = time.perf_counter()
+    cuda_kernels.reset_launches()
+    run_kl_path(device, bt_a)
+    kl_launches = cuda_kernels.launches["banded_covariance"]
+    log(f"phase 15 wall time {time.perf_counter() - t0:.1f} s; banded_covariance launches {kl_launches} "
+        "(the path has no regrid)")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [{
@@ -1144,6 +1645,8 @@ def main() -> int:
         "cylinder_path": {"launches": launches_c["banded_covariance"], **kern_c},
         "task_chain": {"launches": chain_launches},
         "composite_chain": {"launches": composite_launches},
+        "analysis_chain": {"launches": analyze_launches},
+        "kl_path": {"launches": kl_launches},
     }]}
     print(json.dumps(record))
     print(card)

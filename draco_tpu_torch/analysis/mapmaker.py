@@ -21,7 +21,7 @@ import torch
 from ..core import config, containers, io
 from ..core.task import ContainerTask
 from ..ops import sht
-from ..ops.tools import find_keys
+from ..ops.tools import find_keys, svd
 
 __all__ = ["BaseMapMaker", "DirtyMapMaker", "MaximumLikelihoodMapMaker", "WienerMapMaker", "pinv_svd"]
 
@@ -143,7 +143,7 @@ def pinv_svd(M: torch.Tensor, acond: float = 1e-4, rcond: float = 1e-3) -> torch
     (reference mapmaker.py:287-300): singular values kept where
     s > rcond * s_max and s > acond.  Batched over leading dims.
     """
-    u, s, vh = torch.linalg.svd(M, full_matrices=False)
+    u, s, vh = svd(M)
     smax = s.max(dim=-1, keepdim=True).values
     keep = (s > rcond * smax) & (s > acond)
     s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)), torch.zeros_like(s))
@@ -184,8 +184,12 @@ class MaximumLikelihoodMapMaker(BaseMapMaker):
         out = []
         for m0, m1 in self._m_chunks(mmax):
             Bt, vt = _chunk_operands(bp, bm, vis, weight, m0, m1 - m0)
-            ib = pinv_svd(Bt, acond=self.acond, rcond=self.rcond)
-            a = torch.einsum("mfst,mft->mfs", ib, vt.to(ib.dtype))
+            # B is zero for l < m: the pseudo-inverse of the columns l >= m0 is
+            # that of the whole matrix, with zero rows for the others
+            cols = (torch.arange(L1, device=Bt.device) >= m0).repeat(npol)
+            ib = pinv_svd(Bt[..., cols], acond=self.acond, rcond=self.rcond)
+            a = torch.zeros(Bt.shape[:2] + (npol * L1,), dtype=ib.dtype, device=ib.device)
+            a[..., cols] = torch.einsum("mfst,mft->mfs", ib, vt.to(ib.dtype))
             out.append(a.reshape(m1 - m0, nfreq, npol, L1))
         return torch.cat(out, dim=0).movedim(0, -1)  # [f, p, L1, M+1]
 

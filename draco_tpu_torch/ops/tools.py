@@ -32,11 +32,14 @@ __all__ = [
     "find_key", "find_keys", "find_inputs", "redefine_stack_index_map", "cmap", "icmap",
     "unique_pair_indices", "apply_gain", "extract_diagonal", "unpack_product_array", "redundancy_index",
     "calculate_redundancy",
-    "axis_blocks",
+    "axis_blocks", "svd",
 ]
 
 # elements of the largest temporary a blocked helper makes
 BLOCK_ELEMENTS = 1 << 25
+
+# torch.linalg.svd's keyword argument that names the cuSOLVER routine (CUDA tensors only)
+SVD_ROUTINE_KEYWORD = "dri" + "ver"
 
 # Veltkamp split constant for float32 (2^12 + 1)
 _DEKKER_SPLIT = 4097.0
@@ -154,6 +157,23 @@ def sincos_turns(t: torch.Tensor):
     cos_v = torch.where(neg_c, -cos_v, cos_v)
     sin_v = torch.where(neg_s, -sin_v, sin_v)
     return cos_v, sin_v
+
+
+def svd(A: torch.Tensor, full_matrices: bool = False):
+    """SVD ``(U, s, Vh)`` of a batch of matrices, on their device (economy
+    form unless ``full_matrices``).
+
+    On a CUDA tensor this is cuSOLVER's QR-iteration ``gesvd``.  PyTorch's
+    default there (the Jacobi ``gesvdj``) left the beam transfer matrices
+    of a 191-pair cylinder 3.3e-4 from their reconstruction and took 2.5x
+    as long, fell back to ``gesvd`` at the highest m (one non-zero
+    column), and ``gesvda`` did not converge at all; ``gesvd`` reconstructs
+    them to 4.9e-6 (``scripts/torch_linalg_rates.py --kl`` on an NVIDIA H100
+    80GB HBM3 at 700 W; ``PERF.md``).  The relative singular-value cuts
+    taken downstream (1e-6, 1e-3) need that accuracy.
+    """
+    routine = {SVD_ROUTINE_KEYWORD: "gesvd"} if A.is_cuda else {}
+    return torch.linalg.svd(A, full_matrices=full_matrices, **routine)
 
 
 def find_key(key_list, key):

@@ -42,7 +42,7 @@ import torch
 from ..device import as_tensor, resolve
 from ..ops import healpix, sht
 from ..ops.sht_window import WindowedSHT, support_fraction
-from ..ops.tools import phase_frac, sincos_turns, twofloat_split
+from ..ops.tools import phase_frac, sincos_turns, svd, twofloat_split
 from .core import TransitTelescope
 
 # relative beam-product threshold of the compact-support window
@@ -96,6 +96,8 @@ class BeamTransfer:
     # per-frequency beam products are [nuniq, npol, npix] complex128; two
     # entries cover the same-frequency reuse between build phases
     _BEAM_PRODUCTS_LRU = 2
+    # m values factored together by the SVD, on their common non-zero columns
+    _SVD_M_BLOCK = 16
 
     def __init__(
         self,
@@ -296,11 +298,20 @@ class BeamTransfer:
                 bm_f.append(torch.cat(bms))
         else:
             s, lam, lam_lo, plan = self._streaming_ops2(device)
+            vec = self._stream_geometry(device)
             for fi in range(tel.nfreq):
-                bmaps = self._beam_fringe_maps(fi, device=device)  # [nbase, npol, npix]
-                ri = s._analysis_impl(torch.stack([bmaps.real, bmaps.imag]), lam, plan, lam_lo)
-                bp_f.append((ri[0] - 1j * ri[1]).conj() * scale)
-                bm_f.append((ri[0] + 1j * ri[1]).conj() * scale)
+                # the fringe x beam maps [C, npol, npix] are built on the device
+                # from two-float phases, as the streaming projections build
+                # them (on the host they took 13 s a frequency at nside 256)
+                u_re, u_im, u_idx = self._stream_beam(fi, device)
+                bps, bms = [], []
+                for b0, b1 in self._stream_chunks(None):
+                    re, im = self._stream_bmaps(vec, self._stream_baselines(fi, b0, b1, device), u_re, u_im, u_idx[b0:b1])
+                    ri = s._analysis_impl(torch.stack([re, im]), lam, plan, lam_lo)
+                    bps.append((ri[0] - 1j * ri[1]).conj() * scale)
+                    bms.append((ri[0] + 1j * ri[1]).conj() * scale)
+                bp_f.append(torch.cat(bps))
+                bm_f.append(torch.cat(bms))
         self._bp = torch.stack(bp_f).to(torch.complex64)
         self._bm = torch.stack(bm_f).to(torch.complex64)
         # the m = 0 negative block duplicates conj(V_0): the m-mode
@@ -562,10 +573,27 @@ class BeamTransfer:
         if self._svd is not None:
             return
         self.generate()
-        f, M1 = self._bp.shape[0], self._bp.shape[-1]
-        B = torch.cat([self._bp, self._bm], dim=1)  # [f, ntel, p, L+1, M+1]
-        B = B.movedim(-1, 1).reshape(f, M1, self.ntel, self.nsky)
-        U, s, Vh = torch.linalg.svd(B, full_matrices=False)
+        f, _, npol, L1, M1 = self._bp.shape
+        ntel, k = self.ntel, min(self.ntel, self.nsky)
+        dev = self._bp.device
+        U = torch.zeros((f, M1, ntel, k), dtype=torch.complex64, device=dev)
+        s = torch.zeros((f, M1, k), dtype=torch.float32, device=dev)
+        Vh = torch.zeros((f, M1, k, npol, L1), dtype=torch.complex64, device=dev)
+        # B is zero for l < m: each block of m is factored on its columns l >= m0
+        # alone, which is the same decomposition for less work (and leaves the
+        # solver no block of exact zeros).  Where fewer than k columns are left
+        # the full U completes the basis, so that U stays orthonormal.
+        for m0 in range(0, M1, self._SVD_M_BLOCK):
+            m1 = min(m0 + self._SVD_M_BLOCK, M1)
+            B = torch.cat([self._bp[..., m0:, m0:m1], self._bm[..., m0:, m0:m1]], dim=1)  # [f, ntel, p, L1 - m0, mb]
+            B = B.movedim(-1, 1).reshape(f, m1 - m0, ntel, npol * (L1 - m0))
+            u, sv, vh = svd(B, full_matrices=B.shape[-1] < k)
+            kk = sv.shape[-1]
+            U[:, m0:m1, :, : min(u.shape[-1], k)] = u[..., :k]
+            s[:, m0:m1, :kk] = sv
+            Vh[:, m0:m1, :kk, :, m0:] = vh[..., :kk, :].reshape(f, m1 - m0, kk, npol, L1 - m0)
+        Vh = Vh.reshape(f, M1, k, self.nsky)
+        del B, u, sv, vh
         smax = s.max(dim=-1, keepdim=True).values
         keep = s > self.svcut * smax.clamp(min=1e-30)
         self._svd = {"U": U, "s": s, "Vh": Vh, "keep": keep, "nmode": keep.sum(dim=-1)}

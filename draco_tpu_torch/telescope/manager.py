@@ -4,10 +4,9 @@ Port of ``draco_tpu.telescope.manager``, the replacement of
 ``drift.core.manager.ProductManager``: a telescope model and its beam
 transfer products, loadable from a YAML-configured product directory (the
 ``drift-makeproducts`` output layout the reference expects, reference
-draco/core/io.py:215-243).  Product directories are the JAX package's, so
-either package reads the other's.  KL transforms and power-spectrum
-estimators (``kltransform``/``psfisher`` stanzas) are a later slice of the
-port: a config that names them raises.
+draco/core/io.py:215-243), with any KL transforms and power-spectrum
+estimators its ``kltransform``/``psfisher`` stanzas name.  Product
+directories are the JAX package's, so either package reads the other's.
 
 ``yaml`` is imported only by :meth:`ProductManager.from_config`.
 """
@@ -38,12 +37,6 @@ _MODULE_ALIASES = {
     "draco_tpu.telescope.core": _CORE,
 }
 
-_NOT_PORTED = (
-    "the {stanza!r} stanza of a product config is not ported to draco_tpu_torch yet: "
-    "KL transforms and power-spectrum estimators are a later slice (ROADMAP.md slice C)"
-)
-
-
 def _resolve_telescope(type_spec):
     """Telescope class from a name, dotted path, or {class, module} dict.
 
@@ -71,7 +64,7 @@ def _resolve_telescope(type_spec):
 
 
 class ProductManager:
-    """Holds a telescope and its beam transfer products."""
+    """Holds telescope + beamtransfer (+ KL transforms, PS estimators)."""
 
     def __init__(
         self,
@@ -82,7 +75,9 @@ class ProductManager:
         self.telescope = telescope
         self.beamtransfer = beamtransfer or BeamTransfer(telescope=telescope)
         self.directory = directory
-        self._generate_beamtransfers = True
+        self.kltransforms: dict = {}
+        self.psestimators: dict = {}
+        self._generate_flags: dict = {}
 
     @classmethod
     def from_config(cls, config_path: str) -> "ProductManager":
@@ -97,6 +92,15 @@ class ProductManager:
               num_cylinders: 2
               ...
             beamtransfer: {...}                # optional BeamTransfer args
+            kltransform:                       # optional
+              - type: KLTransform
+                name: dk
+                ...
+            psfisher:                          # optional
+              - type: MonteCarlo
+                name: ps
+                klname: dk
+                bands: ...
         """
         try:
             import yaml
@@ -111,10 +115,6 @@ class ProductManager:
             config_file = config_path
         with open(config_file) as f:
             cfg = yaml.safe_load(f)
-
-        for stanza in ("kltransform", "psfisher"):
-            if cfg.get(stanza):
-                raise NotImplementedError(_NOT_PORTED.format(stanza=stanza))
 
         # drift-makeproducts configs carry a `config:` stanza with the
         # product output directory (reference test/products_config.yaml)
@@ -133,14 +133,43 @@ class ProductManager:
             bt.load(bt_dir)
 
         man = cls(tel, bt, directory=directory)
-        # the drift config stanza's booleans select what generate() computes
-        # (reference doc/product_params.yaml)
-        man._generate_beamtransfers = bool(drift_cfg.get("beamtransfers", True))
+        # the drift config stanza's booleans select which products
+        # generate() computes (reference doc/product_params.yaml)
+        man._generate_flags = {
+            name: bool(drift_cfg.get(name, True)) for name in ("beamtransfers", "kltransform", "psfisher")
+        }
+
+        # KL transforms
+        if cfg.get("kltransform"):
+            from . import kltransform as klmod
+        for kl_cfg in cfg.get("kltransform", []) or []:
+            kl_cfg = dict(kl_cfg)
+            name = kl_cfg.pop("name", kl_cfg.get("type", "kl"))
+            kl_cls = getattr(klmod, kl_cfg.pop("type", "KLTransform"))
+            man.kltransforms[name] = kl_cls.from_config(kl_cfg, bt)
+
+        # Power spectrum estimators
+        if cfg.get("psfisher"):
+            from . import psestimation as psmod
+        for ps_cfg in cfg.get("psfisher", []) or []:
+            ps_cfg = dict(ps_cfg)
+            name = ps_cfg.pop("name", "ps")
+            klname = ps_cfg.pop("klname", None)
+            ps_cfg.pop("type", None)
+            kl = man.kltransforms.get(klname) if klname else None
+            man.psestimators[name] = psmod.PSEstimation.from_config(ps_cfg, bt, kl)
         return man
 
     def generate(self, regen: bool = False) -> "ProductManager":
-        if self._generate_beamtransfers:
+        flags = self._generate_flags
+        if flags.get("beamtransfers", True):
             self.beamtransfer.generate(regen=regen)
+        if flags.get("kltransform", True):
+            for kl in self.kltransforms.values():
+                kl.generate(regen=regen)
+        if flags.get("psfisher", True):
+            for ps in self.psestimators.values():
+                ps.generate(regen=regen)
         return self
 
     def save(self, directory: str | None = None):

@@ -176,25 +176,32 @@ pipeline:
         ("draco_tpu.synthesis.gain.RandomSiderealGains", "draco_tpu_torch.synthesis.gain"),
         ("draco_tpu.synthesis.skymodel.GenerateGaussianSky", "draco_tpu_torch.synthesis.skymodel"),
         ("draco.synthesis.mockcatalog.MockCatalogGenerator", "draco_tpu_torch.synthesis.mockcatalog"),
+        ("draco.analysis.flagging.RFIMask", "draco_tpu_torch.analysis.flagging"),
+        ("draco.analysis.flagging.ApplyRFIMask", "draco_tpu_torch.analysis.flagging"),
+        ("draco.analysis.svdfilter.SVDFilter", "draco_tpu_torch.analysis.svdfilter"),
+        ("draco_tpu.analysis.fgfilter.KLModeProject", "draco_tpu_torch.analysis.fgfilter"),
+        ("draco.analysis.powerspectrum.QuadraticPSEstimation", "draco_tpu_torch.analysis.powerspectrum"),
     ],
 )
 def test_task_path_translation(path, module):
     assert _resolve_task_class(path).__module__ == module
 
 
-@pytest.mark.parametrize("example", ["simulate.yaml", "chime_scale.yaml"])
+@pytest.mark.parametrize("example", ["simulate.yaml", "chime_scale.yaml", "analyze.yaml", "fused_roundtrip.yaml"])
 def test_every_task_of_the_simulation_examples_resolves(example):
-    """Every task of the JAX package's simulation configs has a port."""
+    """Every task of these example configs of the JAX package has a port,
+    and the config lints clean."""
     import yaml
 
     with open(os.path.join(ROOT, "examples", example)) as f:
-        tasks = yaml.safe_load(f)["pipeline"]["tasks"]
-    for spec in tasks:
+        cfg = yaml.safe_load(f)
+    for spec in cfg["pipeline"]["tasks"]:
         assert _resolve_task_class(spec["type"]).__module__.startswith("draco_tpu_torch."), spec["type"]
+    assert Manager(cfg).lint() == []
 
 
 @pytest.mark.parametrize(
-    "path", ["draco.analysis.flagging.RFIMask", "draco_tpu.analysis.transform.GenerateSubBands"]
+    "path", ["draco.analysis.flagging.MaskFreq", "draco_tpu.analysis.transform.GenerateSubBands"]
 )
 def test_a_task_not_ported_yet_raises(path):
     with pytest.raises(PipelineRuntimeError, match="not ported to draco_tpu_torch yet") as e:
@@ -418,12 +425,59 @@ def test_load_product_manager(products, tmp_path):
     ]}}
     pm = Manager(cfg).run()["pm"][0]
     assert pm.beamtransfer._bp is not None and pm.beamtransfer._bp.device.type == "cpu"
-    stanza = tmp_path / "kl.yaml"
-    stanza.write_text(PRODUCTS_YAML + "kltransform:\n  - type: KLTransform\n")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Manager({"pipeline": {"tasks": [
-            {"type": "draco.core.io.LoadProductManager", "out": "pm", "params": {"product_directory": str(stanza)}},
-        ]}}).run()
+    assert pm.kltransforms == {} and pm.psestimators == {}
+
+
+KL_STANZAS = """
+kltransform:
+    - type: KLTransform
+      name: kl
+      threshold: 1.0e-4
+    - type: DoubleKL
+      name: dk
+      threshold: 0.03
+      foreground_threshold: 1.0e-4
+      foreground_amp: 2.0
+      noise_amp: 0.5
+psfisher:
+    - type: MonteCarlo
+      name: ps
+      klname: dk
+      bands_kpar: [0.0, 0.5, 1.0]
+      bands_kperp: [0.0, 0.5]
+"""
+
+
+def test_product_config_with_kl_and_ps_stanzas_builds(products, tmp_path):
+    """``kltransform`` and ``psfisher`` stanzas build through the port's
+    ``ProductManager.from_config``, as they do through the JAX package's."""
+    from draco_tpu.telescope import ProductManager as JProductManager
+    from draco_tpu_torch.telescope.kltransform import DoubleKL, KLTransform
+    from draco_tpu_torch.telescope.psestimation import PSEstimation
+
+    cfg = tmp_path / "kl.yaml"
+    cfg.write_text(PRODUCTS_YAML.replace('"products/"', f'"{products}"') + KL_STANZAS)
+    pm = Manager({"pipeline": {"tasks": [
+        {"type": "draco.core.io.LoadProductManager", "out": "pm", "params": {"product_directory": str(cfg)}},
+    ]}}).run()["pm"][0]
+    jpm = JProductManager.from_config(str(cfg))
+    assert list(pm.kltransforms) == list(jpm.kltransforms) == ["kl", "dk"]
+    assert type(pm.kltransforms["kl"]) is KLTransform and type(pm.kltransforms["dk"]) is DoubleKL
+    dk, ps = pm.kltransforms["dk"], pm.psestimators["ps"]
+    assert (dk.threshold, dk.foreground_threshold, dk.noise_amp) == (0.03, 1e-4, 0.5)
+    assert type(ps) is PSEstimation and ps.kltransform is dk and ps.beamtransfer is pm.beamtransfer
+    assert dk.beamtransfer is pm.beamtransfer and pm.beamtransfer._bp is not None
+    # generate() reaches every product, and the flags of the config stanza switch them off
+    assert pm.generate() is pm and ps.nbands == jpm.generate().psestimators["ps"].nbands == 2
+    evals = dk.evals_all()
+    assert evals.device.type == "cpu" and evals.shape == (pm.telescope.mmax + 1, pm.telescope.nfreq * pm.beamtransfer.svd_len())
+    assert bool(torch.isfinite(evals).all())
+    off = tmp_path / "off.yaml"
+    off.write_text(cfg.read_text().replace("config:\n", "config:\n    psfisher: No\n"))
+    from draco_tpu_torch.telescope.manager import ProductManager
+
+    pm_off = ProductManager.from_config(str(off)).generate()
+    assert not hasattr(pm_off.psestimators["ps"], "nbands")
 
 
 def test_cli_runs_a_pipeline_on_the_cpu(products, tmp_path):
@@ -481,3 +535,112 @@ pipeline:
 def test_cli_commands_not_ported_yet_exit_nonzero(command, capsys):
     assert main([command, "anything"]) != 0
     assert "not ported yet" in capsys.readouterr().out
+
+
+# -- examples/analyze.yaml through both Managers ------------------------------------
+
+ANALYZE_TELESCOPE = dict(
+    grid_ew=2, grid_ns=2, spacing_ew=6.0, spacing_ns=6.0, latitude=45.0, freq_lower=400.0, freq_upper=440.0,
+    num_freq=4, dish_width=6.0, auto_correlations=True, force_lmax=15, force_mmax=15,
+)
+RFI_CELLS = [(1, 5), (2, 20), (2, 21)]  # (freq, ra) of the injected interference
+
+
+@pytest.fixture(scope="module")
+def analyze_chain(tmp_path_factory):
+    """``examples/analyze.yaml``, task for task, through the JAX package's
+    Manager and the port's, on one product directory and one simulated
+    stream file: a smooth-spectrum foreground 1e3 x a Gaussian signal,
+    noise, zero-weight gaps and interference at known cells."""
+    import yaml
+
+    from draco_tpu.core import containers as jcontainers
+    from draco_tpu.core.pipeline import Manager as JManager
+    from draco_tpu.synthesis.stream import SimulateSidereal as JSimulateSidereal
+    from draco_tpu.telescope import UnpolarisedDishArray as JDishArray
+
+    tmp = tmp_path_factory.mktemp("analyze")
+    jtel = JDishArray(**ANALYZE_TELESCOPE)
+    jbt = JBeamTransfer(telescope=jtel).generate()
+    jbt.save(str(tmp / "products" / "bt"))
+    rng = np.random.Generator(np.random.SFC64(31))
+    npix = 12 * jbt.beam_nside**2
+    sky = jcontainers.Map(nside=jbt.beam_nside, polarisation=False, freq=jtel.frequencies)
+    spectrum = (jtel.frequencies / 400.0) ** -2.7
+    sky.map[:] = 1e3 * spectrum[:, None, None] * rng.standard_normal((1, 1, npix)) + rng.standard_normal((4, 1, npix))
+    sim = JSimulateSidereal()
+    sim.read_config({})
+    sim.setup(jbt)
+    ss = sim.process(sky)
+    vis = np.asarray(ss.vis[:]).copy()
+    vis += 1e-3 * np.abs(vis).max() * (rng.standard_normal(vis.shape) + 1j * rng.standard_normal(vis.shape))
+    for f, t in RFI_CELLS:
+        vis[f, :, t] += 50.0 * np.abs(vis).max()
+    weight = np.ones(vis.shape, np.float32)
+    weight[:, 3, 10:13] = 0.0
+    ss.vis[:] = vis
+    ss.weight[:] = weight
+    ss.save(str(tmp / "sim_0.h5"))
+
+    with open(os.path.join(ROOT, "examples", "analyze.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    tasks = cfg["pipeline"]["tasks"]
+    tasks[0]["params"]["product_directory"] = str(tmp / "products" / "bt")
+    tasks[1]["params"]["files"] = [str(tmp / "sim_*.h5")]
+    tasks[-1]["params"] = {"nside": jbt.beam_nside}
+    with default_device("cpu"):
+        return JManager(cfg).run(), Manager(cfg).run(), jtel
+
+
+def test_analyze_example_masks_the_injected_rfi(analyze_chain):
+    jprod, tprod, _ = analyze_chain
+    jmask, tmask = np.asarray(jprod["rfimask"][0].mask[:]), tprod["rfimask"][0].mask[:]
+    assert isinstance(tprod["rfimask"][0], containers.SiderealRFIMask)
+    assert np.array_equal(tmask, jmask)
+    assert all(tmask[f, t] for f, t in RFI_CELLS) and tmask.mean() < 0.25
+    w = tprod["sstream_masked"][0].weight[:]
+    assert np.array_equal(w.numpy(), np.asarray(jprod["sstream_masked"][0].weight[:]))
+    bad = torch.from_numpy(tmask)[:, None, :].expand(w.shape)
+    assert bool((w[bad] == 0).all()) and bool((w[~bad][w[~bad] != 0] == 1).all())
+
+
+def _unfiltered_mmodes(tprod, tel):
+    """``SVDFilter`` writes into the m-modes it is given, so ``mmodes`` and
+    ``mmodes_filt`` are one container: the unfiltered ones are made again."""
+    from draco_tpu_torch.analysis.transform import MModeTransform
+
+    t = MModeTransform()
+    t.read_config({})
+    t.setup(tel)
+    return t.process(tprod["sstream_masked"][0])
+
+
+def test_analyze_example_matches_jax(analyze_chain):
+    """Each stage against the JAX package's, max|diff| over the peak of the
+    stage's INPUT scale: 2e-5 (float32 against 64-bit types on).  The SVD
+    filter's output is what is left of data 1e3 x brighter, so its
+    differences are held against the unfiltered peak."""
+    jprod, tprod, _ = analyze_chain
+    ref = np.asarray(jprod["sstream"][0].vis[:])
+    assert np.abs(tprod["sstream"][0].vis[:].numpy() - ref).max() <= 2e-5 * np.abs(ref).max()
+    assert tprod["mmodes_filt"][0] is tprod["mmodes"][0] and jprod["mmodes_filt"][0] is jprod["mmodes"][0]
+    raw = _unfiltered_mmodes(tprod, tprod["tel"][0])
+    filt, jfilt = tprod["mmodes_filt"][0], jprod["mmodes_filt"][0]
+    assert np.array_equal(filt.weight[:].numpy(), np.asarray(jfilt.weight[:]))
+    assert torch.equal(filt.weight[:], raw.weight[:])
+    peak = raw.vis[:].abs().max().item()
+    assert np.abs(filt.vis[:].numpy() - np.asarray(jfilt.vis[:])).max() <= 2e-5 * peak
+    # the bright smooth-spectrum mode is gone
+    assert filt.vis[:].abs().max().item() < 0.01 * peak
+
+
+def test_analyze_example_makes_the_ml_map(analyze_chain):
+    """The ML map is finite and agrees with the JAX package's within 5e-2 of
+    its peak: both take a float32 pseudo-inverse cut at 1e-3 of the largest
+    singular value, which amplifies the filters' float32 differences (the
+    map makers alone are held to 1e-4 in ``test_torch_tasks.py``)."""
+    jprod, tprod, _ = analyze_chain
+    jmap, tmap = np.asarray(jprod["mlmap"][0].map[:]), tprod["mlmap"][0].map[:]
+    assert isinstance(tprod["mlmap"][0], containers.Map) and tmap.shape == jmap.shape
+    assert bool(torch.isfinite(tmap).all())
+    assert np.abs(tmap.numpy() - jmap).max() <= 5e-2 * np.abs(jmap).max()
