@@ -121,7 +121,31 @@ Phases, each of which raises on failure (exit code != 0):
    ``q_estimator`` over 8 sampled m within 1e-10 when only those m carry
    data; the Fisher matrix symmetric with a positive diagonal and the band
    powers finite; two m-chunk sizes giving ``q``, Fisher matrix and bias
-   within 1e-10.
+   within 1e-10;
+16. the delay-spectrum path of ``BASELINE.json`` config 3 through the
+   pipeline ``Manager`` on phase 7's 2048-feed dual-pol cylinder (7155
+   stacked products, built without ``generate``) at 1024 frequencies over
+   400-800 MHz and 256 RA samples (the cut): this script's
+   ``EmitDelayStream`` (per product a foreground of three delays inside its
+   horizon cut at 1e3 x the signal's power, a white signal, noise of the
+   variance the weights state; four flagged channels and three flagged RA
+   samples on every product, with interference in them) -> ``DelayFilter``
+   (``delay_cut`` 0.2 us) -> ``StokesIVis`` -> ``DelayPowerSpectrumGibbsBatched``
+   (20 samples, median of the last half, samples and mask saved).  Prints
+   the per-task seconds, the Gibbs iterations and Cholesky factorisations a
+   second, the batch, the failed and re-sampled chains and the peak device
+   memory.  Checks: a foreground-only copy of 256 products losing at least
+   1e3 of its power to the filter, the filter's projectors idempotent within
+   1e-6 (and the seconds of all its SVDs); Stokes I within 1e-6 of a float64
+   numpy segment sum on 10^5 cells; every spectrum finite and no chain
+   failed; above every cut the spectrum 0.85-1.10 of the injected power; on
+   4 baselines the median over delays of the chain over the host float64
+   sampler's within 0.05 of 1; one baseline run alone bit-identical to
+   itself inside a batch of 128; on the same data, smaller: ``DelayCrossPowerSpectrumEstimatorBatched``
+   on two noise draws of 16 baselines (its autos within 0.2 of the auto
+   estimator's), ``DelayPowerSpectrumNRML`` on 4 baselines (``LogLikePS``
+   within 1e-8 of host float64 ``scipy``) and ``DelaySpectrumFFT`` on every
+   baseline (4 of them within 1e-5 of numpy).
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -196,6 +220,49 @@ TOL_KL_EVALS = 1e-7
 DKL_FOREGROUND_CUT = 1e4
 DKL_SIGNAL_KEPT = 0.01
 TOL_PS = 1e-10
+# phase 16: the delay-spectrum path (BASELINE.json config 3) on phase 7's 2048-feed dual-pol cylinder
+DELAY_NFREQ = 1024  # 400-800 MHz: CHIME's 390.625 kHz channels
+DELAY_NRA = 256  # the cut: CHIME's 4096-sample sidereal grid would be 240 GB of visibilities
+DELAY_CUT = 0.2  # DelayFilter's delay_cut, us (its default is 0.1)
+DELAY_SEED = 16
+DELAY_SIGNAL_VAR = 1e4  # E|s|^2 of each product's white signal
+DELAY_NOISE_VAR = 1.0  # E|n|^2 of each product's noise; the weights are its inverse
+DELAY_FG_POWER = 1e3  # each product's foreground power over its signal's
+DELAY_FG_MODES = 3  # delay components of a product's foreground, each inside 0.8 of its cut
+DELAY_FLAG_CHANNELS = (100, 101, 513, 900)
+DELAY_FLAG_RA = (40, 41, 200)
+DELAY_RFI = 1e5  # added to every flagged cell
+DELAY_NSAMP = 20
+N_DELAY_FG_CHECK = 256  # products filtered a second time as a foreground-only copy
+TOL_FILTER_FALL = 1e3
+TOL_IDEMPOTENT = 1e-6
+N_STOKES_CHECK = 100_000
+TOL_STOKES = 1e-6
+# The auto estimator tapers the data and its design but states the noise
+# untapered (reference semantics), so at a finite signal-to-noise it reads
+# low by a few percent (0.85-0.87 of the injected power in the 65-channel
+# test of tests/test_torch_pipeline.py at SNR 100 a product; this stream's
+# is 1e4); the median over >1e5 (baseline, delay) cells of draws from 252
+# samples carries no sampling error at this level.  Above every cut the
+# spectrum must read 0.85-1.10 of the injected Stokes I power per delay.
+DELAY_RECOVERY = (0.85, 1.10)
+N_DELAY_HOST = 4
+# Two chains of one posterior: each delay's value is the median of 10 draws
+# from 252 samples (relative scatter sqrt(2 / 252) = 0.089 a draw, ~0.05
+# for the median of 10 correlated draws, 0.07 for the ratio of two); the
+# median over 2048 delays, correlated over ~8 by the window, has a standard
+# error of 1.25 x 0.07 / sqrt(256) = 0.0055.  The limit is 9 of those.
+TOL_DELAY_HOST = 0.05
+N_DELAY_CROSS = 16
+# The cross estimator's autos sample the same Stokes I data but taper
+# channel f by the window at f / N (half the window) where the auto one
+# tapers at f / (N / 2 + 1); each reads low by its own window's few percent.
+# Over the delays above the cut (~1500 a baseline) the median of the ratio
+# has a sampling error under 1%: the limit is 0.2.
+TOL_DELAY_CROSS = 0.2
+N_DELAY_NRML = 4
+TOL_LOGLIKE = 1e-8
+TOL_DELAY_FFT = 1e-5
 # the task chain: the simulated sidereal day and its time stream
 LSD = 8000
 CHAIN_SAMPLES_PER_DAY = 8640
@@ -1507,6 +1574,398 @@ def run_kl_path(device, bt) -> None:
         raise RuntimeError(f"phase 15 (KL path) failed: {', '.join(failures)}")
 
 
+def delay_telescope(ncyl: int = 4, nfeed: int = 256, nfreq: int = DELAY_NFREQ):
+    """Phase 16's telescope: phase 7's dual-pol CHIME cylinder over 400-800 MHz (no beam transfer)."""
+    from draco_tpu_torch.telescope import PolarisedCylinderTelescope
+
+    return PolarisedCylinderTelescope(
+        num_cylinders=ncyl, num_feeds=nfeed, num_freq=nfreq, freq_lower=400.0, freq_upper=800.0,
+        auto_correlations=True, **CHIME,
+    )
+
+
+def delay_cuts(tel, pairs) -> np.ndarray:
+    """``DelayFilter``'s horizon cut (us) of each feed pair at phase 16's ``delay_cut``."""
+    from draco_tpu_torch.analysis.delay import C_US
+
+    pos = tel.feedpositions
+    return np.maximum(np.abs(pos[pairs[:, 0], 1] - pos[pairs[:, 1], 1]) / C_US, DELAY_CUT)
+
+
+def _seed(*key) -> int:
+    return int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0])
+
+
+def delay_stream(tel, prods, nra: int, device, noise_seed: int = 0, parts=("fg", "signal", "noise")):
+    """A ``SiderealStream`` of the telescope's products ``prods`` [nfreq, len(prods), nra].
+
+    Each product is made from its own seeds alone (so any subset is the same
+    data): a foreground of ``DELAY_FG_MODES`` delays drawn inside 0.8 of its
+    horizon cut, with amplitudes that vary smoothly over RA, at
+    ``DELAY_FG_POWER`` x the signal's power; a white complex signal of
+    variance ``DELAY_SIGNAL_VAR``; noise of variance ``DELAY_NOISE_VAR``
+    (draw ``noise_seed``).  Every product has the flagged channels and RA
+    samples at weight 0, with ``DELAY_RFI`` added to their data.
+    """
+    import torch
+
+    from draco_tpu_torch.core import containers
+
+    pairs = np.asarray(tel.uniquepairs)[prods]
+    prod = np.empty(len(prods), dtype=[("input_a", int), ("input_b", int)])
+    prod["input_a"], prod["input_b"] = pairs.T
+    ss = containers.SiderealStream(freq=tel.frequencies, ra=nra, input=tel.nfeed, prod=prod, device=device)
+    w = ss.weight[:]
+    w.fill_(1.0 / DELAY_NOISE_VAR)
+    w[list(DELAY_FLAG_CHANNELS)] = 0.0
+    w[:, :, list(DELAY_FLAG_RA)] = 0.0
+    nu = torch.as_tensor(tel.frequencies, dtype=torch.float64, device=device)
+    turns = torch.arange(nra, dtype=torch.float64, device=device) / nra
+    cuts = delay_cuts(tel, pairs)
+    gen = torch.Generator(device=device)
+    vis = ss.vis[:]
+    for j, p in enumerate(np.asarray(prods)):
+        v = torch.zeros((tel.nfreq, nra), dtype=torch.complex64, device=device)
+        if "fg" in parts:
+            rng = np.random.Generator(np.random.SFC64(_seed(DELAY_SEED, int(p), 0)))
+            tau = torch.as_tensor(rng.uniform(-0.8, 0.8, DELAY_FG_MODES) * cuts[j], device=device)
+            amp = (rng.standard_normal(DELAY_FG_MODES) + 1j * rng.standard_normal(DELAY_FG_MODES)) * np.sqrt(
+                DELAY_FG_POWER * DELAY_SIGNAL_VAR / (2 * DELAY_FG_MODES))
+            phi = torch.as_tensor(rng.uniform(0, 2 * np.pi, DELAY_FG_MODES), device=device)
+            ramp = torch.as_tensor(amp, device=device)[:, None] * (1 + 0.5 * torch.cos(2 * np.pi * turns[None] + phi[:, None]))
+            v += (torch.exp(2j * np.pi * nu[:, None] * tau[None]) @ ramp).to(v.dtype)
+        for part, var, seed in (("signal", DELAY_SIGNAL_VAR, _seed(DELAY_SEED, int(p), 1)),
+                                ("noise", DELAY_NOISE_VAR, _seed(DELAY_SEED, int(p), 2, noise_seed))):
+            if part in parts:
+                gen.manual_seed(seed)
+                v += np.sqrt(var / 2) * torch.view_as_complex(
+                    torch.randn((tel.nfreq, nra, 2), generator=gen, device=device))
+        vis[:, j] = v
+    vis[list(DELAY_FLAG_CHANNELS)] += DELAY_RFI
+    vis[:, :, list(DELAY_FLAG_RA)] += DELAY_RFI
+    return ss
+
+
+def stokes_members(tel) -> np.ndarray:
+    """The stacks that ``StokesIVis`` sums."""
+    from draco_tpu_torch.analysis.transform import stokes_I_index
+
+    return stokes_I_index(tel)[0]
+
+
+def delay_source_task() -> str:
+    """Define phase 16's source task, ``EmitDelayStream``, in this module; return its path."""
+    from draco_tpu_torch.core import config, io
+    from draco_tpu_torch.core.task import ContainerTask, PipelineStopIteration
+    from draco_tpu_torch.device import resolve
+
+    class EmitDelayStream(ContainerTask):
+        nra = config.int_prop(DELAY_NRA)
+
+        def setup(self, tel):
+            self.tel = io.get_telescope(tel)
+
+        def process(self):
+            if self._count:
+                raise PipelineStopIteration()
+            ss = delay_stream(self.tel, np.arange(self.tel.npairs), self.nra, resolve())
+            ss.attrs["tag"] = "delay"
+            return ss
+
+    globals()["EmitDelayStream"] = EmitDelayStream
+    return f"{__name__}.EmitDelayStream"
+
+
+def delay_config(product_dir: str, source: str, nra: int) -> dict:
+    """Phase 16: BASELINE.json config 3's chain with the source task in place of a file loader."""
+    return {"pipeline": {"tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "bt"], "params": {"product_directory": product_dir}},
+        {"type": source, "requires": "tel", "out": "sstream", "params": {"nra": nra}},
+        {"type": "draco.analysis.delay.DelayFilter", "requires": "tel", "in": "sstream", "out": "sstream_filt",
+         "params": {"delay_cut": DELAY_CUT}},
+        {"type": "draco.analysis.transform.StokesIVis", "requires": "tel", "in": "sstream_filt", "out": "sstream_I"},
+        {"type": "draco.analysis.delay.DelayPowerSpectrumGibbsBatched", "in": "sstream_I", "out": "dspec",
+         "params": {"nsamp": DELAY_NSAMP, "median_frac": 0.5, "seed": DELAY_SEED, "save_samples": True,
+                    "save_spectrum_mask": True}},
+    ]}}
+
+
+def _subset_stream(like, vis, weight, stack):
+    """A Stokes I stream like ``like`` holding the baselines ``stack`` with ``vis`` and ``weight``."""
+    from draco_tpu_torch.core import containers
+
+    out = containers.empty_like(like, stack=stack)
+    out.vis[:], out.weight[:] = vis, weight
+    return out
+
+
+def run_delay(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = DELAY_NFREQ, nra: int = DELAY_NRA,
+              n_fg: int = N_DELAY_FG_CHECK, n_stokes: int = N_STOKES_CHECK) -> None:
+    """Phase 16: BASELINE.json config 3 through the Manager, then its checks and the other estimators.
+
+    The sizes default to the phase's; smaller ones make it a rehearsal on
+    the CPU (with the flagged channels moved inside the band).
+    """
+    import pickle
+    import tempfile
+
+    import scipy.linalg as sla
+    import torch
+
+    from draco_tpu_torch.analysis import delay as tdelay
+    from draco_tpu_torch.analysis.delayopt import LogLikePS, _windowed_projection
+    from draco_tpu_torch.analysis.transform import stokes_I_index, stokes_I_sum
+    from draco_tpu_torch.core.pipeline import Manager
+    from draco_tpu_torch.ops import delay as dops
+    from draco_tpu_torch.ops import filters
+
+    def run(task, params, setup, *data):
+        task.read_config(params)
+        if setup:
+            task.setup(*setup)
+        return task, task.process(*data)
+
+    failures = []
+
+    def check(label, value, ok):
+        log(f"  {label}: {value}  [{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            failures.append(label)
+
+    tel = delay_telescope(ncyl, nfeed, nfreq)
+    freq = tel.frequencies
+    log(f"delay path: {ncyl} x {nfeed} dual-pol feeds ({tel.nfeed} inputs), {tel.npairs} stacked products, "
+        f"{nfreq} frequencies {freq[0]:.3f}-{freq[-1]:.3f} MHz (step {freq[1] - freq[0]:.6f}), {nra} RA samples; "
+        f"visibilities {tel.npairs * nfreq * nra * 8 / 1e9:.2f} GB, weights {tel.npairs * nfreq * nra * 4 / 1e9:.2f} GB")
+
+    torch.zeros(1, device=device)  # the allocator's statistics exist once the device is in use
+    torch.cuda.reset_peak_memory_stats(device)
+    with tempfile.TemporaryDirectory() as product_dir:
+        with open(Path(product_dir) / "telescope.pkl", "wb") as f:
+            pickle.dump(tel, f)
+        manager = Manager(delay_config(product_dir, delay_source_task(), nra))
+        t0 = time.perf_counter()
+        products = manager.run()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated(device) / 2**30
+    timing = {name.split(".")[-1]: round(t["wall"], 4) for name, t in manager.task_timing.items()}
+    log(f"delay path run: {wall:.2f} s wall, peak device memory {run_peak:.2f} GiB")
+    log("delay path task_timing (s): " + json.dumps(timing))
+    ss, sI, dspec = products["sstream"][0], products["sstream_I"][0], products["dspec"][0]
+    if products["sstream_filt"][0] is not ss:
+        failures.append("DelayFilter did not filter in place")
+    del products
+    ubase = sI.index_map["stack"]
+    nbase = len(ubase)
+    spec = dspec.spectrum[:]
+    live = ~dspec.datasets["spectrum_mask"][:]
+    gibbs_s = next(t for name, t in timing.items() if name.startswith("DelayPowerSpectrumGibbsBatched"))
+    nlive, batch = int(live.sum()), dops.GIBBS_BATCH
+    nchol = -(-nlive // batch) * batch * DELAY_NSAMP
+    log(f"StokesIVis: {nbase} baselines ({nlive} with every pol product); Gibbs: {nlive} chains x {DELAY_NSAMP} "
+        f"iterations in {gibbs_s:.2f} s = {nlive * DELAY_NSAMP / gibbs_s:.1f} iterations/s, {nchol / gibbs_s:.1f} "
+        f"Cholesky factorisations/s of [{len(dspec.delay)}, {len(dspec.delay)}] (batch {batch}); "
+        f"failed chains {dspec.attrs['gibbs_failed']}")
+    # least times from the run's shapes: float32 operations over 67 TFLOP/s, bytes over 3.35 TB/s
+    nd, nrow, ns = len(dspec.delay), 2 * (nfreq - len(DELAY_FLAG_CHANNELS)), nra - len(DELAY_FLAG_RA)
+    step_flop = nd**3 / 3 + 2 * nd**2 * ns + 2 * ns * nrow * nd  # Cholesky, two triangular solves, FTNih (d + w2)
+    gibbs_bound = nlive * (DELAY_NSAMP * step_flop + 2 * nrow * nd**2) / PEAK_FLOPS["float32"]
+    ncopol = int(np.isin(np.arange(tel.npairs), stokes_members(tel)).sum())
+    stokes_bound = (ncopol * 12 + nbase * 12) * nfreq * nra / HBM_BYTES_PER_S
+    project_bound = max(8 * nfreq**2 * tel.npairs * nra / PEAK_FLOPS["float32"], 2 * 8 * tel.npairs * nfreq * nra / HBM_BYTES_PER_S)
+    filter_s = next(t for name, t in timing.items() if name.startswith("DelayFilter"))
+    stokes_s = next(t for name, t in timing.items() if name.startswith("StokesIVis"))
+    log(f"bounds: Gibbs {gibbs_bound:.3f} s (operations; measured {gibbs_s / gibbs_bound:.1f}x), StokesIVis "
+        f"{1e3 * stokes_bound:.2f} ms (bytes; {stokes_s / stokes_bound:.1f}x), the filter's products "
+        f"{1e3 * project_bound:.1f} ms (operations; the task {filter_s:.2f} s)")
+
+    # the filter: a foreground-only copy, the projectors, the SVD stage
+    cuts_all = delay_cuts(tel, np.asarray(tel.uniquepairs))
+    sample = np.unique(np.linspace(0, tel.npairs - 1, n_fg).astype(int))
+    fg = delay_stream(tel, sample, nra, device, parts=("fg",))
+    before = fg.vis[:].clone()
+    _, fg = run(tdelay.DelayFilter(), {"delay_cut": DELAY_CUT}, (tel,), fg)
+    keep = fg.weight[:] > 0
+    fall = float((before[keep].abs().double() ** 2).sum() / (fg.vis[:][keep].abs().double() ** 2).sum())
+    del before, fg, keep
+    check(f"foreground-only power over the filtered ({len(sample)} products)", f"{fall:.3e} (limit >= {TOL_FILTER_FALL:.0e})",
+          fall >= TOL_FILTER_FALL)
+    mask = np.ones(nfreq)
+    mask[list(DELAY_FLAG_CHANNELS)] = 0.0
+    groups = np.unique(cuts_all)
+    bandwidth = np.ptp(freq)
+    t0 = _sync_clock(device)
+    projs = {}
+    for i, cut in enumerate(groups):
+        P = filters.null_filter(freq, cut, mask, num_modes=tdelay._mode_count(bandwidth, cut), window=False, device=device)
+        if i in (0, len(groups) // 2, len(groups) - 1):
+            projs[float(cut)] = P
+    svd_s = _sync_clock(device) - t0
+    idem = max(((P @ P - P).abs().max() / P.abs().max()).item() for P in projs.values())
+    # complex Householder bidiagonalisation of [m, k] and forming its U: about 2 x 4 (4 m k^2 - 4 k^3 / 3) flops
+    ks = np.minimum([tdelay._mode_count(bandwidth, c) for c in groups], nfreq)
+    svd_bound = float(np.sum(8 * (4 * nfreq * ks**2 - 4 * ks**3 / 3))) / PEAK_FLOPS["float64"]
+    log(f"DelayFilter SVD stage: {len(groups)} (cut, mask) groups, {svd_s:.2f} s of null_filter "
+        f"({1e3 * svd_s / len(groups):.1f} ms a group; modes {ks[0]}-{ks[-1]}); bound {1e3 * svd_bound:.1f} ms "
+        f"(operations, float64)")
+    check("projector idempotence max|PP - P| / max|P| (3 cuts)", f"{idem:.3e} (limit {TOL_IDEMPOTENT})", idem <= TOL_IDEMPOTENT)
+    del projs, P
+
+    # Stokes I against a float64 numpy segment sum of the filtered stream
+    src, dst, _ = stokes_I_index(tel)
+    order = np.argsort(dst, kind="stable")
+    counts = np.bincount(dst, minlength=nbase)
+    members = np.full((nbase, max(counts.max(), 1)), -1)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for b in range(nbase):
+        members[b, : counts[b]] = src[order[starts[b] : starts[b] + counts[b]]]
+    rng = np.random.Generator(np.random.SFC64(DELAY_SEED))
+    f_i, b_i, t_i = rng.integers(0, nfreq, n_stokes), rng.integers(0, nbase, n_stokes), rng.integers(0, nra, n_stokes)
+    m = members[b_i]
+    idx = [torch.as_tensor(a, device=device) for a in (f_i[:, None], np.maximum(m, 0), t_i[:, None])]
+    for name, full, got in (("vis", ss.vis[:], sI.vis[:]), ("weight", ss.weight[:], sI.weight[:])):
+        parts = full[idx[0], idx[1], idx[2]].cpu().numpy().astype(np.complex128 if full.is_complex() else np.float64)
+        ref = (parts * (m >= 0)).sum(axis=1)
+        out = got[tuple(torch.as_tensor(a, device=device) for a in (f_i, b_i, t_i))].cpu().numpy()
+        err = np.abs(out - ref).max() / np.abs(ref).max()
+        check(f"Stokes I {name} vs float64 numpy segment sum ({n_stokes} cells)", f"{err:.3e} (limit {TOL_STOKES})",
+              err <= TOL_STOKES)
+    del ss
+    torch.cuda.empty_cache()
+
+    # the spectra
+    finite = bool(torch.isfinite(spec).all())
+    check("Gibbs spectra finite; failed chains", f"{finite}; {dspec.attrs['gibbs_failed']} (limit 0)",
+          finite and dspec.attrs["gibbs_failed"] == 0)
+    N = len(dspec.delay)
+    expect = (2 * DELAY_SIGNAL_VAR + 1.5 * DELAY_NOISE_VAR) / N
+    bcut = np.maximum(np.abs(ubase[:, 1]) / tdelay.C_US, DELAY_CUT)
+    above = np.abs(dspec.delay)[None, :] > 1.5 * bcut[:, None] + 0.02
+    sel = above & live[:, None]
+    rec = float(np.median(spec.cpu().numpy()[sel])) / expect
+    check(f"recovery: median over {int(sel.sum())} above-cut cells of S / injected", f"{rec:.4f} (limits {DELAY_RECOVERY})",
+          DELAY_RECOVERY[0] <= rec <= DELAY_RECOVERY[1])
+
+    # the chain's inputs, as the batched task forms them
+    delays, chans = tdelay._spectral_grid(freq, zero=freq[0], spacing=np.abs(np.diff(freq)).min(), nchan=None,
+                                          skip_nyquist=True, complex_td=False)
+    rows, wrows = sI.vis[:].permute(1, 2, 0), sI.weight[:].permute(1, 2, 0)  # [b, t, f] views
+    nzt, fok, _ = tdelay._batch_cut_masks(wrows > 0, 0.0, 0.0)
+    livei = np.flatnonzero(live)
+
+    def inputs(bsel):
+        d = tdelay._select(rows, bsel, nzt, fok)
+        d = d - d.mean(dim=-2, keepdim=True)
+        return d, tdelay._select(wrows, bsel, nzt, fok).mean(dim=-2)
+
+    # the host float64 sampler on 4 baselines
+    host = livei[np.linspace(0, len(livei) - 1, N_DELAY_HOST).astype(int)]
+    d4, w4 = inputs(host)
+    t0 = time.perf_counter()
+    ratios = []
+    for k, b in enumerate(host):
+        draws, ok = dops.delay_power_spectrum_gibbs(
+            d4[k].cpu().numpy().astype(np.complex128), N, w4[k].cpu().numpy().astype(np.float64), np.full(N, 10.0),
+            window="nuttall", fsel=chans[fok], niter=DELAY_NSAMP, rng=np.random.Generator(np.random.SFC64(int(b))),
+        )
+        hs = np.fft.fftshift(np.median(draws[-DELAY_NSAMP // 2 :], axis=0))
+        ratios.append(float(np.median(spec[b].cpu().numpy() / hs)) if ok else float("nan"))
+    log(f"host float64 sampler: {N_DELAY_HOST} baselines in {time.perf_counter() - t0:.2f} s")
+    check("median over delays of batched / host float64 chain (4 baselines)", f"{np.round(ratios, 4).tolist()} "
+          f"(limit |r - 1| <= {TOL_DELAY_HOST})", all(abs(r - 1) <= TOL_DELAY_HOST for r in ratios))
+
+    # one baseline alone against the same baseline inside a full batch
+    nb = min(batch, len(livei))
+    db, wb = inputs(livei[:nb])
+    kw = dict(window="nuttall", fsel=chans[fok], niter=DELAY_NSAMP)
+    S0 = np.full((nb, N), 10.0)
+    full, _ = dops.delay_power_spectrum_gibbs_batched(db, N, wb, S0, seeds=list(range(nb)), **kw)
+    k = nb // 2
+    alone, _ = dops.delay_power_spectrum_gibbs_batched(db[k : k + 1], N, wb[k : k + 1], S0[:1], seeds=[k], **kw)
+    same = bool(torch.equal(alone[:, 0], full[:, k]))
+    check(f"baseline {k} alone vs inside a batch of {batch}: bit-identical samples", same, same)
+    del d4, w4, db, wb, full, alone
+
+    # the cross estimator on two noise draws of 16 baselines
+    cross = livei[np.linspace(0, len(livei) - 1, N_DELAY_CROSS).astype(int)]
+    mem = members[cross]
+    prods = np.unique(mem[mem >= 0])
+    local = {int(p): i for i, p in enumerate(prods)}
+    lsrc = np.array([local[int(p)] for p in mem.ravel() if p >= 0])
+    ldst = np.array([b for b, row in enumerate(mem) for p in row if p >= 0])
+    datasets = []
+    t0 = _sync_clock(device)
+    for draw in (0, 1):
+        small = delay_stream(tel, prods, nra, device, noise_seed=draw)
+        _, small = run(tdelay.DelayFilter(), {"delay_cut": DELAY_CUT}, (tel,), small)
+        vis = stokes_I_sum(small.vis[:], lsrc, ldst, len(cross))
+        wgt = stokes_I_sum(small.weight[:], lsrc, ldst, len(cross))
+        datasets.append(_subset_stream(sI, vis, wgt, ubase[cross]))
+    same = _rel(datasets[0].vis[:], sI.vis[:][:, torch.as_tensor(cross, device=device)])
+    check("the first draw's 16 baselines, filtered alone, vs the chain's Stokes I", f"{same:.3e} (limit 1e-5)", same <= 1e-5)
+    task, xs = run(tdelay.DelayCrossPowerSpectrumEstimatorBatched(),
+                   {"nsamp": DELAY_NSAMP, "median_frac": 0.5, "seed": DELAY_SEED}, (), *datasets)
+    cross_s = _sync_clock(device) - t0
+    xspec = xs.spectrum[:].cpu().numpy()
+    aspec = spec.cpu().numpy()[cross]
+    xa = above[cross]
+    xr = [float(np.median(xspec[i, i][k][xa[k]] / aspec[k][xa[k]])) for i in (0, 1) for k in range(len(cross))]
+    log(f"cross estimator: {len(cross)} baselines x 2 draws, {len(prods)} products filtered, {cross_s:.2f} s "
+        f"(re-sampled in complex128: {xs.attrs['gibbs_resampled']})")
+    check("cross autos / auto spectra above the cut (median a baseline)", f"{min(xr):.4f}-{max(xr):.4f} "
+          f"(limit |r - 1| <= {TOL_DELAY_CROSS})", bool(np.isfinite(xspec).all()) and all(abs(r - 1) <= TOL_DELAY_CROSS for r in xr))
+    del datasets, xs
+    torch.cuda.empty_cache()
+
+    # NRML on 4 baselines, and its likelihood against host float64 scipy
+    nrml_b = livei[np.linspace(0, len(livei) - 1, N_DELAY_NRML).astype(int)]
+    bsel = torch.as_tensor(nrml_b, device=device)
+    sub = _subset_stream(sI, sI.vis[:].index_select(1, bsel), sI.weight[:].index_select(1, bsel), ubase[nrml_b])
+    t0 = time.perf_counter()
+    task, nr = run(tdelay.DelayPowerSpectrumNRML(), {"save_spectrum_mask": True}, (), sub)
+    nrml_s = time.perf_counter() - t0
+    block, w, f_keep, _ = task._trim_block(sub.vis[:][:, 0].T, sub.weight[:][:, 0].T)
+    data, w = block.cpu().numpy().astype(np.complex128), w.cpu().numpy().astype(np.float64)
+    proj, rws = _windowed_projection(N, chans[f_keep], "nuttall", data, w)
+    X, Ninv = (rws.T @ rws.conj()) / data.shape[0], np.where(w > 0, 1.0 / np.where(w > 0, w, 1.0), 0.0)
+    like = LogLikePS(X, proj, Ninv, data.shape[0], device=device)
+    xs0 = np.log(np.full(N, expect))
+    errs = []
+    for x in (xs0, xs0 + 0.5 * np.sin(np.arange(N) / 7.0)):
+        s = np.exp(x)
+        C = (like.MF * s) @ like.MFT + np.diag(like.N)
+        cf = sla.cho_factor(C)
+        host_v = data.shape[0] * (2 * np.sum(np.log(np.diag(cf[0]).real)) + np.trace(sla.cho_solve(cf, like.X)).real)
+        errs.append(abs(like.value(x) - host_v) / abs(host_v))
+    log(f"NRML: {N_DELAY_NRML} baselines in {nrml_s:.2f} s, converged on {int((~nr.datasets['spectrum_mask'][:]).sum())}")
+    check("NRML spectra finite; LogLikePS vs host float64 scipy", f"{bool(torch.isfinite(nr.spectrum[:]).all())}; "
+          f"{max(errs):.3e} (limit {TOL_LOGLIKE})", bool(torch.isfinite(nr.spectrum[:]).all()) and max(errs) <= TOL_LOGLIKE)
+    del sub, nr, like
+
+    # the FFT estimator on every baseline
+    t0 = _sync_clock(device)
+    task, ft = run(tdelay.DelaySpectrumFFT(), {"complex_timedomain": True, "freq_frac": -1.0}, (), sI)
+    fft_s = _sync_clock(device) - t0
+    fspec = ft.spectrum[:]
+    errs = []
+    w_fft = tdelay.tools.window_generalised(np.arange(nfreq) / nfreq).numpy()
+    for b in host:
+        d = sI.vis[:][:, b].T.cpu().numpy().astype(np.complex128)[nzt]
+        d = d - d.mean(axis=0)
+        ref = np.fft.fftshift(np.fft.ifft(d * w_fft, axis=-1), axes=-1)
+        errs.append(np.abs(fspec[b].cpu().numpy()[nzt] - ref).max() / np.abs(ref).max())
+    log(f"DelaySpectrumFFT: {nbase} baselines x {nra} samples in {fft_s:.2f} s; output {tuple(fspec.shape)} {fspec.dtype}")
+    check("FFT spectra finite; 4 baselines vs numpy float64", f"{bool(torch.isfinite(torch.view_as_real(fspec)).all())}; "
+          f"{max(errs):.3e} (limit {TOL_DELAY_FFT})",
+          bool(torch.isfinite(torch.view_as_real(fspec)).all()) and max(errs) <= TOL_DELAY_FFT)
+    del ft, fspec
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"delay path peak device memory {peak:.2f} GiB (the Manager's run {run_peak:.2f} GiB)")
+    if failures:
+        raise RuntimeError(f"phase 16 (delay path) failed: {', '.join(failures)}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=2, help="seed of the time streams and kernel inputs")
@@ -1633,6 +2092,16 @@ def main() -> int:
     kl_launches = cuda_kernels.launches["banded_covariance"]
     log(f"phase 15 wall time {time.perf_counter() - t0:.1f} s; banded_covariance launches {kl_launches} "
         "(the path has no regrid)")
+    del bt_a
+    torch.cuda.empty_cache()
+
+    # phase 16: the delay-spectrum path of BASELINE.json config 3
+    t0 = time.perf_counter()
+    cuda_kernels.reset_launches()
+    run_delay(device)
+    delay_launches = cuda_kernels.launches["banded_covariance"]
+    log(f"phase 16 wall time {time.perf_counter() - t0:.1f} s; banded_covariance launches {delay_launches} "
+        "(the path has no regrid)")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [{
@@ -1647,6 +2116,7 @@ def main() -> int:
         "composite_chain": {"launches": composite_launches},
         "analysis_chain": {"launches": analyze_launches},
         "kl_path": {"launches": kl_launches},
+        "delay_path": {"launches": delay_launches},
     }]}
     print(json.dumps(record))
     print(card)

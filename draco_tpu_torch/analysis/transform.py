@@ -4,8 +4,9 @@ Port of ``draco_tpu.analysis.transform`` up to the regridders and the
 product collation: reference ``draco/analysis/transform.py``
 (TelescopeStreamMixIn:91, CollateProducts:142, FrequencyRebin:20,
 SelectFreq:333, MModeTransform:535, MModeInverseTransform:708,
-SiderealMModeResample:795, ShiftRA:993, Regridder:854).  Every task works
-on its container's device.
+SiderealMModeResample:795, ShiftRA:993, Regridder:854) and the Stokes I
+extraction (StokesIVis:1333, stokes_I:1382).  Every task works on its
+container's device.
 
 Two plain functions carry the math of the slice:
 
@@ -42,6 +43,8 @@ __all__ = [
     "Regridder",
     "TelescopeStreamMixIn",
     "CollateProducts",
+    "StokesIVis",
+    "stokes_I",
 ]
 
 
@@ -554,3 +557,64 @@ class CollateProducts(TelescopeStreamMixIn, ContainerTask):
             ss, sp, selection={"freq": freq_ind}, exclude_axes=("input", "prod", "stack")
         )
         return sp
+
+
+class StokesIVis(ContainerTask):
+    """Extract instrumental Stokes I from visibilities (reference transform.py:1333-1448)."""
+
+    def setup(self, telescope):
+        """Set the telescope object."""
+        self.telescope = io.get_telescope(telescope)
+
+    def process(self, data):
+        """Combine co-pol baselines into Stokes I (shrinks the stack axis), on the data's device."""
+        src, dst, baselines = stokes_I_index(self.telescope)
+        out = containers.empty_like(data, stack=baselines)
+        stokes_I_sum(data.vis[:], src, dst, out=out.vis[:])
+        stokes_I_sum(data.weight[:], src, dst, out=out.weight[:])
+        return out
+
+
+def stokes_I_index(tel):
+    """(src, dst, ubase): the co-pol stacks of ``tel`` that form Stokes I, the
+    unique baseline each one adds into, and those baselines [nbase, 2].
+
+    Stacks are grouped by their baseline vector rounded to 1e-4 m; a
+    co-pol stack counts when its group holds all four pol products and
+    its feeds are not masked.  Host numpy.
+    """
+    key = np.around(tel.baselines @ np.array([1.0, 1.0j]), 4)
+    uniq, uinv, ucount = np.unique(key, return_inverse=True, return_counts=True)
+    ubase = np.stack([uniq.real, uniq.imag], axis=-1)
+    pairs = tel.uniquepairs
+    pol_a, pol_b = tel.polarisation[pairs].T
+    good = (pol_a == pol_b) & (ucount[uinv] >= 4) & (tel.feedmap[pairs[:, 0], pairs[:, 1]] != -1)
+    src = np.flatnonzero(good)
+    return src, uinv[src], ubase
+
+
+def stokes_I_sum(x: torch.Tensor, src, dst, nbase: int | None = None, out: torch.Tensor | None = None):
+    """Sum the stacks ``src`` of ``x`` [freq, stack, time] into baselines ``dst``
+    with ``index_add_`` on x's device, block by block along frequency; into
+    ``out`` [freq, nbase, time] (zeroed first) if given."""
+    if out is None:
+        out = torch.zeros((x.shape[0], nbase, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        out.zero_()
+    src_t = torch.as_tensor(src, device=x.device)
+    dst_t = torch.as_tensor(dst, device=x.device)
+    for f0, f1 in tools.axis_blocks(x.shape[0], len(src) * x.shape[2]):
+        out[f0:f1].index_add_(1, dst_t, x[f0:f1].index_select(1, src_t).to(out.dtype))
+    return out
+
+
+def stokes_I(sstream, tel):
+    """Extract instrumental Stokes I from a time/sidereal stream (reference transform.py:1382-1448).
+
+    The per-product accumulation is ``index_add_`` over the unique baseline
+    vectors on the stream's device.  Returns (vis_I [freq, nbase, time],
+    weight_I, ubase [nbase, 2]).
+    """
+    src, dst, ubase = stokes_I_index(tel)
+    nb = ubase.shape[0]
+    return stokes_I_sum(sstream.vis[:], src, dst, nb), stokes_I_sum(sstream.weight[:], src, dst, nb), ubase

@@ -6,7 +6,8 @@ Port of the fringe subset of ``draco_tpu.ops.tools``
 lookups (``find_key``, ``find_keys``, ``find_inputs``,
 ``redefine_stack_index_map``) and the product-array helpers (``cmap``,
 ``icmap``, ``apply_gain``, ``extract_diagonal``,
-``unpack_product_array``, ``calculate_redundancy``).
+``unpack_product_array``, ``calculate_redundancy``) and the apodisation
+windows (``window_generalised``).
 
 The exact-phase scheme rests on every high product being an exact
 float32 value and on no fused multiply-add changing a rounded product.
@@ -32,7 +33,7 @@ __all__ = [
     "find_key", "find_keys", "find_inputs", "redefine_stack_index_map", "cmap", "icmap",
     "unique_pair_indices", "apply_gain", "extract_diagonal", "unpack_product_array", "redundancy_index",
     "calculate_redundancy",
-    "axis_blocks", "svd",
+    "axis_blocks", "svd", "window_generalised",
 ]
 
 # elements of the largest temporary a blocked helper makes
@@ -49,6 +50,41 @@ def invert_no_zero(x: torch.Tensor) -> torch.Tensor:
     """Reciprocal returning exactly zero where ``|x|`` is below the smallest normal."""
     small = torch.abs(x) < torch.finfo(x.real.dtype).tiny
     return torch.where(small, torch.zeros_like(x), 1.0 / torch.where(small, torch.ones_like(x), x))
+
+
+def window_generalised(x, window: str = "nuttall") -> torch.Tensor:
+    """High-order apodisation windows at arbitrary locations in [0, 1] (reference tools.py:547).
+
+    ``x`` is a tensor (the window is made on its device, in its float type) or
+    host data (a float64 CPU tensor).  Zero outside [0, 1].
+    """
+    x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x, dtype=np.float64))
+    if window == "triangular":
+        w = 1.0 - 2.0 * torch.abs(x - 0.5)
+    elif window.startswith("tukey"):
+        alpha = 0.5 * float(window.split("-")[1])
+        w = torch.ones_like(x)
+        w = torch.where(x < alpha, 0.5 * (1.0 + torch.cos(math.pi * (x - alpha) / alpha)), w)
+        w = torch.where(x >= (1.0 - alpha), 0.5 * (1.0 + torch.cos(math.pi * (x - (1.0 - alpha)) / alpha)), w)
+    else:
+        a = torch.as_tensor(_COSINE_WINDOW_COEFFS[window], dtype=x.dtype, device=x.device)
+        t = 2 * math.pi * torch.arange(4, dtype=x.dtype, device=x.device)[:, None] * x.reshape(-1)[None, :]
+        w = (a[:, None] * torch.cos(t)).sum(dim=0).reshape(x.shape)
+    return torch.where((x >= 0) & (x <= 1), w, torch.zeros_like(w))
+
+
+# Generalised-cosine window coefficient table (a0..a3); values follow the
+# standard published definitions of each window
+_COSINE_WINDOW_COEFFS = {
+    "uniform": (1.0, 0.0, 0.0, 0.0),
+    "hann": (0.5, -0.5, 0.0, 0.0),
+    "hamming": (0.53836, -0.46164, 0.0, 0.0),
+    "blackman": (0.42, -0.5, 0.08, 0.0),
+    "nuttall": (0.355768, -0.487396, 0.144232, -0.012604),
+    "blackman_nuttall": (0.3635819, -0.4891775, 0.1365995, -0.0106411),
+    "blackman_harris": (0.35875, -0.48829, 0.14128, -0.01168),
+}
+_COSINE_WINDOW_COEFFS["hanning"] = _COSINE_WINDOW_COEFFS["hann"]
 
 
 def twofloat_split(a64: np.ndarray):

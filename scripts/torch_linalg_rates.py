@@ -41,6 +41,24 @@ complex64 against complex128:
   fails is reported as such;
 - quantiles of the complex128 eigenvalues, from which the smoke's
   thresholds are chosen.
+
+    python3 scripts/torch_linalg_rates.py --delay       # on the card
+
+``--delay`` instead times the delay-spectrum path's calls at its widths
+(1024 channels, N = 2048 delays, 240 samples; ``--scale`` divides them):
+
+- ``cholesky_ex``, ``cholesky_solve`` (240 right-hand sides) and the
+  batched product of float32 [B, 2048, 2048] normal matrices for B = 1, 8,
+  16, 32 and 128, with whether the first 8 results are bit-identical
+  across B (the batched Gibbs chain's chunk invariance rests on it);
+- one batched Gibbs step (:func:`draco_tpu_torch.ops.delay.gibbs_step`,
+  draws from one ``torch.Generator`` per baseline included) per baseline
+  at B = 8, 16 and 32;
+- the complex64 [16, 4096, 4096] Cholesky of the cross sampler's coupled
+  system;
+- the complex128 ``gesvd`` of the delay filter's [1024, k] Fourier designs
+  (k = 160, 410, 680) and one complex128 likelihood core of the NRML
+  estimator at [1016, 2048].
 """
 
 from __future__ import annotations
@@ -200,11 +218,98 @@ def kl_precision(device, on_card: bool, nside: int, nfeed: int, json_path) -> in
     return finish(json_path, on_card, rows)
 
 
+def delay_rates(device, on_card: bool, k: int, json_path) -> int:
+    """The ``--delay`` mode (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from draco_tpu_torch.analysis.delayopt import likelihood_core
+    from draco_tpu_torch.ops import delay as dops
+    from draco_tpu_torch.ops import filters
+
+    rows = []
+
+    def report(**row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    nd, nrow, nsamp = 2048 // k, 2032 // k, 240 // k
+    gen = torch.Generator(device=device).manual_seed(0)
+    Ft = torch.randn(nd, nrow, generator=gen, device=device) / nrow**0.5
+    for B in (1, 8, 16, 32, 128):
+        Nih = torch.rand(B, nrow, generator=gen, device=device) + 0.5
+        A = (Ft[None] * (Nih**2)[:, None, :]) @ Ft.T + torch.eye(nd, device=device)
+        rhs = torch.randn(B, nd, nsamp, generator=gen, device=device)
+        L = torch.linalg.cholesky_ex(A)[0]
+        if B == 8:
+            ref = (A, rhs, L, torch.cholesky_solve(rhs, L), A @ rhs)
+        elif B > 8:
+            A[:8], rhs[:8] = ref[0], ref[1]
+            L = torch.linalg.cholesky_ex(A)[0]
+        same = {}
+        if B > 8:
+            same = dict(cholesky_bit_identical_to_B8=bool(torch.equal(L[:8], ref[2])),
+                        solve_bit_identical_to_B8=bool(torch.equal(torch.cholesky_solve(rhs, L)[:8], ref[3])),
+                        matmul_bit_identical_to_B8=bool(torch.equal((A @ rhs)[:8], ref[4])))
+        for name, fn in (("cholesky_ex", lambda: torch.linalg.cholesky_ex(A)),
+                         ("cholesky_solve", lambda: torch.cholesky_solve(rhs, L)),
+                         ("bmm", lambda: A @ rhs),
+                         ("design", lambda: (Ft[None] * (Nih**2)[:, None, :]) @ Ft.T)):
+            t = seconds(fn, on_card)
+            report(op=name, shape=[B, nd, nd], rhs=nsamp, dtype="float32", seconds=t, per_matrix_ms=1e3 * t / B, **same)
+            same = {}
+        del A, rhs, L
+    for B in (8, 16, 32):
+        Nih = torch.rand(B, nrow, generator=gen, device=device) + 0.5
+        dw, A = dops.gibbs_batch_design(torch.randn(B, nsamp, nrow // 2, dtype=torch.complex64, generator=gen, device=device),
+                                        Ft, None, Nih)
+        S = torch.full((B, nd), 1e-2, device=device)
+        gens = [torch.Generator(device=device).manual_seed(i) for i in range(B)]
+        half = torch.full((nd,), nsamp / 2.0, device=device)
+
+        def step():
+            w1 = torch.empty((B, nsamp, nd), device=device)
+            w2 = torch.empty((B, nsamp, nrow), device=device)
+            chi2 = torch.empty((B, nd), device=device)
+            for j, g in enumerate(gens):
+                w1[j].normal_(generator=g)
+                w2[j].normal_(generator=g)
+                chi2[j] = 2.0 * torch._standard_gamma(half, generator=g)
+            return dops.gibbs_step(A, Ft, Nih, dw, S, w1, w2, chi2)
+
+        t = seconds(step, on_card)
+        report(op="gibbs_step", batch=B, nd=nd, nrow=nrow, nsamp=nsamp, seconds=t, per_baseline_ms=1e3 * t / B)
+        del dw, A
+    n = 4096 // k
+    X = torch.randn(16, n, n, dtype=torch.complex64, generator=gen, device=device)
+    H = X @ X.mH / n + torch.eye(n, dtype=torch.complex64, device=device)
+    del X
+    t = seconds(lambda: torch.linalg.cholesky_ex(H), on_card)
+    report(op="cholesky_ex", shape=[16, n, n], dtype="complex64", seconds=t, per_matrix_ms=1e3 * t / 16)
+    del H
+    freq = np.linspace(400.0, 800.0, 1024 // k, endpoint=False)
+    for modes in (160, 410, 680):
+        m = max(modes // k, 2)
+        cut = m / (4 * np.ptp(freq))
+        t = seconds(lambda: filters.null_filter(freq, cut, np.ones(freq.size), num_modes=m, window=False, device=device), on_card)
+        report(op="null_filter", shape=[freq.size, m], dtype="complex128", routine="gesvd" if on_card else "default", seconds=t)
+    nchan = 1016 // k
+    MF = torch.randn(nchan, nd, dtype=torch.complex128, generator=gen, device=device)
+    X = torch.randn(nchan, nchan, dtype=torch.complex128, generator=gen, device=device)
+    X = X @ X.mH / nchan
+    s = torch.rand(nd, dtype=torch.float64, generator=gen, device=device) + 0.1
+    N = torch.ones(nchan, dtype=torch.float64, device=device)
+    t = seconds(lambda: likelihood_core(MF, N, X, s), on_card)
+    report(op="likelihood_core", shape=[nchan, nd], dtype="complex128", seconds=t)
+    return finish(json_path, on_card, rows)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--scale", type=int, default=1)
     parser.add_argument("--kl", action="store_true", help="the KL solve in complex64 against complex128")
+    parser.add_argument("--delay", action="store_true", help="the delay-spectrum path's calls")
     parser.add_argument("--nside", type=int, default=256)
     parser.add_argument("--nfeed", type=int, default=64)
     parser.add_argument("--json", default=None, help="also write the rows to this file")
@@ -222,6 +327,8 @@ def main() -> int:
     if args.kl:
         return kl_precision(device, on_card, args.nside, args.nfeed, args.json)
     k = args.scale
+    if args.delay:
+        return delay_rates(device, on_card, k, args.json)
     gen = torch.Generator(device="cpu").manual_seed(0)
 
     def randc(*shape, dtype=torch.complex128):

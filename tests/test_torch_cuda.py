@@ -313,3 +313,91 @@ def test_complex_wishart_statistics_on_the_card(cuda):
     scale = np.sqrt(n * d[:, None] * d[None, :])
     assert (np.abs(W.mean(0) - n * C) <= 5 * scale / np.sqrt(N)).all()
     assert np.abs((np.abs(W - n * C) ** 2).mean(0) / scale**2 - 1.0).max() <= 0.15
+
+
+def _band_limited(freq, ntime, delaycut, nbase, noise, seed=0):
+    """``tests/test_delay.py``'s flat-delay-spectrum data below ``delaycut``,
+    on a white floor 1e-2 of the band's power that the weights do not state:
+    (data [nbase, ntime, nfreq] complex128, weight [nbase, nfreq]).  Without
+    the floor the spectrum out of band has no power to find, and a float32
+    chain shrinks it towards zero until 1 / S overflows."""
+    rng = np.random.Generator(np.random.SFC64(seed))
+    nfreq = len(freq)
+    S = (np.abs(np.fft.fftfreq(nfreq, d=freq[1] - freq[0])) < delaycut) + 1e-2
+    amp = (rng.standard_normal((nbase, ntime, nfreq)) + 1j * rng.standard_normal((nbase, ntime, nfreq))) * np.sqrt(S / 2)
+    data = np.fft.fft(amp, axis=-1) + noise * (rng.standard_normal(amp.shape) + 1j * rng.standard_normal(amp.shape))
+    return data, np.ones((nbase, nfreq)) / (2 * noise**2)
+
+
+def test_batched_gibbs_on_the_card_matches_the_cpu_statistics(cuda):
+    """64 channels, 8 baselines, 30 iterations from the same seeds: on the
+    card (float32) and the CPU (float64) every chain separates in-band from
+    out-of-band power by 20, and the in-band medians agree within 0.7-1.43.
+    The card's generators draw other numbers than the CPU's; over 8 seeds on
+    the CPU one chain's in-band median scattered by up to 0.058 in its log,
+    so the log of the ratio of two has a spread up to 0.083: the bounds are
+    4.3 of those."""
+    from draco_tpu_torch.ops import delay as dops
+
+    freq = np.linspace(400.0, 425.0, 65)
+    data, weight = _band_limited(freq, 64, 0.4, 8, 0.1)
+    S0 = np.full((8, 128), 10.0)
+    kw = dict(niter=30, seeds=list(range(8)), batch=4)
+    card, failed = dops.delay_power_spectrum_gibbs_batched(torch.as_tensor(data, device=cuda).to(torch.complex64), 128,
+                                                           torch.as_tensor(weight, device=cuda), S0, **kw)
+    cpu, _ = dops.delay_power_spectrum_gibbs_batched(torch.as_tensor(data), 128, torch.as_tensor(weight), S0, **kw)
+    assert card.device == cuda and card.dtype == torch.float32 and not bool(failed.any())
+    delays = np.fft.fftfreq(128, d=freq[1] - freq[0])
+    inband, outband = np.abs(delays) < 0.3, np.abs(delays) > 0.6
+    spec = {k: np.median(v[-15:].cpu().double().numpy(), axis=0) for k, v in (("card", card), ("cpu", cpu))}
+    for s in spec.values():
+        assert (np.median(s[:, inband], -1) > 20 * np.median(s[:, outband], -1)).all()
+    r = np.median(spec["card"][:, inband], -1) / np.median(spec["cpu"][:, inband], -1)
+    assert ((r > 0.7) & (r < 1.43)).all(), r
+
+
+def test_batched_gibbs_does_not_depend_on_the_other_baselines_on_the_card(cuda):
+    """7 baselines in batches of 2: a baseline run alone gives its chain
+    again bit for bit."""
+    from draco_tpu_torch.ops import delay as dops
+
+    freq = np.linspace(400.0, 425.0, 65)
+    data, weight = _band_limited(freq, 32, 0.4, 7, 0.1)
+    d = torch.as_tensor(data, device=cuda).to(torch.complex64)
+    S0 = np.full((7, 128), 10.0)
+    every, _ = dops.delay_power_spectrum_gibbs_batched(d, 128, weight, S0, niter=6, seeds=list(range(10, 17)), batch=2)
+    alone, _ = dops.delay_power_spectrum_gibbs_batched(d[5:6], 128, weight[5:6], S0[5:6], niter=6, seeds=[15], batch=2)
+    assert torch.equal(alone[:, 0], every[:, 5])
+
+
+def test_batched_cross_gibbs_on_the_card_matches_the_cpu_statistics(cuda):
+    """Two nearly identical datasets on 3 baselines, 30 iterations, complex64
+    on the card and complex128 on the CPU: the autos separate in from out of
+    band by 20 on both, cross over auto within 0.9-1.1 in band, and the
+    card's in-band autos within 0.5-2 of the CPU's.  The two chains draw
+    different numbers (a card generator and a CPU one from the same seed);
+    over 8 seeds on the CPU one chain's in-band median scattered by 0.10-0.15
+    in its log, so the log of the ratio of two has a spread up to 0.21: the
+    bounds are 3.3 of those."""
+    from draco_tpu_torch.ops import delay as dops
+
+    freq = np.linspace(400.0, 416.0, 17)
+    d1, w1 = _band_limited(freq, 32, 0.35, 3, 0.01)
+    d2 = d1 + 0.01 * np.random.Generator(np.random.SFC64(7)).standard_normal(d1.shape)
+    data, Ni = np.stack([d1, d2], axis=1), np.stack([w1, w1], axis=1)
+    S0 = np.broadcast_to(np.eye(2)[None, :, :, None] * 10.0, (3, 2, 2, 32)).copy()
+    kw = dict(niter=30, seeds=[1, 2, 3], bchunk=2)
+    card, failed = dops.delay_spectrum_gibbs_cross_batched(torch.as_tensor(data, device=cuda).to(torch.complex64), 32,
+                                                           torch.as_tensor(Ni, device=cuda), S0, **kw)
+    cpu, _ = dops.delay_spectrum_gibbs_cross_batched(torch.as_tensor(data), 32, torch.as_tensor(Ni), S0, **kw)
+    assert card.device == cuda and card.dtype == torch.complex64 and not bool(failed.any())
+    delays = np.fft.fftfreq(32, d=freq[1] - freq[0])
+    inb, outb = np.abs(delays) < 0.25, np.abs(delays) > 0.45
+    spec = {k: np.median(v[-15:].cpu().numpy(), axis=0) for k, v in (("card", card), ("cpu", cpu))}
+    for s in spec.values():
+        auto = s[:, 0, 0].real
+        assert (np.median(auto[:, inb], -1) > 20 * np.median(auto[:, outb], -1)).all()
+        ratio = np.median(s[:, 0, 1].real[:, inb], -1) / np.median(auto[:, inb], -1)
+        assert ((ratio > 0.9) & (ratio < 1.1)).all()
+    r = np.median(spec["card"][:, 0, 0].real[:, inb], -1) / np.median(spec["cpu"][:, 0, 0].real[:, inb], -1)
+    assert ((r > 0.5) & (r < 2.0)).all(), r

@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from draco_tpu.telescope import BeamTransfer as JBeamTransfer
 from draco_tpu_torch.core import config, containers
@@ -181,6 +182,11 @@ pipeline:
         ("draco.analysis.svdfilter.SVDFilter", "draco_tpu_torch.analysis.svdfilter"),
         ("draco_tpu.analysis.fgfilter.KLModeProject", "draco_tpu_torch.analysis.fgfilter"),
         ("draco.analysis.powerspectrum.QuadraticPSEstimation", "draco_tpu_torch.analysis.powerspectrum"),
+        ("draco.analysis.delay.DelayFilter", "draco_tpu_torch.analysis.delay"),
+        ("draco_tpu.analysis.delay.DelayPowerSpectrumGibbsBatched", "draco_tpu_torch.analysis.delay"),
+        ("draco.analysis.delay.DelayCrossPowerSpectrumEstimatorBatched", "draco_tpu_torch.analysis.delay"),
+        ("draco_tpu.analysis.delay.DelayPowerSpectrumNRML", "draco_tpu_torch.analysis.delay"),
+        ("draco.analysis.transform.StokesIVis", "draco_tpu_torch.analysis.transform"),
     ],
 )
 def test_task_path_translation(path, module):
@@ -644,3 +650,117 @@ def test_analyze_example_makes_the_ml_map(analyze_chain):
     assert isinstance(tprod["mlmap"][0], containers.Map) and tmap.shape == jmap.shape
     assert bool(torch.isfinite(tmap).all())
     assert np.abs(tmap.numpy() - jmap).max() <= 5e-2 * np.abs(jmap).max()
+
+
+# -- the delay-spectrum config (BASELINE.json config 3's chain) through both Managers -----
+
+DELAY_TELESCOPE = dict(
+    num_cylinders=2, num_feeds=4, feed_spacing=0.5, cylinder_width=20.0, cylinder_spacing=22.0, latitude=49.0,
+    freq_lower=400.0, freq_upper=425.0, num_freq=65, auto_correlations=True,
+)
+DELAY_NRA = 32
+SIGNAL_VAR, NOISE_VAR = 1.0, 0.01  # per product, complex: E|s|^2, E|n|^2
+
+
+def delay_config(product_dir, stream_glob, estimator="DelayPowerSpectrumGibbsBatched"):
+    return {"pipeline": {"tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "bt"], "params": {"product_directory": product_dir}},
+        {"type": "draco.core.io.LoadFilesFromParams", "out": "sstream", "params": {"files": [stream_glob]}},
+        {"type": "draco.analysis.delay.DelayFilter", "requires": "tel", "in": "sstream", "out": "sstream_filt",
+         "params": {"delay_cut": 0.1}},
+        {"type": "draco.analysis.transform.StokesIVis", "requires": "tel", "in": "sstream_filt", "out": "sstream_I"},
+        {"type": f"draco.analysis.delay.{estimator}", "in": "sstream_I", "out": "dspec",
+         "params": {"nsamp": 20, "median_frac": 0.5, "seed": 5, "save_samples": True, "save_spectrum_mask": True}},
+    ]}}
+
+
+@pytest.fixture(scope="module")
+def delay_chain(tmp_path_factory):
+    """A dual-pol 2 x 4-feed cylinder, 65 channels, 32 RA samples: per product
+    a smooth foreground (delays inside 0.05 us, below every cut), a white
+    signal and noise of the variance the weights state, one dead channel and
+    one dead sample on every product; run task for task through the JAX
+    package's Manager and the port's.  The JAX package's run takes its
+    per-baseline host sampler (``DelayPowerSpectrumGibbs``, the posterior
+    the batched one samples): its batched sampler compiles for seconds on
+    the CPU."""
+    import pickle
+
+    from draco_tpu.core import containers as jcontainers
+    from draco_tpu.core.pipeline import Manager as JManager
+    from draco_tpu.telescope import PolarisedCylinderTelescope as JPolCylinder
+
+    tmp = tmp_path_factory.mktemp("delay")
+    jtel = JPolCylinder(**DELAY_TELESCOPE)
+    (tmp / "products").mkdir()
+    with open(tmp / "products" / "telescope.pkl", "wb") as f:
+        pickle.dump(jtel, f)
+    rng = np.random.Generator(np.random.SFC64(41))
+    pairs, freq = np.asarray(jtel.uniquepairs), jtel.frequencies
+    shape = (len(freq), len(pairs), DELAY_NRA)
+
+    def cn(var):
+        return np.sqrt(var / 2) * (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+
+    tau = rng.uniform(-0.05, 0.05, (len(pairs), 3))
+    amp = 30 * (rng.standard_normal((len(pairs), 3, DELAY_NRA)) + 1j * rng.standard_normal((len(pairs), 3, DELAY_NRA)))
+    fg = np.einsum("pkt,fpk->fpt", amp, np.exp(2j * np.pi * freq[:, None, None] * tau[None]))
+    weight = np.full(shape, 1.0 / NOISE_VAR, np.float32)
+    weight[20], weight[:, :, 9] = 0.0, 0.0
+    prod = np.empty(len(pairs), dtype=[("input_a", int), ("input_b", int)])
+    prod["input_a"], prod["input_b"] = pairs.T
+    ss = jcontainers.SiderealStream(freq=freq, ra=DELAY_NRA, input=jtel.nfeed, prod=prod)
+    ss.vis[:] = (fg + cn(SIGNAL_VAR) + cn(NOISE_VAR)).astype(np.complex64)
+    ss.weight[:] = weight
+    ss.save(str(tmp / "delay_0.h5"))
+    cfg = delay_config(str(tmp / "products"), str(tmp / "delay_*.h5"))
+    jcfg = delay_config(str(tmp / "products"), str(tmp / "delay_*.h5"), estimator="DelayPowerSpectrumGibbs")
+    # one CPU thread for torch and the BLAS and OpenMP pools: the chain's
+    # small products gain nothing from threads, and beside five other test
+    # workers the spinning pools ran it tens of times slower
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with default_device("cpu"), threadpool_limits(1):
+            return cfg, JManager(jcfg).run(), Manager(cfg).run()
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_delay_config_resolves_and_lints(delay_chain):
+    cfg = delay_chain[0]
+    for spec in cfg["pipeline"]["tasks"]:
+        assert _resolve_task_class(spec["type"]).__module__.startswith("draco_tpu_torch."), spec["type"]
+    assert Manager(cfg).lint() == []
+
+
+def test_delay_config_matches_jax(delay_chain):
+    """The filter and Stokes I within 2e-5 of the JAX package's (float32
+    streams; over the input's peak); the Gibbs spectra statistically: both
+    chains sample one posterior with independent draws (per-baseline torch
+    generators against numpy's), so over the delays above every cut
+    (|tau| > 0.2 us, where the filtered data are the white signal) the
+    median of port over JAX must lie within 0.85-1.18.  Each spectrum is the
+    median of 10 draws with nsamp = 31 samples, relative scatter about
+    sqrt(2 / 31) / sqrt(3) ~ 0.15 a delay, 0.21 for the ratio; the median
+    of about 10 x 60 ratios (neighbours correlated over ~4 delays by the
+    window) has a standard error of about 1.25 x 0.21 / sqrt(150) = 0.02:
+    the bounds are 7 of those."""
+    _, jprod, tprod = delay_chain
+    for label in ("sstream_filt", "sstream_I"):
+        jc, tc = jprod[label][0], tprod[label][0]
+        assert np.array_equal(tc.weight[:].numpy(), np.asarray(jc.weight[:]))
+        ref = np.asarray(jc.vis[:])
+        assert np.abs(tc.vis[:].numpy() - ref).max() <= 2e-5 * np.abs(np.asarray(jprod["sstream"][0].vis[:])).max()
+    jd, td = jprod["dspec"][0], tprod["dspec"][0]
+    assert isinstance(td, containers.DelaySpectrum) and np.array_equal(td.delay, jd.delay)
+    tspec, jspec = td.spectrum[:].numpy(), np.asarray(jd.spectrum[:])
+    live = ~td.datasets["spectrum_mask"][:]
+    assert np.array_equal(live, ~np.asarray(jd.datasets["spectrum_mask"][:])) and live.sum() == 10
+    above = np.abs(td.delay) > 0.2
+    ratio = np.median(tspec[live][:, above] / jspec[live][:, above])
+    assert 0.85 <= ratio <= 1.18, ratio
+    # and both recover the injected Stokes I signal: E|s_XX + s_YY|^2 / N per delay
+    expect = 2 * SIGNAL_VAR / len(td.delay)
+    for spec in (tspec, jspec):
+        assert 0.7 <= np.median(spec[live][:, above]) / expect <= 1.4
