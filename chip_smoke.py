@@ -147,6 +147,40 @@ Phases, each of which raises on failure (exit code != 0):
    within 1e-8 of host float64 ``scipy``) and ``DelaySpectrumFFT`` on every
    baseline (4 of them within 1e-5 of numpy).
 
+17. the ring-map path on phase 7's 2048-feed dual-pol cylinder (7155
+   stacked products of the full 2,098,176-product triangle, built without
+   ``generate``) at 16 contiguous channels of CHIME's 390.625 kHz from 600
+   MHz and 4096 RA samples (the cut is frequencies), through the pipeline
+   ``Manager`` twice each: this script's ``EmitRingStream`` (three point
+   sources at known (RA, el), 1e2-1e3 x the noise, seen through the
+   analytical EW beam of ``DeconvolveAnalyticalBeam``; noise of the
+   variance the weights state; four flagged (freq, RA) cells with
+   interference in them) in place of the file loader, then 17a:
+   ``examples/ringmap.yaml`` task for task with ``ApplyTimeFreqMask``
+   inserted (``RFIMask`` -> ``ApplyTimeFreqMask`` -> ``RingMapMaker``, npix
+   512, natural weights, precision 64), and 17b: ``MakeVisGrid`` ->
+   ``BeamformNS`` -> this script's ``AttachDelayFilterModel`` (an identity
+   spectral filter and a diagonal freq-freq covariance, standing in for
+   the delay filter that is not ported yet) -> ``MModeTransform`` ->
+   ``WienerRingMapMakerAnalytical`` -> ``RADependentWeights`` ->
+   ``AttachDelayFilterModel`` (the covariance that the inverse-variance
+   EW weighting does not carry into the ring map) ->
+   ``TransformJyPerBeamToKelvin`` -> ``ConstructWienerDelayTransform`` ->
+   ``ApplyWienerDelayTransform`` -> ``SpatialTransformDelayMap`` ->
+   ``AutoPowerSpectrum3D`` -> ``CylindricalPowerSpectrum2D`` and
+   ``SphericalPowerSpectrum3Dto1D``, with one source's spectrum carrying a
+   delay tone.  Prints the per-task seconds of both runs, each Manager's
+   wall time and peak device memory and each stage's bound.  Checks: one
+   frequency and 64 RA samples of 17a's ring map within 1e-5 of a float64
+   numpy grid -> NS -> EW beamforming on the host; every injected cell
+   masked; the sources peaking at their (RA, el) pixel within one pixel
+   (searched within half a grating-lobe spacing); the deconvolved map at
+   each source's pixel within 1e-3 of its flux times the dirty beam at
+   transit (``_deconvolve_core``'s normalisation), every pol and channel;
+   the tone's delay bin above 10 x every other nonzero
+   delay bin of its pixel; every output finite, of its container type and
+   shape (every factorisation's ``info`` 0, or the task raises).
+
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -264,6 +298,22 @@ N_DELAY_NRML = 4
 TOL_LOGLIKE = 1e-8
 TOL_DELAY_FFT = 1e-5
 # the task chain: the simulated sidereal day and its time stream
+RING_NFREQ = 16  # the cut: CHIME's 1024 channels would be 64 x this
+RING_DF = 0.390625  # MHz, CHIME's channel width
+RING_F0 = 600.0
+RING_NRA = 4096  # CHIME's sidereal grid
+RING_NPIX = 512
+RING_SEED = 17
+# (RA sample, el pixel, flux in noise units) of the injected point sources
+RING_SOURCES = ((700, 345, 300.0), (2100, 230, 1000.0), (3300, 262, 100.0))
+RING_TONE = (1, 3, 0.5)  # (source, delay bin, relative amplitude) of 17b's spectral tone
+RING_FLAGS = ((2, 1400), (5, 1401), (9, 2700), (13, 3900))  # flagged (freq, RA sample) cells
+RING_RFI = 1e5  # added to every flagged cell
+N_RING_HOST = 64  # RA samples of the float64 host beamforming check
+TOL_RING_HOST = 1e-5
+TOL_RING_AMP = 1e-3  # the other sources' NS and RA sidelobes: 1.1e-4 here, 1.3e-2 with 4 feeds a cylinder
+RING_TONE_CONTRAST = 10.0
+
 LSD = 8000
 CHAIN_SAMPLES_PER_DAY = 8640
 CHAIN_PAD_S = 120.0
@@ -1966,6 +2016,471 @@ def run_delay(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = DELAY_NFREQ,
         raise RuntimeError(f"phase 16 (delay path) failed: {', '.join(failures)}")
 
 
+def ring_telescope(ncyl: int = 4, nfeed: int = 256, nfreq: int = RING_NFREQ):
+    """Phase 17's telescope: phase 7's dual-pol CHIME cylinder at ``nfreq`` channels of 390.625 kHz from 600 MHz."""
+    from draco_tpu_torch.telescope import PolarisedCylinderTelescope
+
+    return PolarisedCylinderTelescope(
+        num_cylinders=ncyl, num_feeds=nfeed, num_freq=nfreq, freq_lower=RING_F0,
+        freq_upper=RING_F0 + nfreq * RING_DF, auto_correlations=True, **CHIME,
+    )
+
+
+def ring_sources(nra: int, npix: int):
+    """``RING_SOURCES`` on a grid of ``nra`` RA samples and ``npix`` elevation pixels."""
+    return [(r * nra // RING_NRA, round(e * (npix - 1) / (RING_NPIX - 1)), a) for r, e, a in RING_SOURCES]
+
+
+def ring_flux(k: int, freq, tone: bool) -> np.ndarray:
+    """Source ``k``'s flux at ``freq`` (MHz): flat, or with 17b's delay tone."""
+    flux = np.full(len(freq), ring_sources(RING_NRA, RING_NPIX)[k][2])
+    src, nbin, rel = RING_TONE
+    if tone and k == src:
+        tau = nbin / (len(freq) * RING_DF)  # us: exactly a bin of the delay grid
+        flux = flux * (1.0 + rel * np.cos(2 * np.pi * tau * (freq - freq[0])))
+    return flux
+
+
+def ring_flags(nfreq: int, nra: int):
+    return [(f * nfreq // RING_NFREQ, r * nra // RING_NRA) for f, r in RING_FLAGS]
+
+
+def ring_stream(tel, nra: int, npix: int, device, tone: bool = False):
+    """A stacked ``SiderealStream`` of every unique pair, labelled as
+    ``CollateProducts`` labels it (the full product triangle, its stack
+    maps, input flags all 1).
+
+    Each source is seen through the analytical EW beam that
+    ``DeconvolveAnalyticalBeam`` deconvolves (``_get_beam_mmodes``): at
+    feed-pair polarisation p, EW separation u (wavelengths) and the
+    source's declination, ``conj(exp(2 pi i u cos(dec) sin(phi)) exp(-(2
+    tan(phi / 2))^2 / 2 sigma_p^2))`` in its RA offset phi, times the NS
+    fringe of its elevation pixel; noise of unit variance (the weights);
+    the ``RING_FLAGS`` cells at weight 0 with ``RING_RFI`` added.
+    """
+    import torch
+
+    from draco_tpu_torch.analysis.ringmapmaker import C_LIGHT, DeconvolveAnalyticalBeam, find_grid_indices
+    from draco_tpu_torch.analysis.transform import TelescopeStreamMixIn
+    from draco_tpu_torch.core import containers
+
+    maps = TelescopeStreamMixIn()
+    maps.setup(tel)
+    ss = containers.SiderealStream(
+        freq=tel.frequencies, ra=nra, input=tel.nfeed, prod=maps.bt_prod, stack=maps.bt_stack,
+        reverse_map_stack=maps.bt_rev, device=device,
+    )
+    ss.input_flags[:] = 1.0
+    pairs = np.asarray(tel.uniquepairs)
+    feedpol = tel.polarisation[pairs]
+    names, pidx = np.unique(np.char.add(feedpol[:, 0], feedpol[:, 1]), return_inverse=True)
+    prefactor = np.array([[DeconvolveAnalyticalBeam._EW_SIGMA_PREFACTOR[c] for c in p] for p in names])
+    xind, yind, min_x, min_y = find_grid_indices(tel.baselines)
+    el = np.linspace(-1.0, 1.0, npix)
+    phi = np.radians(np.linspace(0.0, 360.0, nra, endpoint=False))
+    pidx_t = torch.as_tensor(pidx, device=device)
+    xpos = torch.as_tensor(xind * min_x, dtype=torch.float64, device=device)[:, None]
+    ypos = torch.as_tensor(yind * min_y, dtype=torch.float64, device=device)[:, None]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(RING_SEED)
+    vis = ss.vis[:]
+    for fi, f in enumerate(tel.frequencies):
+        nu = f * 1e6 / C_LIGHT
+        acc = torch.zeros((len(pairs), nra), dtype=torch.complex128, device=device)
+        for k, (r0, e0, _) in enumerate(ring_sources(nra, npix)):
+            dec = np.arcsin(el[e0]) + np.radians(tel.latitude)
+            sa, sb = (prefactor[:, i] / (f * np.cos(dec)) for i in (0, 1))
+            sigma = sa * sb / np.hypot(sa, sb)  # [pol]
+            dphi = phi - phi[r0]
+            env = np.exp(-0.5 * (2 * np.tan(dphi / 2)) ** 2 / sigma[:, None] ** 2)  # [pol, ra]
+            ew = torch.as_tensor(-2 * np.pi * nu * np.cos(dec) * np.sin(dphi), device=device)[None] * xpos
+            arg = ew + 2 * np.pi * nu * el[e0] * ypos
+            amp = ring_flux(k, tel.frequencies, tone)[fi]
+            acc += amp * torch.as_tensor(env, device=device)[pidx_t] * torch.polar(torch.ones_like(arg), arg)
+        noise = torch.randn((len(pairs), nra, 2), generator=gen, device=device, dtype=torch.float64)
+        vis[fi] = acc + np.sqrt(0.5) * torch.view_as_complex(noise)
+    w = ss.weight[:]
+    w.fill_(1.0)
+    for fi, ri in ring_flags(tel.nfreq, nra):
+        w[fi, :, ri] = 0.0
+        vis[fi, :, ri] += RING_RFI
+    return ss
+
+
+def ring_tasks() -> tuple[str, str]:
+    """Define phase 17's source task ``EmitRingStream`` and the delay filter's
+    stand-in ``AttachDelayFilterModel`` in this module; return their paths."""
+    import torch
+
+    from draco_tpu_torch.core import config, containers, io
+    from draco_tpu_torch.core.task import ContainerTask, PipelineStopIteration
+    from draco_tpu_torch.device import resolve
+    from draco_tpu_torch.ops.tools import invert_no_zero
+
+    class EmitRingStream(ContainerTask):
+        nra = config.int_prop(RING_NRA)
+        npix = config.int_prop(RING_NPIX)
+        tone = config.bool_prop(False)
+
+        def setup(self, tel):
+            self.tel = io.get_telescope(tel)
+
+        def process(self):
+            if self._count:
+                raise PipelineStopIteration()
+            ss = ring_stream(self.tel, self.nra, self.npix, resolve(), tone=self.tone)
+            ss.attrs["tag"] = "ringmap"
+            return ss
+
+    class AttachDelayFilterModel(ContainerTask):
+        """Stands in for the delay filter, which is not ported yet: on a hybrid
+        stream an identity spectral filter and the freq-freq covariance of its
+        weights (diagonal); on a ring map the covariance alone, as the identity
+        (a diagonal covariance cancels in the Wiener operator's noise term)."""
+
+        def process(self, data):
+            dev = data.weight[:].device
+            eye = torch.eye(len(data.freq), dtype=torch.float64, device=dev)
+            if isinstance(data, containers.HybridVisStream):
+                data.add_dataset("filter")
+                data.filter[:] = eye[None, :, :, None, None]
+                data.add_dataset("freq_cov")
+                data.freq_cov[:] = eye[None, :, :, None, None] * invert_no_zero(data.weight[:].double())[:, :, None]
+            elif "freq_cov" not in data.datasets:
+                data.add_dataset("freq_cov")
+                data.freq_cov[:] = eye[None, :, :, None]
+            return data
+
+    globals()["EmitRingStream"] = EmitRingStream
+    globals()["AttachDelayFilterModel"] = AttachDelayFilterModel
+    return f"{__name__}.EmitRingStream", f"{__name__}.AttachDelayFilterModel"
+
+
+def ring_config(product_dir: str, source: str, attach: str, chain: str, nra: int, npix: int) -> dict:
+    """Phase 17a (``examples/ringmap.yaml`` with ``ApplyTimeFreqMask``) or 17b."""
+    head = [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "btm"], "params": {"product_directory": product_dir}},
+        {"type": source, "requires": "tel", "out": "sstream", "params": {"nra": nra, "npix": npix, "tone": chain == "b"}},
+    ]
+    if chain == "a":
+        return {"pipeline": {"tasks": head + [
+            {"type": "draco.analysis.flagging.RFIMask", "in": "sstream", "out": "sstream_rfi"},
+            {"type": "draco.analysis.flagging.ApplyTimeFreqMask", "in": ["sstream", "sstream_rfi"],
+             "out": "sstream_masked"},
+            {"type": "draco.analysis.ringmapmaker.RingMapMaker", "requires": "tel", "in": "sstream_masked",
+             "out": "ringmap", "params": {"npix": npix, "weight": "natural"}},
+        ]}}
+    rmm, ps = "draco.analysis.ringmapmaker.", "draco.analysis.powerspec."
+    return {"pipeline": {"tasks": head + [
+        {"type": rmm + "MakeVisGrid", "requires": "tel", "in": "sstream", "out": "grid"},
+        {"type": rmm + "BeamformNS", "in": "grid", "out": "hstream",
+         "params": {"npix": npix, "span": 1.0, "weight": "natural", "precision": 64}},
+        {"type": attach, "in": "hstream", "out": "hstream_filt"},
+        {"type": "draco.analysis.transform.MModeTransform", "in": "hstream_filt", "out": "hmodes"},
+        {"type": rmm + "WienerRingMapMakerAnalytical", "requires": "tel", "in": "hmodes", "out": "rmap",
+         "params": {"save_dirty_beam": True}},
+        {"type": rmm + "RADependentWeights", "in": ["hstream_filt", "rmap"], "out": "rmap_ra"},
+        {"type": attach, "in": "rmap_ra", "out": "rmap_cov"},
+        {"type": ps + "TransformJyPerBeamToKelvin", "requires": "tel", "in": "rmap_cov", "out": "rmap_k"},
+        {"type": ps + "ConstructWienerDelayTransform", "in": "rmap_k", "out": "dop"},
+        {"type": ps + "ApplyWienerDelayTransform", "in": ["rmap_k", "dop"], "out": "dtrans"},
+        {"type": ps + "SpatialTransformDelayMap", "requires": "tel", "in": "dtrans", "out": "cube"},
+        {"type": ps + "AutoPowerSpectrum3D", "in": "cube", "out": "ps3d"},
+        {"type": ps + "CylindricalPowerSpectrum2D", "in": "ps3d", "out": "ps2d"},
+        {"type": ps + "SphericalPowerSpectrum3Dto1D", "in": "ps3d", "out": "ps1d"},
+    ]}}
+
+
+def ring_host_beamform(tel, ss, fi: int, ra_sel, npix: int):
+    """One frequency and the RA samples ``ra_sel`` of ``MakeVisGrid`` ->
+    ``BeamformNS`` (natural, precision 64) -> ``BeamformEW`` in float64 numpy
+    on the host: the JAX package's math written out.  Returns (map [beam,
+    pol, ra, el], weight [pol, ra])."""
+    from draco_tpu_torch.analysis.ringmapmaker import C_LIGHT, find_grid_indices
+
+    vis = ss.vis[fi].cpu().numpy()[:, ra_sel].astype(np.complex128)  # [stack, ra]
+    w = ss.weight[fi].cpu().numpy()[:, ra_sel].astype(np.float64)
+    nstack = vis.shape[0]
+    rev = np.asarray(ss.reverse_map["stack"]["stack"]).astype(int)
+    red = np.bincount(rev[rev < nstack], minlength=nstack).astype(np.float64)  # input flags all 1
+
+    feedpol = tel.polarisation[tel.uniquepairs]
+    pol, pind = np.unique(np.char.add(feedpol[:, 0], feedpol[:, 1]), return_inverse=True)
+    pconj = np.unique([b + a for a, b in pol], return_inverse=True)[1]
+    xind, yind, _, min_y = find_grid_indices(tel.baselines)
+    nx, ny, nr = np.abs(xind).max() + 1, 2 * np.abs(yind).max() + 1, vis.shape[1]
+    G = np.zeros((4, nx, ny, nr), complex)
+    W = np.zeros((4, nx, ny, nr))
+    R = np.zeros((4, nx, ny))
+    intra = np.flatnonzero(xind == 0)
+    for p, x, y, src, conj in ((pconj[pind[intra]], xind[intra], -yind[intra], intra, True),
+                               (pind, xind, yind, np.arange(nstack), False)):
+        G[p, x, y] = np.conj(vis[src]) if conj else vis[src]
+        W[p, x, y] = w[src]
+        R[p, x, y] = red[src]
+
+    def inv(a):
+        return np.where(a == 0, 0.0, 1.0 / np.where(a == 0, 1.0, a))
+
+    gw = R[..., None] * (W > 0)
+    gw[:, 0, 0] = 0.0  # include_auto False
+    gw = gw * inv(gw.sum(axis=2, keepdims=True))
+    nspos = np.fft.fftfreq(ny, d=1.0 / (ny * min_y))
+    el = np.linspace(-1.0, 1.0, npix)
+    F = np.exp(-2j * np.pi * nspos[None, :] * el[:, None] * tel.frequencies[fi] * 1e6 / C_LIGHT)
+    H = np.einsum("en,pxnr->pxer", F, G * gw)
+    hw = inv(np.sum(inv(W) * gw**2, axis=2))  # [pol, x, ra]
+
+    P = np.eye(4, dtype=complex)  # XX, (XY, YX) -> (reXY, imXY), YY
+    P[1, 1:3], P[2, 1:3] = [0.5, 0.5], [-0.5j, 0.5j]
+    wew = (nx - np.arange(nx)).astype(float)
+    wew /= wew.sum()
+    B = np.fft.irfft(np.tensordot(P, H, axes=(1, 0)) * wew[None, :, None, None], n=2 * nx - 1, axis=1) * (2 * nx - 1)
+    var = np.tensordot(np.abs(P) ** 2, inv(hw), axes=(1, 0))
+    rm_var = 0.5 * np.sum(wew[None, :, None] ** 2 * var, axis=1)  # [pol, ra]
+    return B.transpose(1, 0, 3, 2), inv(rm_var)
+
+
+def ring_bounds(nstack, nfreq, nra, nx, ny, nel, ntau, nm, npol=4):
+    """Least seconds of each stage from its shapes: (seconds, "bytes" or "operations")."""
+    bw = HBM_BYTES_PER_S
+    f64 = PEAK_FLOPS["float64"]
+    grid, hyb = npol * nfreq * nx * ny * nra, npol * nfreq * nx * nel * nra
+    nbeam = 2 * nx - 1
+    out = {
+        # read the stream (vis 8 B, weight 4 B), write the grid
+        "MakeVisGrid": (12 * nstack * nfreq * nra + 12 * grid, "bytes"),
+        # the complex128 GEMM [el, ns] x [ns, ra] for every (pol, freq, ew)
+        "BeamformNS": (8 * nel * ny * nra * npol * nfreq * nx, "operations"),
+        # read the hybrid stream, write the map and its weight
+        "BeamformEW": (8 * hyb + 8 * nbeam * npol * nfreq * nra * nel + 8 * npol * nfreq * nra * nel, "bytes"),
+        "MModeTransform": (8 * hyb + 8 * 2 * nm * npol * nfreq * nx * nel, "bytes"),
+        # write the beam m-modes, read them and the data m-modes, write the map and weight
+        "WienerRingMapMakerAnalytical": (3 * 8 * 2 * nm * npol * nfreq * nx * nel + 16 * npol * nfreq * nra * nel,
+                                         "bytes"),
+        # per (pol, el, ra): two complex products of [f, f], the inverse, [tau, f] x [f, f] twice
+        "ConstructWienerDelayTransform": (npol * nel * nra * (8 * (3 * nfreq**3) + 16 * ntau * nfreq**2), "operations"),
+        # read the complex64 operator and the map
+        "ApplyWienerDelayTransform": (8 * npol * nra * nel * ntau * nfreq + 16 * npol * nfreq * nra * nel, "bytes"),
+        "SpatialTransformDelayMap": (2 * 16 * npol * ntau * nra * nel, "bytes"),
+        "AutoPowerSpectrum3D": (16 * npol * ntau * nra * nel + 16 * npol**2 * ntau * nra * nel, "bytes"),
+    }
+    out = {name: (v / (bw if kind == "bytes" else f64), kind) for name, (v, kind) in out.items()}
+    parts = [out[name] for name in ("MakeVisGrid", "BeamformNS", "BeamformEW")]
+    out["RingMapMaker"] = (sum(t for t, _ in parts), "+".join(kind for _, kind in parts))
+    return out
+
+
+def _run_twice(label: str, cfg: dict, device):
+    """Run ``cfg`` through the Manager twice; print each run's per-task seconds,
+    wall time and peak device memory; return the second run's products,
+    timing and peak."""
+    import gc
+
+    import torch
+
+    from draco_tpu_torch.core.pipeline import Manager
+
+    products = None
+    for attempt in ("first", "second"):
+        products = None
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        manager = Manager(cfg)
+        t0 = _sync_clock(device)
+        products = manager.run()
+        wall = _sync_clock(device) - t0
+        peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else float("nan")
+        timing = {name.split(".")[-1]: round(t["wall"], 4) for name, t in manager.task_timing.items()}
+        log(f"phase {label} {attempt} run: {wall:.2f} s wall, peak device memory {peak:.2f} GiB")
+        log(f"phase {label} {attempt} run task_timing (s): " + json.dumps(timing))
+    return products, timing, peak
+
+
+def run_ringmap(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = RING_NFREQ, nra: int = RING_NRA,
+                npix: int = RING_NPIX) -> None:
+    """Phase 17: the ring-map path (17a) and the deconvolving and power-spectrum chain (17b) through the Manager.
+
+    The sizes default to the phase's; smaller ones make it a rehearsal on the
+    CPU.  At 4 x 4 feeds with 4096 RA samples and npix 64 every check holds
+    but the deconvolved amplitude's (1.3e-2: with 4 feeds a cylinder the
+    sources' sidelobes reach each other's pixels); with fewer RA samples
+    ``RFIMask`` also flags the bright sources' transits (too sharp for its
+    3-sample median).
+    """
+    import gc
+    import pickle
+    import tempfile
+
+    import torch
+
+    from draco_tpu_torch.analysis.powerspec import jy_per_beam_to_kelvin
+    from draco_tpu_torch.analysis.ringmapmaker import WienerRingMapMakerAnalytical, find_grid_indices
+    from draco_tpu_torch.core import containers
+
+    failures = []
+
+    def check(label, value, ok):
+        log(f"  {label}: {value}  [{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            failures.append(label)
+
+    tel = ring_telescope(ncyl, nfeed, nfreq)
+    freq = tel.frequencies
+    nstack = tel.npairs
+    xind, yind, _, _ = find_grid_indices(tel.baselines)
+    nx, ny = np.abs(xind).max() + 1, 2 * np.abs(yind).max() + 1
+    nm, ntau = nra // 2 + 1, nfreq // 2
+    GB = 1e9
+    log(f"ring-map path: {ncyl} x {nfeed} dual-pol feeds, {nstack} stacked products, {nfreq} channels "
+        f"{freq[0]:.6f}-{freq[-1]:.6f} MHz, {nra} RA samples, npix {npix}; stream {12 * nstack * nfreq * nra / GB:.2f} "
+        f"GB, grid [4, {nfreq}, {nx}, {ny}, {nra}] {12 * 4 * nfreq * nx * ny * nra / GB:.2f} GB, hybrid "
+        f"{8 * 4 * nfreq * nx * npix * nra / GB:.2f} GB, ring map [{2 * nx - 1}, 4, {nfreq}, {nra}, {npix}] "
+        f"{8 * (2 * nx - 1) * 4 * nfreq * nra * npix / GB:.2f} GB, m-modes {8 * 2 * nm * 4 * nfreq * nx * npix / GB:.2f} "
+        f"GB, Wiener operator {8 * 4 * nra * npix * ntau * nfreq / GB:.2f} GB")
+    bounds = ring_bounds(nstack, nfreq, nra, nx, ny, npix, ntau, nm)
+    sources = ring_sources(nra, npix)
+    el = np.linspace(-1.0, 1.0, npix)
+
+    with tempfile.TemporaryDirectory() as product_dir:
+        with open(Path(product_dir) / "telescope.pkl", "wb") as f:
+            pickle.dump(tel, f)
+        source, attach = ring_tasks()
+
+        # 17a: examples/ringmap.yaml with ApplyTimeFreqMask
+        products, timing_a, peak_a = _run_twice("17a", ring_config(product_dir, source, attach, "a", nra, npix), device)
+        ss, mask, rm = products["sstream_masked"][0], products["sstream_rfi"][0], products["ringmap"][0]
+        del products
+        masked = np.asarray(mask.mask[:])
+        check("17a every injected cell masked", f"{sum(bool(masked[f, r]) for f, r in ring_flags(nfreq, nra))} of "
+              f"{len(RING_FLAGS)} (masked share {masked.mean():.4f})",
+              all(masked[f, r] for f, r in ring_flags(nfreq, nra)))
+        shape = (2 * nx - 1, 4, nfreq, nra, npix)
+        ok = isinstance(rm, containers.RingMap) and tuple(rm.map.shape) == shape and bool(torch.isfinite(rm.map[:]).all())
+        check("17a ring map type, shape, finite", f"{type(rm).__name__} {tuple(rm.map.shape)}", ok)
+        fi = nfreq // 2
+        r0 = sources[0][0]
+        ra_sel = (r0 - N_RING_HOST // 2 + np.arange(N_RING_HOST)) % nra
+        t0 = time.perf_counter()
+        hmap, hweight = ring_host_beamform(tel, ss, fi, ra_sel, npix)
+        sel = torch.as_tensor(ra_sel, device=rm.map[:].device)
+        got = rm.map[:, :, fi].index_select(2, sel).cpu().numpy()
+        gotw = rm.weight[:, fi].index_select(1, sel)[..., 0].cpu().numpy()
+        err = np.abs(got - hmap).max() / np.abs(hmap).max()
+        errw = np.abs(gotw - hweight).max() / np.abs(hweight).max()
+        check(f"17a ring map at channel {fi}, {N_RING_HOST} RA samples vs float64 numpy on the host "
+              f"({time.perf_counter() - t0:.1f} s)", f"map {err:.3e}, weight {errw:.3e} (limit {TOL_RING_HOST})",
+              err <= TOL_RING_HOST and errw <= TOL_RING_HOST)
+        half = npix // 5  # under half the NS grating-lobe spacing of 0.5 m feeds
+        for k, (r0, e0, flux) in enumerate(sources):
+            worst = 0
+            rows = (r0 + np.arange(-nra // 16, nra // 16 + 1)) % nra
+            cols = np.arange(max(e0 - half, 0), min(e0 + half + 1, npix))
+            for p in (0, 3):  # XX, YY
+                block = rm.map[0, p].index_select(1, torch.as_tensor(rows, device=device))
+                block = block.index_select(2, torch.as_tensor(cols, device=device)).cpu().numpy()  # [freq, ra, el]
+                for f in range(nfreq):
+                    ir, ie = np.unravel_index(np.argmax(block[f]), block[f].shape)
+                    worst = max(worst, abs(rows[ir] - r0), abs(cols[ie] - e0))
+            check(f"17a source {k} (RA sample {r0}, el {el[e0]:.4f}, flux {flux:g}) peak offset over freq, XX/YY",
+                  f"{worst} pixels (limit 1)", worst <= 1)
+        del ss, mask, rm
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # 17b: the deconvolving and power-spectrum chain
+        products, timing_b, peak_b = _run_twice("17b", ring_config(product_dir, source, attach, "b", nra, npix), device)
+
+    want = {
+        "sstream": (containers.SiderealStream, "vis", (nfreq, nstack, nra)),
+        "grid": (containers.VisGridStream, "vis", (4, nfreq, nx, ny, nra)),
+        "hstream": (containers.HybridVisStream, "vis", (4, nfreq, nx, npix, nra)),
+        "hmodes": (containers.HybridVisMModes, "vis", (nm, 2, 4, nfreq, nx, npix)),
+        "rmap_k": (containers.RingMap, "map", (1, 4, nfreq, nra, npix)),
+        "dop": (containers.DelayTransformOperator, "filter", (4, nra, npix, ntau, nfreq)),
+        "dtrans": (containers.DelayTransform, "spectrum", (4 * npix, nra, ntau)),
+        "cube": (containers.SpatialDelayCube, "vis", (4, ntau, nra, npix)),
+        "ps3d": (containers.PowerSpectrum3D, "spectrum", (16, ntau, nra, npix)),
+    }
+    for label, (cls, name, shp) in want.items():
+        cont = products[label][0]
+        data = cont.datasets[name][:]
+        ok = isinstance(cont, cls) and tuple(data.shape) == shp and bool(torch.isfinite(torch.view_as_real(data)
+                                                                                          if data.is_complex() else data).all())
+        check(f"17b {label} type, shape, finite", f"{type(cont).__name__}.{name} {tuple(data.shape)}", ok)
+    ps2d, ps1d = products["ps2d"][0], products["ps1d"][0]
+    live = ps2d.weight[:] > 0
+    s2 = ps2d.spectrum[:]
+    check("17b 2D spectrum finite where its bins hold cells", f"{int(live.sum())} of {live.numel()} bins hold cells",
+          bool(live.any()) and bool(torch.isfinite(torch.view_as_real(s2[live])).all()))
+    filled = torch.isfinite(ps1d.neff[:]) & (ps1d.neff[:] > 0)
+    check("17b 1D spectrum finite where its bins hold cells", f"{int(filled.sum())} of {filled.numel()} bins hold cells",
+          bool(filled.any()) and bool(torch.isfinite(torch.view_as_real(ps1d.spectrum[:][filled])).all()))
+    check("17b Wiener operator inverses", f"{4 * npix * nra} (pol, el, RA) matrices of [{nfreq}, {nfreq}], every info 0",
+          True)
+
+    # a point source of flux A reads A times the dirty beam at transit (_deconvolve_core's normalisation)
+    rmap = products["rmap_k"][0]
+    factor = jy_per_beam_to_kelvin(freq, _bl_max(tel))
+    worst, peaks = 0.0, []
+    for k, (r0, e0, _) in enumerate(sources):
+        flux = ring_flux(k, freq, tone=True)
+        amp = rmap.map[0, :, :, r0, e0].cpu().numpy() / factor[None]  # [pol, freq], back to Jy/beam
+        beam0 = rmap.dirty_beam[0, :, :, 0, e0].cpu().numpy()
+        peaks.append(beam0)
+        dev = np.abs(amp / (flux[None] * beam0) - 1)
+        log(f"  17b source {k}: deconvolved over flux x dirty beam - 1, max over channels per pol {dev.max(axis=1)}")
+        worst = max(worst, float(dev.max()))
+    peaks = np.concatenate(peaks)
+    check("17b deconvolved map at the sources' pixels over flux x the dirty beam at transit, every pol and "
+          f"channel (- 1; the dirty beam there {peaks.min():.4f}-{peaks.max():.4f})",
+          f"{worst:.3e} (limit {TOL_RING_AMP})", worst <= TOL_RING_AMP)
+    maker = WienerRingMapMakerAnalytical()
+    maker.read_config({})
+    maker.setup(tel)
+    t0 = _sync_clock(device)
+    beam = maker._get_beam_mmodes(products["hmodes"][0])
+    beam_s = _sync_clock(device) - t0
+    beam_bytes = beam.vis[:].numel() * beam.vis[:].element_size()
+    del beam
+    log(f"17b analytical beam m-modes alone: {beam_s:.4f} s against {1e3 * beam_bytes / HBM_BYTES_PER_S:.2f} ms "
+        f"(bytes: writing {beam_bytes / 1e9:.2f} GB)")
+
+    src, nbin, _ = RING_TONE
+    r0, e0, _ = sources[src]
+    spec = products["dtrans"][0].spectrum[e0, r0].abs().cpu().numpy() ** 2  # pol XX is baselines 0..npix-1
+    others = np.delete(spec, [0, nbin])
+    contrast = spec[nbin] / others.max()
+    check(f"17b delay tone: power at delay bin {nbin} over the largest other nonzero bin", f"{contrast:.3e} (limit "
+          f">= {RING_TONE_CONTRAST})", contrast >= RING_TONE_CONTRAST)
+    del products, rmap
+    gc.collect()
+
+    for label, timing in (("17a", timing_a), ("17b", timing_b)):
+        parts = []
+        for name, t in timing.items():
+            key = next((b for b in bounds if name.startswith(b)), None)
+            if key is not None:
+                bound, kind = bounds[key]
+                parts.append(f"{key} {t:.3f} s against {1e3 * bound:.2f} ms ({kind}; {t / bound:.0f}x)")
+        log(f"phase {label} bounds: " + "; ".join(parts))
+    log(f"phase 17 Manager peaks: 17a {peak_a:.2f} GiB, 17b {peak_b:.2f} GiB")
+    if failures:
+        raise RuntimeError(f"phase 17 (ring-map path) failed: {', '.join(failures)}")
+
+
+def _bl_max(tel) -> float:
+    from draco_tpu_torch.analysis.powerspec import TransformJyPerBeamToKelvin
+
+    t = TransformJyPerBeamToKelvin()
+    t.read_config({})
+    t.setup(tel)
+    return t.bl_max
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=2, help="seed of the time streams and kernel inputs")
@@ -2102,6 +2617,15 @@ def main() -> int:
     delay_launches = cuda_kernels.launches["banded_covariance"]
     log(f"phase 16 wall time {time.perf_counter() - t0:.1f} s; banded_covariance launches {delay_launches} "
         "(the path has no regrid)")
+    torch.cuda.empty_cache()
+
+    # phase 17: the ring-map path and the power spectrum built on it
+    t0 = time.perf_counter()
+    cuda_kernels.reset_launches()
+    run_ringmap(device)
+    ringmap_launches = cuda_kernels.launches["banded_covariance"]
+    log(f"phase 17 wall time {time.perf_counter() - t0:.1f} s; banded_covariance launches {ringmap_launches} "
+        "(the path has no regrid)")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [{
@@ -2117,6 +2641,7 @@ def main() -> int:
         "analysis_chain": {"launches": analyze_launches},
         "kl_path": {"launches": kl_launches},
         "delay_path": {"launches": delay_launches},
+        "ringmap_path": {"launches": ringmap_launches},
     }]}
     print(json.dumps(record))
     print(card)

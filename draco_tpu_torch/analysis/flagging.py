@@ -18,6 +18,9 @@ import torch
 from ..core import config, containers
 from ..core.task import ContainerTask
 from ..ops import filters
+# the chi-squared reduction that the JAX package's grouped RFIStaticVisMask
+# chains (flagging.py:1383-1394); that group comes with the module's other tasks
+from .transform import ReduceChisqInverseRedundancy  # noqa: F401
 
 
 def _pct(mask) -> float:

@@ -4,9 +4,11 @@ Port of ``draco_tpu.analysis.transform`` up to the regridders and the
 product collation: reference ``draco/analysis/transform.py``
 (TelescopeStreamMixIn:91, CollateProducts:142, FrequencyRebin:20,
 SelectFreq:333, MModeTransform:535, MModeInverseTransform:708,
-SiderealMModeResample:795, ShiftRA:993, Regridder:854) and the Stokes I
-extraction (StokesIVis:1333, stokes_I:1382).  Every task works on its
-container's device.
+SiderealMModeResample:795, ShiftRA:993, Regridder:854), the Stokes I
+extraction (StokesIVis:1333, stokes_I:1382) and the weighted reductions
+(ReduceBase:1904, ReduceVar:2065, ReduceChisq:2092,
+ReduceChisqInverseRedundancy:2120).  Every task works on its container's
+device.
 
 Two plain functions carry the math of the slice:
 
@@ -45,6 +47,10 @@ __all__ = [
     "CollateProducts",
     "StokesIVis",
     "stokes_I",
+    "ReduceBase",
+    "ReduceVar",
+    "ReduceChisq",
+    "ReduceChisqInverseRedundancy",
 ]
 
 
@@ -618,3 +624,143 @@ def stokes_I(sstream, tel):
     src, dst, ubase = stokes_I_index(tel)
     nb = ubase.shape[0]
     return stokes_I_sum(sstream.vis[:], src, dst, nb), stokes_I_sum(sstream.weight[:], src, dst, nb), ubase
+
+
+class ReduceBase(ContainerTask):
+    """Weighted reduction across named axes (reference transform.py:1904).
+
+    Non-functional without overriding :meth:`reduction`.  At least one axis
+    must be excluded from the reduction.  The reduction runs on the
+    dataset's device.
+
+    Attributes
+    ----------
+    axes : list
+        Axis names to reduce over.
+    dataset : str
+        Dataset name to reduce.
+    weighting : "none" | "masked" | "weighted"
+    """
+
+    axes = config.list_prop()
+    dataset = config.str_prop()
+    weighting = config.enum(["none", "masked", "weighted"], default="none")
+
+    _op = None
+
+    def process(self, data):
+        """Apply the reduction; reduced axes collapse to length 1."""
+        out = self._make_output_container(data)
+        out.add_dataset(self.dataset)
+
+        ds = data.datasets[self.dataset]
+        ds_axes = list(ds.attrs["axis"])
+        arr = ds[:]
+
+        weight, w_axes = self._get_weights(data)
+        if weight is not None:
+            wslc = tuple(slice(None) if ax in w_axes else None for ax in ds_axes)
+            weight = torch.as_tensor(weight, device=arr.device)[wslc]
+        else:
+            weight = torch.ones(ds.shape, dtype=torch.float32, device=arr.device)
+            wslc = None
+        weight = weight.expand(ds.shape)
+
+        apply_over = tuple(ds_axes.index(ax) for ax in self.axes if ax in ds_axes)
+        reduced, reduced_weight = self.reduction(arr, weight, apply_over)
+        out[self.dataset][:] = reduced
+
+        if hasattr(out, "weight"):
+            if wslc is not None:
+                reduced_weight = reduced_weight[tuple(0 if ws is None else ws for ws in wslc)]
+            out.weight[:] = reduced_weight
+        return out
+
+    def _get_weights(self, data):
+        """Weights for the reduction (reference transform.py:2016)."""
+        if hasattr(data, "weight"):
+            return data.weight[:], list(data.weight.attrs["axis"])
+        if self.weighting != "none":
+            raise RuntimeError("Weighted/masked averaging needs a weight dataset, which is absent.")
+        return None, None
+
+    def _make_output_container(self, data):
+        """Same container type with the reduced axes collapsed to one entry."""
+        collapsed = {ax: np.asarray(data.index_map[ax])[:1] for ax in self.axes}
+        out = data.__class__(axes_from=data, attrs_from=data, skip_datasets=True, **collapsed)
+        out.attrs.update(
+            reduced=True,
+            reduction_axes=np.array(self.axes),
+            reduced_dataset=self.dataset,
+            reduction_op=self._op,
+        )
+        for wname in ("weight", "vis_weight"):
+            if wname in data.datasets:
+                out.add_dataset(wname)
+                break
+        return out
+
+    def reduction(self, arr, weight, axis):
+        """Override to implement the reduction operation."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _weighted_mean(arr, weight, axis):
+        """(summed weight, weighted mean), keeping the reduced axes."""
+        ws = weight.sum(dim=axis, keepdim=True)
+        return ws, (weight * arr).sum(dim=axis, keepdim=True) * invert_no_zero(ws)
+
+
+class ReduceVar(ReduceBase):
+    """Weighted variance over the given axes (reference transform.py:2065)."""
+
+    _op = "variance"
+
+    def reduction(self, arr, weight, axis):
+        if self.weighting == "none":
+            v = torch.var(arr, dim=axis, correction=0, keepdim=True)
+            return v, torch.ones_like(v)
+
+        if self.weighting == "masked":
+            weight = (weight > 0).to(torch.float32)
+
+        ws, mu = self._weighted_mean(arr, weight, axis)
+        # (arr - mu)**2, not |arr - mu|**2: for complex data the reference
+        # stores the complex pseudo-variance (transform.py:2087);
+        # ReduceChisq below uses the magnitude
+        v = (weight * (arr - mu) ** 2).sum(dim=axis, keepdim=True) * invert_no_zero(ws)
+        return v, ws
+
+
+class ReduceChisq(ReduceBase):
+    """Chi-squared per dof assuming weights are inverse noise variance.
+
+    (reference transform.py:2092)
+    """
+
+    _op = "chisq_per_dof"
+
+    def reduction(self, arr, weight, axis):
+        dof = ((weight > 0).sum(dim=axis, keepdim=True) - 1).clamp(min=0).to(arr.real.dtype)
+        _, mu = self._weighted_mean(arr, weight, axis)
+        chisq = (weight * (arr - mu).abs() ** 2).sum(dim=axis, keepdim=True)
+        return chisq * invert_no_zero(dof), dof
+
+
+class _InverseStackRedundancyWeights(ReduceBase):
+    """Weights that undo redundancy averaging (reference transform.py:2120)."""
+
+    def _get_weights(self, data):
+        if "stack" not in data.index_map:
+            raise RuntimeError("Weight calculation needs a 'stack' entry in the index map.")
+        counts = tools.calculate_redundancy(
+            data.input_flags[:],
+            data.index_map["prod"][:],
+            data.reverse_map["stack"]["stack"][:],
+            len(data.index_map["stack"]),
+        )
+        return data.weight[:] * invert_no_zero(counts**2)[None], list(data.weight.attrs["axis"])
+
+
+class ReduceChisqInverseRedundancy(ReduceChisq, _InverseStackRedundancyWeights):
+    """Chi-squared per dof, undoing redundancy averaging."""

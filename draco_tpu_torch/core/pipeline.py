@@ -385,7 +385,8 @@ class Manager(config_mod.Reader):
         ``torch.profiler`` (the card's kernels too, where there is one)
         and the trace written to ``<dir>/trace.json``; with
         ``pipeline.timing: true`` a per-task wall-clock summary is logged.
-        ``self.task_timing`` holds each task's wall time and call count.
+        ``self.task_timing`` holds each task's wall time and call count
+        (with the card synchronised at the end of every call).
         """
         if not self.profile_dir:
             return self._run()
@@ -410,6 +411,9 @@ class Manager(config_mod.Reader):
             try:
                 return fn(*args)
             finally:
+                # the card runs asynchronously: a task's kernels count in its own time
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
                 runner.wall_time += time.perf_counter() - t0
                 runner.n_calls += 1
 

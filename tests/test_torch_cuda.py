@@ -401,3 +401,167 @@ def test_batched_cross_gibbs_on_the_card_matches_the_cpu_statistics(cuda):
         assert ((ratio > 0.9) & (ratio < 1.1)).all()
     r = np.median(spec["card"][:, 0, 0].real[:, inb], -1) / np.median(spec["cpu"][:, 0, 0].real[:, inb], -1)
     assert ((r > 0.5) & (r < 2.0)).all(), r
+
+
+# -- the ring-map and power-spectrum path: the card against the CPU --------------------------
+
+def _rel_any(got, ref):
+    """max|got - ref| / max|ref| of real or complex tensors, in float64."""
+    wide = torch.complex128 if ref.is_complex() else torch.float64
+    got, ref = got.to(wide), ref.to(wide)
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+RING_CYL = dict(
+    num_cylinders=2, num_feeds=4, feed_spacing=1.0, cylinder_spacing=10.0, cylinder_width=10.0, latitude=45.0,
+    freq_lower=500.0, freq_upper=520.0, num_freq=4, auto_correlations=True,
+)
+
+
+def _ring_stream(device, tel, nra=32, seed=23):
+    from draco_tpu_torch.core import containers
+
+    prod = np.array([[int(a), int(b)] for a, b in tel.uniquepairs])
+    ss = containers.SiderealStream(freq=tel.frequencies, input=tel.nfeed, ra=nra, prod=prod, device=device)
+    rng = np.random.Generator(np.random.SFC64(seed))
+    shape = ss.vis.shape
+    ss.vis[:] = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    weight = rng.uniform(0.5, 2.0, shape).astype(np.float32)
+    weight[1, 3] = 0.0
+    ss.weight[:] = weight
+    ss.input_flags[:] = np.ones(ss.input_flags.shape, dtype=np.float32)
+    return ss
+
+
+def _run_task(task, params, setup, *inputs):
+    task.read_config(params)
+    if setup is not None:
+        task.setup(*setup)
+    return task.process(*inputs)
+
+
+@pytest.mark.parametrize("weight", ["natural", "hann"])
+def test_ring_map_maker_on_the_card_matches_the_cpu(cuda, weight):
+    """MakeVisGrid -> BeamformNS (precision 64) -> BeamformEW: the grid
+    exactly, the hybrid stream and the ring map within 1e-6."""
+    from draco_tpu_torch.analysis import ringmapmaker as rmm
+    from draco_tpu_torch.telescope import PolarisedCylinderTelescope
+
+    tel = PolarisedCylinderTelescope(**RING_CYL)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        grid = _run_task(rmm.MakeVisGrid(), {}, (tel,), _ring_stream(dev, tel))
+        hv = _run_task(rmm.BeamformNS(), {"npix": 64, "weight": weight, "save_dirty_beam": True}, None, grid)
+        rm = _run_task(rmm.BeamformEW(), {}, None, hv)
+        out[dev.type] = (grid, hv, rm)
+    (grid, hv, rm), (cgrid, chv, crm) = out["cuda"], out["cpu"]
+    assert rm.map[:].device == cuda
+    assert torch.equal(grid.vis[:].cpu(), cgrid.vis[:]) and torch.equal(grid.redundancy[:].cpu(), cgrid.redundancy[:])
+    for name in ("vis", "vis_weight", "dirty_beam"):
+        assert _rel_any(hv.datasets[name][:].cpu(), chv.datasets[name][:]) <= 1e-6, name
+    for name in ("map", "weight", "rms", "dirty_beam"):
+        assert _rel_any(rm.datasets[name][:].cpu(), crm.datasets[name][:]) <= 1e-6, name
+
+
+def _hybrid_mmodes_on(device, mmax=16, seed=5):
+    from draco_tpu_torch.core import containers
+
+    hv = containers.HybridVisMModes(
+        mmax=mmax, oddra=False, freq=np.array([500.0, 510.0]), pol=np.array(["XX", "YY"]), ew=np.array([0.0, 20.0]),
+        el=np.linspace(-0.2, 0.2, 4), device=device,
+    )
+    rng = np.random.Generator(np.random.SFC64(seed))
+    shape = hv.vis.shape
+    hv.vis[:] = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    hv.weight[:] = rng.uniform(0.5, 2.0, hv.weight.shape).astype(np.float32)
+    return hv
+
+
+@pytest.mark.parametrize("maker", ["WienerRingMapMakerAnalytical", "TikhonovRingMapMakerAnalytical"])
+def test_deconvolving_maker_on_the_card_matches_the_cpu(cuda, maker):
+    """The analytical beam's m-modes and the deconvolved map, weight and
+    dirty-beam power within 1e-6 (complex128 in both; the beam stored complex64)."""
+    from draco_tpu_torch.analysis import ringmapmaker as rmm
+    from draco_tpu_torch.telescope import PolarisedCylinderTelescope
+
+    tel = PolarisedCylinderTelescope(**dict(RING_CYL, cylinder_spacing=20.0, num_freq=2))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        out[dev.type] = _run_task(getattr(rmm, maker)(), {"save_dirty_beam": True}, (tel,), _hybrid_mmodes_on(dev))
+    assert out["cuda"].map[:].device == cuda
+    for name in ("map", "weight", "dirty_beam_power", "dirty_beam"):
+        assert _rel_any(out["cuda"].datasets[name][:].cpu(), out["cpu"].datasets[name][:]) <= 1e-6, name
+
+
+def _hybrid_stream_on(device, tel, nra=8, seed=8):
+    from draco_tpu_torch.core import containers
+
+    hv = containers.HybridVisStream(
+        freq=tel.frequencies, pol=np.array(["XX", "YY"]), ew=np.array([0.0, 20.0]), el=np.linspace(-0.3, 0.3, 5),
+        ra=nra, device=device,
+    )
+    rng = np.random.Generator(np.random.SFC64(seed))
+    w = rng.uniform(0.5, 2.0, hv.weight.shape)
+    w[0, 1, 0, 3] = 0.0
+    hv.weight[:] = w.astype(np.float32)
+    hv.attrs.update(beamform_ns_weight="natural", beamform_ns_include_auto=False, beamform_ns_scaled=False,
+                    beamform_ns_freqmin=float(tel.frequencies.min()), beamform_ns_nsmax=1.0)
+    nf = len(tel.frequencies)
+    a = rng.standard_normal((2, 2, nra, nf, nf))
+    hv.add_dataset("freq_cov")
+    hv.freq_cov[:] = np.moveaxis(np.einsum("pxrij,pxrkj->pxrik", a, a) + nf * np.eye(nf), (3, 4), (1, 2))
+    return hv
+
+
+def test_reconstruct_vis_freq_cov_on_the_card_matches_the_cpu(cuda):
+    """The batched cuSOLVER Cholesky against the CPU's within 1e-10 (float64),
+    and a failed factorisation raises on the card too."""
+    from draco_tpu_torch.analysis import ringmapmaker as rmm
+    from draco_tpu_torch.telescope import PolarisedCylinderTelescope
+
+    tel = PolarisedCylinderTelescope(**dict(RING_CYL, num_feeds=3, feed_spacing=0.5, cylinder_spacing=20.0))
+    card = _run_task(rmm.ReconstructVisFreqCov(), {}, (tel,), _hybrid_stream_on(cuda, tel))
+    cpu = _run_task(rmm.ReconstructVisFreqCov(), {}, (tel,), _hybrid_stream_on(torch.device("cpu"), tel))
+    assert card.freq_cov[:].device == cuda
+    assert _rel_any(card.freq_cov[:].cpu(), cpu.freq_cov[:]) <= 1e-10
+    assert _rel_any(card.weight[:].cpu(), cpu.weight[:]) <= 1e-6
+    bad = _hybrid_stream_on(cuda, tel)
+    bad.freq_cov[0, 1, 1, 0, 2] = -5.0
+    with pytest.raises(RuntimeError, match="Cholesky factorisation failed"):
+        _run_task(rmm.ReconstructVisFreqCov(), {}, (tel,), bad)
+
+
+def test_wiener_delay_transform_on_the_card_matches_the_cpu(cuda):
+    """The Wiener operator (batched ``inv_ex`` in complex128, stored
+    complex64) within 1e-6, the applied transform within 1e-5 and the
+    spatial transform within 1e-5 of the CPU's, with two masked channels."""
+    from draco_tpu_torch.analysis import powerspec as ps
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.telescope import UnpolarisedDishArray
+
+    freq = np.linspace(500.0, 532.0, 32, endpoint=False)
+    tel = UnpolarisedDishArray(grid_ew=2, grid_ns=2, spacing_ew=20.0, spacing_ns=6.0, latitude=45.0,
+                               freq_lower=500.0, freq_upper=532.0, num_freq=2, auto_correlations=True)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        rng = np.random.Generator(np.random.SFC64(3))
+        rm = containers.RingMap(freq=freq, beam=np.arange(1), pol=np.array(["XX", "YY"]), ra=8,
+                                el=np.linspace(-0.05, 0.05, 5), device=dev)
+        rm.map[:] = np.cos(2 * np.pi * 5 / 32 * freq)[None, None, :, None, None] + 0.1 * rng.standard_normal(rm.map.shape)
+        w = rng.uniform(0.5, 2.0, rm.weight.shape)
+        w[:, 10:12] = 0.0
+        rm.weight[:] = w
+        for name in ("filter", "freq_cov"):
+            rm.add_dataset(name)
+            rm.datasets[name][:] = np.broadcast_to(np.eye(32)[None, :, :, None], rm.datasets[name].shape)
+        rm.add_dataset("dirty_beam_power")
+        rm.dirty_beam_power[:] = rng.uniform(0.5, 1.5, rm.dirty_beam_power.shape)
+        op = _run_task(ps.ConstructWienerDelayTransform(), {"prior_amp": 100.0}, None, rm)
+        ds = _run_task(ps.ApplyWienerDelayTransform(), {}, None, rm, op)
+        cube = _run_task(ps.SpatialTransformDelayMap(), {"ew_min": 0.0, "ew_max": 10.0, "ns_bl": 10.0}, (tel,), ds)
+        out[dev.type] = (op, ds, cube)
+    (op, ds, cube), (cop, cds, ccube) = out["cuda"], out["cpu"]
+    assert op.filter[:].device == cuda and cube.vis[:].device == cuda
+    assert _rel_any(op.filter[:].cpu(), cop.filter[:]) <= 1e-6
+    assert _rel_any(ds.spectrum[:].cpu(), cds.spectrum[:]) <= 1e-5
+    assert _rel_any(cube.vis[:].cpu(), ccube.vis[:]) <= 1e-5

@@ -496,3 +496,51 @@ def test_chain_closed_loop(chains):
     rescaled = (map_a / ratio - map_b).abs().max() / map_b.abs().max()
     print(f"closed loop: weight ratio {ratio:.2f}, rescaled maps max|diff|/max|ref| {rescaled.item():.3e}")
     assert rescaled < 0.1
+
+
+# -- the weighted reductions (transform.py's Reduce* family) -------------------------------
+
+
+def _reduce_stream(package, seed=21):
+    """A seeded 3-feed stream (6 products, each its own stack), 3 frequencies,
+    12 RA samples, with zero weights and per-input flags that vary in time."""
+    rng = np.random.Generator(np.random.SFC64(seed))
+    prod = np.array([[a, b] for a in range(3) for b in range(a, 3)])
+    ss = package.SiderealStream(freq=np.array([400.0, 410.0, 420.0]), input=3, ra=12, prod=prod)
+    shape = ss.vis.shape
+    ss.vis[:] = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    weight = rng.uniform(0.5, 2.0, shape).astype(np.float32)
+    weight[1, 2, :4] = 0.0
+    weight[:, 4, 7] = 0.0
+    ss.weight[:] = weight
+    flags = np.ones(ss.input_flags.shape, dtype=np.float32)
+    flags[1, ::3] = 0.0
+    ss.input_flags[:] = flags
+    return ss
+
+
+@pytest.mark.parametrize(
+    "name,params",
+    [
+        ("ReduceVar", {"axes": ["ra"], "dataset": "vis", "weighting": "none"}),
+        ("ReduceVar", {"axes": ["ra"], "dataset": "vis", "weighting": "masked"}),
+        ("ReduceVar", {"axes": ["freq", "ra"], "dataset": "vis", "weighting": "weighted"}),
+        ("ReduceChisq", {"axes": ["ra"], "dataset": "vis"}),
+        ("ReduceChisq", {"axes": ["freq"], "dataset": "vis"}),
+        ("ReduceChisqInverseRedundancy", {"axes": ["ra"], "dataset": "vis"}),
+    ],
+    ids=["var_none", "var_masked", "var_weighted", "chisq_ra", "chisq_freq", "chisq_inverse_redundancy"],
+)
+def test_reductions_match_jax(name, params):
+    """float32 data in both packages: 2e-6 of the largest value."""
+    jout = _run(getattr(jtransform, name)(), params, None, _reduce_stream(jcontainers))
+    tout = _run(getattr(transform, name)(), params, None, _reduce_stream(containers))
+    assert type(tout).__name__ == type(jout).__name__
+    for ax in params["axes"]:
+        assert len(tout.index_map[ax]) == 1 and np.array_equal(tout.index_map[ax], jout.index_map[ax])
+    for key in ("reduced", "reduced_dataset", "reduction_op"):
+        assert tout.attrs[key] == jout.attrs[key]
+    assert list(tout.attrs["reduction_axes"]) == params["axes"]
+    assert tout.vis.shape == jout.vis.shape
+    assert _rel(tout.vis[:], np.asarray(jout.vis[:])) <= 2e-6
+    assert _rel(tout.weight[:], np.asarray(jout.weight[:])) <= 2e-6
