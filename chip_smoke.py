@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code != 0):
 
 1. set-up: needs a CUDA device; prints the card's name and power limit;
-   builds the CUDA kernel from ``draco_tpu_torch/csrc`` with nvcc;
+   builds the CUDA kernels from ``draco_tpu_torch/csrc``, one nvcc for
+   each source, all started together;
 2. the banded-covariance kernel against its plain PyTorch version in
    float64 on the card, on the operands that phase 3's regrid hands it
    (R [2098, 8640] from a Lanczos matrix of one jittered sidereal day,
@@ -180,6 +181,39 @@ Phases, each of which raises on failure (exit code != 0):
    the tone's delay bin above 10 x every other nonzero
    delay bin of its pixel; every output finite, of its container type and
    shape (every factorisation's ``info`` 0, or the task raises).
+18. the day-stacking and source-beamforming path on phase 17's cylinder and
+   band, through the pipeline ``Manager`` (``retain_products: final``):
+   this script's ``EmitDayStream`` (three sidereal days of 8640 samples,
+   each in two halves plus the 24-sample boundary files it shares with its
+   neighbours; unit complex noise with weights 1, three flagged cells with
+   interference a file, and 16 catalogue sources at 100 x the noise seen
+   through the telescope's own ``beam_at``) -> ``SiderealGrouper`` ->
+   ``SiderealRegridder`` (4096 samples, the banded-covariance kernel at
+   blocks of 8 channels x 7155 stacks) -> ``SiderealStacker`` (inverse
+   variance, sample variance) and ``SiderealStackerMatch`` ->
+   ``BeamFormCat`` (the task's defaults: full polarisation, natural
+   weights, a 900 s track, 85 HA samples collapsed) on this script's
+   8192-source ``SpectroscopicCatalog`` -> ``SourceStack``; a second
+   ``BeamFormCat`` with ``collapse_ha: false`` on 512 sources that
+   ``RandomSubset`` draws; the last day through ``SiderealRebinner`` ->
+   ``RebinGradientCorrection`` (against its regridded self).  Probes keep
+   64 sampled (freq, stack) rows of every day.  Prints the per-task
+   seconds, the peak device memory and both kernels' launches (zeroed just
+   before the run).  Checks: the launches (3 days x 2 regrid blocks;
+   beamform > 0); every kept product finite, of its type and shape; the
+   stack's rows within 1e-6 of a float64 West update on the host (the
+   sample variance within its float32 rounding bound) and nsample 3 where
+   all days have weight; the matched stack within 1e-5 of float64 on the
+   host; the rebinned rows within 1e-5 of a float64 host rebin; the 16
+   injected sources' formed flux within 5 sigma (from the formed weights)
+   plus the regulariser's shrink of the flux; every other source's
+   inverse-variance mean over XX, YY and the channels within 5 sigma of 0;
+   ``SourceStack`` within 1e-6 of a float64 host segment sum; 64 sampled
+   sources' formed beams within 1e-4 of a float64 evaluation of the JAX
+   program's formula on the host; the beamform kernel within 1e-5 of its
+   plain version on 256 sources, timed beside it at the task's batch of
+   32; the banded covariance at the regrid's block against its plain
+   version in float64.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -189,6 +223,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -313,6 +348,32 @@ N_RING_HOST = 64  # RA samples of the float64 host beamforming check
 TOL_RING_HOST = 1e-5
 TOL_RING_AMP = 1e-3  # the other sources' NS and RA sidelobes: 1.1e-4 here, 1.3e-2 with 4 feeds a cylinder
 RING_TONE_CONTRAST = 10.0
+# phase 18: the day-stacking and source-beamforming path on phase 17's cylinder and band
+STACK_NFREQ = RING_NFREQ
+STACK_NTIME = 8640  # samples a sidereal day (CHIME's ~10 s cadence)
+STACK_PAD = 12  # samples beyond each end of a day: the boundary files shared by two days
+STACK_DAYS = 3
+STACK_SAMPLES = 4096  # CHIME's sidereal grid
+STACK_NSRC = 8192
+STACK_NINJ = 16
+STACK_NSUB = 512  # sources of the HA-resolved BeamFormCat
+STACK_FLUX = 100.0  # injected flux over the noise's per-sample standard deviation
+STACK_INJECT_HA = 20.0  # deg: the sources are added within this of transit (the beam there is < 1e-12)
+STACK_RFI = 1e5
+STACK_FREQSIDE = 7
+STACK_SEED = 18
+STACK_NU21 = 1420.405751768
+STACK_C = 299792458.0
+N_STACK_CHECK = 64  # sampled (freq, stack) rows of the host checks
+N_BEAM_CHECK = 64  # sources of the host beamforming check
+N_KERNEL_CHECK = 256  # sources of the beamform kernel's check
+TOL_STACK = 1e-6
+TOL_MATCH = 1e-5
+TOL_REBIN = 1e-5
+TOL_BEAMFORM_HOST = 1e-4
+TOL_BEAMFORM_KERNEL = 1e-5
+TOL_SOURCESTACK = 1e-6
+STACK_PROBES: dict = {}  # what phase 18's probes keep for the host checks
 
 LSD = 8000
 CHAIN_SAMPLES_PER_DAY = 8640
@@ -2472,6 +2533,702 @@ def run_ringmap(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = RING_NFREQ
         raise RuntimeError(f"phase 17 (ring-map path) failed: {', '.join(failures)}")
 
 
+def stack_catalog(tel, nsrc: int, ninj: int, nfreq: int, seed: int = STACK_SEED):
+    """Phase 18's catalogue in ICRS: ``ninj`` sources at RA 1 + 15 k deg, 3-4
+    deg north and south of the zenith's declination in turn (so that each
+    one's neighbours, 15 deg away, are 8.5 deg off the zenith while it
+    transits: 1e-2 of their flux is left there), the ones the day streams
+    carry; and the others at RA 251-336 deg, 25 deg or more from every
+    injected one (an injected source 21 deg of hour angle off transit keeps
+    1e-7 of its flux), at any declination within 15 deg of the zenith's;
+    redshifts put every 21 cm line in the band.  Returns (ra, dec, z), each
+    [nsrc]."""
+    rng = np.random.Generator(np.random.SFC64(seed))
+    ra = rng.uniform(251.0, 336.0, nsrc)
+    dec = tel.latitude + rng.uniform(-15.0, 15.0, nsrc)
+    k = np.arange(ninj)
+    ra[:ninj] = 1.0 + 15.0 * k
+    dec[:ninj] = tel.latitude + np.array([-4.0, 4.0, -3.0, 3.0])[k % 4]
+    f = tel.frequencies
+    df = abs(f[1] - f[0]) if nfreq > 1 else 0.390625
+    line = rng.uniform(f.min() + df, f.max() - df, nsrc)
+    return ra, dec, STACK_NU21 / line - 1.0
+
+
+def stack_epoch(tel, ndays: int) -> float:
+    """Unix epoch of the stack's mean LSD, where ``BeamFormCat`` precesses the catalogue."""
+    return float(tel.lsd_to_unix(np.mean(LSD + np.arange(ndays))))
+
+
+def stack_pol_index(tel, prodstack) -> np.ndarray:
+    """Index into (XX, XY, YX, YY) of each stack, as ``BeamFormBase`` labels them."""
+    pol = np.asarray(tel.polarisation)
+    pair = np.char.add(pol[prodstack["input_a"].astype(int)], pol[prodstack["input_b"].astype(int)])
+    return np.array([["XX", "XY", "YX", "YY"].index(p) for p in pair])
+
+
+def stack_beams(tel, dec, ha) -> np.ndarray:
+    """Primary-beam power [pol, freq, len(ha)] of (XX, XY, YX, YY) at declination
+    ``dec`` along hour angles ``ha`` (radians), as ``BeamFormBase._beamfunc``
+    forms it from ``beam_at``."""
+    pol = list(np.asarray(tel.polarisation))
+    feed = {"X": pol.index("X"), "Y": pol.index("Y")}
+    angpos = np.stack([(0.5 * np.pi - dec) * np.ones_like(ha), ha], axis=-1)
+    out = np.zeros((4, tel.nfreq, ha.size))
+    for fi in range(tel.nfreq):
+        b = {p: np.atleast_2d(tel.beam_at(feed[p], fi, angpos)) for p in "XY"}
+        for k, pp in enumerate(("XX", "XY", "YX", "YY")):
+            out[k, fi] = np.sum(b[pp[0]] * b[pp[1]].conj(), axis=-1).real
+    return out
+
+
+def stack_files(ntime: int, pad: int, ndays: int):
+    """Sample ranges [k0, k1) of the day-stream files on the grid lsd = LSD + k / ntime:
+    a boundary file of 2 ``pad`` samples at every day boundary, and each day's
+    remaining samples in two halves.  ``SiderealGrouper`` joins a day from its
+    halves and the boundary files on either side, ``pad`` samples beyond the
+    day at each end (the regridder needs the day's ends inside the samples)."""
+    files = [(-pad, pad)]
+    for d in range(ndays):
+        lo, mid, hi = d * ntime + pad, d * ntime + ntime // 2, (d + 1) * ntime - pad
+        files += [(lo, mid), (mid, hi), (hi, hi + 2 * pad)]
+    return files
+
+
+def stack_day_file(tel, maps, k0: int, k1: int, ntime: int, sources, device, seed: int):
+    """One file of phase 18's day streams: unit complex noise (weights 1) drawn
+    on the card from ``seed``, three flagged cells with interference, and the
+    point sources ``sources`` [(ra, dec CIRS deg, flux)] seen through the
+    telescope's own beam within 20 deg of transit: ``flux * pb * exp(2 pi i
+    d)``, with pb and d as ``BeamFormCat`` forms them."""
+    import torch
+
+    from draco_tpu_torch.core import containers
+
+    lsd = LSD + np.arange(k0, k1) / ntime
+    ts = containers.TimeStream(
+        freq=tel.frequencies, input=tel.nfeed, prod=maps.bt_prod, stack=maps.bt_stack,
+        reverse_map_stack=maps.bt_rev, time=tel.lsd_to_unix(lsd), device=device,
+    )
+    ts.input_flags[:] = 1.0
+    vis, weight = ts.vis[:], ts.weight[:]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    torch.randn(vis.shape + (2,), generator=gen, device=device, out=torch.view_as_real(vis))
+    vis.mul_(np.sqrt(0.5))
+    weight.fill_(1.0)
+    rng = np.random.Generator(np.random.SFC64(seed))
+    for _ in range(3):
+        f, s, t = rng.integers(0, vis.shape[0]), rng.integers(0, vis.shape[1]), rng.integers(0, vis.shape[2])
+        weight[f, s, t] = 0.0
+        vis[f, s, t] += STACK_RFI
+
+    ps = ts.prodstack
+    pidx = torch.as_tensor(stack_pol_index(tel, ps), device=device)
+    pos = tel.feedpositions
+    bl = pos[ps["input_a"].astype(int)] - pos[ps["input_b"].astype(int)]  # [stack, 2] m
+    nu = tel.frequencies * 1e6 / STACK_C
+    u = torch.as_tensor(nu[:, None] * bl[None, :, 0], device=device)
+    v = torch.as_tensor(nu[:, None] * bl[None, :, 1], device=device)
+    lat = np.radians(tel.latitude)
+    lst = 360.0 * np.mod(lsd, 1.0)
+    for ra_s, dec_s, flux in sources:
+        ha = np.radians((lst - ra_s + 180.0) % 360.0 - 180.0)
+        sel = np.flatnonzero(np.abs(ha) <= np.radians(STACK_INJECT_HA))
+        if sel.size == 0:
+            continue
+        h, dec = ha[sel], np.radians(dec_s)
+        a = torch.as_tensor(np.cos(dec) * np.sin(h), device=device)
+        b = torch.as_tensor(np.cos(lat) * np.sin(dec) - np.sin(lat) * np.cos(dec) * np.cos(h), device=device)
+        d = u[:, :, None] * a + v[:, :, None] * b  # [freq, stack, t] turns
+        pb = torch.as_tensor(stack_beams(tel, dec, h), device=device)[pidx].transpose(0, 1)  # [freq, stack, t]
+        tsel = torch.as_tensor(sel, device=device)
+        add = torch.polar(flux * pb, 2 * np.pi * (d - torch.round(d)))
+        vis.index_add_(2, tsel, add.to(vis.dtype))
+        del d, pb, add
+    return ts
+
+
+def take_rows(x, f, s) -> np.ndarray:
+    """``x[f, s]`` on the host; a uint16 tensor is read through its int16
+    view, as CUDA indexes no uint16."""
+    import torch
+
+    if x.dtype == torch.uint16:
+        return x.view(torch.int16)[f, s].cpu().numpy().view(np.uint16)
+    return x[f, s].cpu().numpy()
+
+
+def stacking_tasks() -> dict:
+    """Define phase 18's source tasks (the day streams and the catalogue) and
+    its probes in this module; return their task paths."""
+    import torch
+
+    from draco_tpu_torch.analysis.beamform import icrs_to_cirs
+    from draco_tpu_torch.analysis.transform import TelescopeStreamMixIn
+    from draco_tpu_torch.core import config, containers, io
+    from draco_tpu_torch.core.task import ContainerTask, PipelineStopIteration
+    from draco_tpu_torch.device import resolve
+
+    class EmitDayStream(ContainerTask):
+        """The day-stream files of :func:`stack_files`, one a call."""
+
+        ntime = config.int_prop(STACK_NTIME)
+        pad = config.int_prop(STACK_PAD)
+        ndays = config.int_prop(STACK_DAYS)
+        nsrc = config.int_prop(STACK_NSRC)
+        ninj = config.int_prop(STACK_NINJ)
+        flux = config.float_prop(STACK_FLUX)
+
+        def setup(self, tel):
+            self.tel = io.get_telescope(tel)
+            self.maps = TelescopeStreamMixIn()
+            self.maps.setup(self.tel)
+            self.files = stack_files(self.ntime, self.pad, self.ndays)
+            ra, dec, _ = stack_catalog(self.tel, self.nsrc, self.ninj, self.tel.nfreq)
+            ra_c, dec_c = icrs_to_cirs(ra[: self.ninj], dec[: self.ninj], stack_epoch(self.tel, self.ndays))
+            self.sources = [(r, d, self.flux) for r, d in zip(ra_c, dec_c)]
+
+        def process(self):
+            if self._count >= len(self.files):
+                raise PipelineStopIteration()
+            k0, k1 = self.files[self._count]
+            return stack_day_file(self.tel, self.maps, k0, k1, self.ntime, self.sources, resolve(),
+                                  _seed(STACK_SEED, self._count))
+
+    class EmitCatalog(ContainerTask):
+        """The :func:`stack_catalog` as a ``SpectroscopicCatalog`` in ICRS."""
+
+        nsrc = config.int_prop(STACK_NSRC)
+        ninj = config.int_prop(STACK_NINJ)
+
+        def setup(self, tel):
+            self.tel = io.get_telescope(tel)
+
+        def process(self):
+            if self._count:
+                raise PipelineStopIteration()
+            ra, dec, z = stack_catalog(self.tel, self.nsrc, self.ninj, self.tel.nfreq)
+            cat = containers.SpectroscopicCatalog(object_id=np.arange(self.nsrc))
+            pos = np.zeros(self.nsrc, dtype=[("ra", np.float64), ("dec", np.float64)])
+            pos["ra"], pos["dec"] = ra, dec
+            red = np.zeros(self.nsrc, dtype=[("z", np.float64), ("z_error", np.float64)])
+            red["z"] = z
+            cat["position"][:] = pos
+            cat["redshift"][:] = red
+            cat.attrs["tag"] = "catalog"
+            return cat
+
+    class Probe(ContainerTask):
+        """Passes its input through unchanged, keeping the sampled (freq, stack)
+        rows of ``STACK_PROBES`` (and, for a joined day, its first regrid
+        block's weights) for the host checks."""
+
+        kind = config.str_prop("raw")
+        block_freqs = config.int_prop(0)
+
+        def process(self, data):
+            rec = {"lsd": data.attrs.get("lsd")}
+            f, s = STACK_PROBES["rows"]
+            ft, st = (torch.as_tensor(x, device=data.vis[:].device) for x in (f, s))
+            for name in ("vis", "weight", "nsample", "effective_ra"):
+                if name == "vis" or name == "weight" or name in data.datasets:
+                    ds = data.vis if name == "vis" else data.weight if name == "weight" else data.datasets[name]
+                    rec[name] = take_rows(ds[:], ft, st)
+            if self.kind == "raw":
+                rec["times"] = data.time.copy()
+                if self.block_freqs and "block" not in STACK_PROBES:
+                    w = data.weight[:]
+                    STACK_PROBES["block"] = (data.time.copy(), w[: self.block_freqs].reshape(-1, w.shape[-1]).clone())
+            if self.kind == "sday":
+                rec["Ni"] = data.weight[:].double().mean(dim=1).cpu().numpy()
+            STACK_PROBES.setdefault(self.kind, []).append(rec)
+            return data
+
+    class Hold(ContainerTask):
+        """Passes its input through under a label no task consumes, so that a
+        ``retain_products: final`` run keeps it."""
+
+        def process(self, data):
+            return data
+
+    class PickDay(ContainerTask):
+        """Passes on the ``index``-th input only."""
+
+        index = config.int_prop(0)
+
+        def process(self, data):
+            self._seen = getattr(self, "_seen", -1) + 1
+            return data if self._seen == self.index else None
+
+    for cls in (EmitDayStream, EmitCatalog, Probe, Hold, PickDay):
+        globals()[cls.__name__] = cls
+    return {cls.__name__: f"{__name__}.{cls.__name__}" for cls in (EmitDayStream, EmitCatalog, Probe, Hold, PickDay)}
+
+
+def stack_config(product_dir: str, paths: dict, ntime: int, pad: int, ndays: int, samples: int, nsrc: int,
+                 ninj: int, nsub: int, freqside: int, block_freqs: int) -> dict:
+    """Phase 18's chain as a pipeline config mapping."""
+    an = "draco.analysis."
+    emit = {"ntime": ntime, "pad": pad, "ndays": ndays, "nsrc": nsrc, "ninj": ninj}
+    return {"pipeline": {"retain_products": "final", "tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "btm"], "params": {"product_directory": product_dir}},
+        {"type": paths["EmitDayStream"], "requires": "tel", "out": "tstream", "params": emit},
+        {"type": paths["EmitCatalog"], "requires": "tel", "out": "catalog", "params": {"nsrc": nsrc, "ninj": ninj}},
+        {"type": an + "sidereal.SiderealGrouper", "requires": "tel", "in": "tstream", "out": "day"},
+        {"type": paths["Probe"], "in": "day", "out": "day_p", "params": {"kind": "raw", "block_freqs": block_freqs}},
+        {"type": an + "sidereal.SiderealRegridder", "requires": "tel", "in": "day_p", "out": "sday",
+         "params": {"samples": samples, "kernel_width": KERNEL_WIDTH, "epsilon": EPSILON}},
+        {"type": paths["Probe"], "in": "sday", "out": "sday_p", "params": {"kind": "sday"}},
+        {"type": an + "sidereal.SiderealStacker", "in": "sday_p", "out": "sstack",
+         "params": {"with_sample_variance": True}},
+        {"type": an + "sidereal.SiderealStackerMatch", "in": "sday_p", "out": "mstack"},
+        {"type": paths["Hold"], "in": "sstack", "out": "sstack_kept"},
+        {"type": an + "beamform.BeamFormCat", "requires": ["tel", "sstack"], "in": "catalog", "out": "fbeam"},
+        {"type": paths["Hold"], "in": "fbeam", "out": "fbeam_kept"},
+        {"type": an + "sourcestack.SourceStack", "in": "fbeam", "out": "fstack", "params": {"freqside": freqside}},
+        {"type": an + "sourcestack.RandomSubset", "requires": "catalog", "out": "subcat",
+         "params": {"number": 1, "size": nsub, "seed": STACK_SEED}},
+        {"type": an + "beamform.BeamFormCat", "requires": ["tel", "sstack"], "in": "subcat", "out": "fbeam_ha",
+         "params": {"collapse_ha": False}},
+        {"type": paths["PickDay"], "in": "day_p", "out": "rawday_last", "params": {"index": ndays - 1}},
+        {"type": an + "sidereal.SiderealRebinner", "requires": "tel", "in": "rawday_last", "out": "rday",
+         "params": {"samples": samples}},
+        {"type": paths["Probe"], "in": "rday", "out": "rday_p", "params": {"kind": "rday"}},
+        {"type": paths["PickDay"], "in": "sday_p", "out": "sday_last", "params": {"index": ndays - 1}},
+        {"type": an + "sidereal.RebinGradientCorrection", "requires": "sday_last", "in": "rday_p",
+         "out": "rday_corr"},
+    ]}}
+
+
+def host_west_stack(days):
+    """The stack and sample variance of ``days`` (probe records of the sampled
+    rows) by the West (1979) update in float64 numpy, inverse-variance
+    weights.  Returns (vis, weight, nsample, sample_variance [3, ...],
+    sv_bound [...]): the last bounds the float32 update's rounding in the
+    sample variance, 2^-22 w |d| (|d| + |stack|) a day, scaled as the sample
+    variance is (the first day's after-delta is d minus its own rounded
+    copy, so a bright source leaves |d|^2-sized rounding in a noise-sized sum)."""
+    vis = np.zeros(days[0]["vis"].shape, complex)
+    w_st = np.zeros(vis.shape)
+    n = np.zeros(vis.shape)
+    scs = np.zeros(vis.shape)
+    sv = np.zeros((3,) + vis.shape)
+    rnd = np.zeros(vis.shape)
+    inv = lambda x: np.where(x == 0, 0.0, 1.0 / np.where(x == 0, 1.0, x))  # noqa: E731
+    for day in days:
+        d, w = day["vis"].astype(complex), day["weight"].astype(np.float64)
+        n += w > 0
+        rnd += 2.0**-22 * w * np.abs(d) * (np.abs(d) + np.abs(vis))
+        w_st += w
+        before = w * (d - vis)
+        vis = vis + before * inv(w_st)
+        scs += w**2
+        after = d - vis
+        sv += np.stack([before.real * after.real, before.real * after.imag, before.imag * after.imag])
+    scale = np.where(n > 1, inv(w_st - scs * inv(w_st)), 0.0)
+    return vis, w_st, n, sv * scale, rnd * scale
+
+
+def host_match_stack(days, rows):
+    """The matched stack of the sampled rows in float64 numpy: each day's
+    running update with its [freq, ra] mean weight, then the deconvolution of
+    the per-day mean modes and the median subtraction."""
+    f = rows[0]
+    st = 0.0
+    Ni_s, V = 0.0, []
+    for day in days:
+        Ni = day["Ni"]  # [freq, ra], float64 means over every stack
+        v = Ni / np.sqrt(Ni.sum(axis=1))[:, None]
+        d = day["vis"].astype(complex)  # [row, ra]
+        st = st + d * Ni[f] - v[f] * np.sum(d * v[f], axis=1)[:, None]
+        Ni_s, V = Ni_s + Ni, V + [v]
+    V64 = np.array(V).transpose(1, 2, 0) / Ni_s[:, :, None]  # [freq, ra, day]
+    M = np.eye(len(days))[None] - np.einsum("frd,fr,fre->fde", V64, Ni_s, V64)
+    A = np.linalg.pinv(M, rcond=1e-8)[f]  # [row, day, day]
+    X = np.einsum("sr,srd->sd", st, V64[f])
+    sv = st / Ni_s[f] + np.einsum("srd,sd->sr", V64[f], np.einsum("sde,se->sd", A, X))
+    return sv - (np.median(sv.real, axis=1) + 1j * np.median(sv.imag, axis=1))[:, None]
+
+
+def host_rebin(raw, lsd, samples: int):
+    """``SiderealRebinner`` (inverse-variance weights) of the sampled rows of
+    one joined day at sample LSDs ``lsd``, in float64 numpy.  Returns (vis,
+    weight, nsample, effective_ra)."""
+    from draco_tpu_torch.ops import regrid
+
+    start = float(raw["lsd"])
+    target = np.linspace(start, start + 1, samples, endpoint=False)
+    Rt = regrid.rebin_matrix(lsd, target, width_t=np.median(np.abs(np.diff(lsd)))).T
+    w = raw["weight"].astype(np.float64)
+    inv = lambda x: np.where(x == 0, 0.0, 1.0 / np.where(x == 0, 1.0, x))  # noqa: E731
+    norm = inv(w @ Rt)
+    vis = norm * ((raw["vis"].astype(complex) * w) @ Rt)
+    weight = inv(norm**2 * (w @ Rt**2))
+    nsample = (w > 0).astype(np.float64) @ Rt
+    era = 360.0 * norm * (((lsd - start) * w) @ Rt)
+    era = np.where(weight == 0, 360.0 * (target - start), era)
+    return vis, weight, nsample, era
+
+
+def host_beamform(tel, arrays, ra_axis, src_ra, src_dec, nha_side: int, pols):
+    """``_beamform_sources_jit``'s formula (natural weights, the hour angle
+    collapsed) for a few sources, in float64 on the host CPU: ``arrays`` maps
+    each pol to its host (vis [freq, ra, prod], sw, vw, u, v), the task's own
+    float32 inputs.  Returns (formed [src, pol, freq], weight [src, pol, freq])."""
+    import torch
+
+    nra = len(ra_axis)
+    lat = np.radians(tel.latitude)
+    out, wout = [], []
+    for ra_s, dec_s in zip(src_ra, src_dec):
+        idx = np.searchsorted(ra_axis, ra_s) % nra
+        win = np.arange(idx - nha_side, idx + nha_side + 1) % nra
+        ha = np.radians(ra_axis[win] - ra_s)
+        ha = (ha + np.pi) % (2 * np.pi) - np.pi
+        dec = np.radians(dec_s)
+        pbs = stack_beams(tel, dec, ha)
+        a = torch.as_tensor(np.cos(dec) * np.sin(ha))
+        b = torch.as_tensor(np.cos(lat) * np.sin(dec) - np.sin(lat) * np.cos(dec) * np.cos(ha))
+        rows = torch.as_tensor(win)
+        fs, ws = [], []
+        for p in pols:
+            vis, sw, vw, u, v = arrays[p]
+            pb = torch.as_tensor(pbs[["XX", "XY", "YX", "YY"].index(p)])  # [freq, h]
+            vg = vis.index_select(1, rows).to(torch.complex128)  # [freq, h, prod]
+            swg = sw.index_select(1, rows).double()
+            vwg = vw.index_select(1, rows).double()
+            d = u.double()[:, None, :] * a[None, :, None] + v.double()[:, None, :] * b[None, :, None]
+            F = (swg * (vg * torch.polar(torch.ones_like(d), -2 * np.pi * d)).real).sum(-1)
+            sumw = (swg.sum(-1) * pb**2).sum(-1)
+            w2 = ((swg**2 * torch.where(vwg > 0, 1 / vwg, torch.zeros_like(vwg))).sum(-1) * pb**2).sum(-1)
+            fs.append(((F * pb).sum(-1) / sumw).numpy())
+            ws.append((sumw**2 / w2).numpy())
+        out.append(fs)
+        wout.append(ws)
+    return np.array(out), 2.0 * np.array(wout)
+
+
+def beamform_bound(ra_idx, nfreq: int, nprod: int, natural: bool, sfu_per_s: float) -> tuple[float, str]:
+    """Least ms of one beamforming launch: the unique (freq, RA row) rows its
+    windows touch read once (16 bytes a product: vis, sw, vw; 12 without vw),
+    the baselines, the tracks and the outputs, at the HBM rate; against two
+    special-function results (a sine and a cosine) a term at ``sfu_per_s``."""
+    S, nha = ra_idx.shape
+    rows = len(np.unique(np.asarray(ra_idx)))
+    per = 16 if natural else 12
+    nbytes = nfreq * rows * nprod * per + 2 * nfreq * nprod * 4 + S * nha * 12 + (3 if natural else 2) * nfreq * S * nha * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * nfreq * S * nha * nprod / sfu_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sfu_rate() -> float:
+    """Special-function results a second: 132 SMs x 16 a clock at the card's largest SM clock."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return 132 * 16 * float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def run_stacking(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = STACK_NFREQ, ntime: int = STACK_NTIME,
+                 pad: int = STACK_PAD, ndays: int = STACK_DAYS, samples: int = STACK_SAMPLES, nsrc: int = STACK_NSRC,
+                 ninj: int = STACK_NINJ, nsub: int = STACK_NSUB, ncheck: int = N_STACK_CHECK):
+    """Phase 18: the day-stacking and source-beamforming path through the Manager.
+
+    The sizes default to the phase's; smaller ones make it a rehearsal on
+    the CPU (where the kernels are their plain versions and nothing is
+    timed).  Returns the kernels' numbers for the JSON record.
+    """
+    import gc
+    import pickle
+    import tempfile
+
+    import torch
+
+    from draco_tpu_torch.analysis.beamform import BeamFormCat, icrs_to_cirs
+    from draco_tpu_torch.analysis.transform import REGRID_BLOCK_BYTES
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.core.pipeline import Manager
+    from draco_tpu_torch.ops import banded, cuda_kernels, interferometry, regrid
+
+    failures = []
+    on_card = device.type == "cuda"
+
+    def check(label, value, ok):
+        log(f"  {label}: {value}  [{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            failures.append(label)
+
+    tel = ring_telescope(ncyl, nfeed, nfreq)
+    nstack = tel.npairs
+    freqside = min(STACK_FREQSIDE, (nfreq - 1) // 2)
+    # whole frequencies a regrid block, as regrid_sidereal counts them
+    block_freqs = max(1, REGRID_BLOCK_BYTES // (2 * KERNEL_WIDTH * (samples + 10 * KERNEL_WIDTH) * 4 * nstack))
+    blocks = -(-nfreq // block_freqs)
+    rows_f = np.random.Generator(np.random.SFC64(STACK_SEED)).integers(0, nfreq, ncheck)
+    rows_s = np.random.Generator(np.random.SFC64(STACK_SEED + 1)).integers(0, nstack, ncheck)
+    STACK_PROBES.clear()
+    STACK_PROBES["rows"] = (rows_f, rows_s)
+    GB = 1e9
+    nday_t = ntime + 2 * pad
+    if on_card:
+        log(f"stacking path: device memory allocated at the start {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+    log(f"stacking path: {ncyl} x {nfeed} dual-pol feeds, {nstack} stacks, {nfreq} channels, {ndays} days of "
+        f"{ntime} (+{2 * pad}) samples -> {samples} RA; a joined day {12 * nfreq * nstack * nday_t / GB:.2f} GB, a "
+        f"regridded day {12 * nfreq * nstack * samples / GB:.2f} GB, regrid rows B = {nfreq * nstack}; catalogue "
+        f"{nsrc} sources ({ninj} injected at {STACK_FLUX:g} x the noise), HA-resolved subset {nsub}")
+
+    paths = stacking_tasks()
+    with tempfile.TemporaryDirectory() as product_dir:
+        with open(Path(product_dir) / "telescope.pkl", "wb") as f:
+            pickle.dump(tel, f)
+        cfg = stack_config(product_dir, paths, ntime, pad, ndays, samples, nsrc, ninj, nsub, freqside, block_freqs)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        cuda_kernels.reset_launches()
+        manager = Manager(cfg)
+        t0 = _sync_clock(device)
+        products = manager.run()
+        wall = _sync_clock(device) - t0
+        launches = dict(cuda_kernels.launches)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if on_card else float("nan")
+    timing = {name.split(".")[-1]: round(t["wall"], 4) for name, t in manager.task_timing.items()}
+    log(f"phase 18 Manager run: {wall:.2f} s wall, peak device memory {peak:.2f} GiB, launches {launches}")
+    log("phase 18 task_timing (s): " + json.dumps(timing))
+    del manager
+
+    stack, mstack = products["sstack_kept"][0], products["mstack"][0]
+    fbeam, fbeam_ha, fstack = products["fbeam_kept"][0], products["fbeam_ha"][0], products["fstack"][0]
+    rcorr = products["rday_corr"][0]
+    del products
+    if on_card:
+        check("the main path launched both kernels", f"banded_covariance {launches['banded_covariance']} (expect "
+              f"{ndays} days x {blocks} blocks of {block_freqs} channels), beamform {launches['beamform']}",
+              launches["banded_covariance"] == ndays * blocks and launches["beamform"] > 0)
+    nha = fbeam_ha.beam.shape[-1]
+    want = {
+        "stack": (stack, containers.SiderealStream, "vis", (nfreq, nstack, samples)),
+        "matched stack": (mstack, containers.SiderealStream, "vis", (nfreq, nstack, samples)),
+        "formed beams": (fbeam, containers.FormedBeam, "beam", (nsrc, 4, nfreq)),
+        "HA-resolved beams": (fbeam_ha, containers.FormedBeamHA, "beam", (nsub, 4, nfreq, nha)),
+        "frequency stack": (fstack, containers.FrequencyStackByPol, "stack", (4, 2 * freqside + 1)),
+        "corrected rebinned day": (rcorr, containers.SiderealStream, "vis", (nfreq, nstack, samples)),
+    }
+    for label, (cont, cls, name, shp) in want.items():
+        data = cont.datasets[name][:]
+        fin = torch.isfinite(torch.view_as_real(data) if data.is_complex() else data).all()
+        check(f"{label} type, shape, finite", f"{type(cont).__name__}.{name} {tuple(data.shape)}",
+              isinstance(cont, cls) and tuple(data.shape) == shp and bool(fin))
+
+    # check 3: the stacks against the host float64 updates of the same regridded days
+    sdays = STACK_PROBES["sday"]
+    ft, st_ = (torch.as_tensor(x, device=device) for x in (rows_f, rows_s))
+    hv, hw, hn, hsv, hsv_bound = host_west_stack(sdays)
+    got_v = stack.vis[:][ft, st_].cpu().numpy()
+    got_w = stack.weight[:][ft, st_].cpu().numpy()
+    got_n = take_rows(stack.nsample[:], ft, st_).astype(np.float64)
+    got_sv = stack.sample_variance[:][:, ft, st_].cpu().numpy()
+    err_v = np.abs(got_v - hv).max() / np.abs(hv).max()
+    err_w = np.abs(got_w - hw).max() / np.abs(hw).max()
+    err_sv = np.abs(got_sv - hsv).max() / np.abs(hsv).max()
+    sv_ratio = np.max(np.abs(got_sv - hsv) / (hsv_bound + TOL_STACK * np.abs(hsv).max()))
+    check(f"stack of {ncheck} sampled (freq, stack) rows vs a float64 West update on the host",
+          f"vis {err_v:.3e}, weight {err_w:.3e} (limit {TOL_STACK}); sample variance {err_sv:.3e}, its |diff| over "
+          f"(its float32 rounding bound + {TOL_STACK} of its largest) {sv_ratio:.3f} (limit 1)",
+          max(err_v, err_w) <= TOL_STACK and sv_ratio <= 1.0)
+    all3 = np.all([d["weight"] > 0 for d in sdays], axis=0)
+    check("nsample == 3 wherever all three days have weight", f"{int((got_n[all3] == ndays).sum())} of "
+          f"{int(all3.sum())} cells", bool(np.all(got_n[all3] == ndays)) and all3.any())
+    hm = host_match_stack(sdays, (rows_f, rows_s))
+    got_m = mstack.vis[:][ft, st_].cpu().numpy()
+    err_m = np.abs(got_m - hm).max() / np.abs(hm).max()
+    check(f"matched stack of the sampled rows vs float64 on the host", f"{err_m:.3e} (limit {TOL_MATCH})",
+          err_m <= TOL_MATCH)
+
+    # check 7: the rebinned last day against a float64 host rebin of its sampled rows
+    raw_last = STACK_PROBES["raw"][ndays - 1]
+    rb = STACK_PROBES["rday"][0]
+    h_v, h_w, h_n, h_e = host_rebin(raw_last, tel.unix_to_lsd(raw_last["times"]), samples)
+    errs = [np.abs(rb[k] - h).max() / np.abs(h).max() for k, h in (("vis", h_v), ("weight", h_w),
+                                                                     ("effective_ra", h_e))]
+    n_ok = bool(np.all(np.abs(rb["nsample"].astype(np.float64) - h_n) < 1.0))
+    check(f"rebinned day of {ncheck} sampled rows vs a float64 host rebin", f"vis {errs[0]:.3e}, weight "
+          f"{errs[1]:.3e}, effective RA {errs[2]:.3e} (limit {TOL_REBIN}); nsample within its truncation to uint16 "
+          f"{n_ok}", max(errs) <= TOL_REBIN and n_ok)
+
+    # check 5: physics.  sigma of a formed value: 1 / sqrt(formed weight); the
+    # regulariser epsilon shrinks each regridded sample by epsilon / (ni + epsilon)
+    ra, dec, z = stack_catalog(tel, nsrc, ninj, nfreq)
+    ra_c, dec_c = icrs_to_cirs(ra, dec, stack_epoch(tel, ndays))
+    beam = fbeam.beam[:].cpu().numpy()
+    fw = fbeam.weight[:].cpu().numpy()
+    sigma = np.where(fw > 0, 1 / np.sqrt(np.where(fw > 0, fw, 1.0)), np.inf)
+    ni_min = min(d["weight"][d["weight"] > 0].min() for d in sdays)
+    shrink = EPSILON / (ni_min + EPSILON)
+    dev_inj = np.abs(beam[:ninj] - STACK_FLUX)
+    limit = 5 * sigma[:ninj] + STACK_FLUX * shrink
+    worst = np.max(dev_inj / limit)
+    rel = beam[:ninj, [0, 3]] / STACK_FLUX - 1
+    check(f"{ninj} injected sources: |formed - flux| over (5 sigma + flux x {shrink:.2e}, the regulariser's "
+          f"shrink at the smallest regridded weight {ni_min:.3f}), worst over pol and channel; formed / flux - 1 "
+          f"for XX and YY in [{rel.min():.3e}, {rel.max():.3e}], 5 sigma of XX {5 * sigma[:ninj, 0].max():.3e}",
+          f"{worst:.3f} (limit 1)", worst <= 1.0)
+    co = [0, 3]
+    wz = fw[ninj:, co]
+    zsrc = (beam[ninj:, co] * wz).sum(axis=(1, 2)) / np.sqrt(np.maximum(wz.sum(axis=(1, 2)), 1e-300))
+    top = np.argsort(-np.abs(zsrc))[:3]
+    check(f"{nsrc - ninj} sources not injected: the inverse-variance mean of XX and YY over the channels in units "
+          f"of its sigma, largest |z| (the three largest at RA, dec "
+          f"{', '.join(f'{ra_c[ninj + i]:.2f} {dec_c[ninj + i]:.2f}' for i in top)})",
+          f"{np.abs(zsrc).max():.3f} (limit 5; mean z^2 {np.mean(zsrc**2):.3f})", np.abs(zsrc).max() <= 5.0)
+
+    # check 6: SourceStack against a float64 segment sum on the host
+    freq = np.asarray(fbeam.freq)
+    axis_c = np.asarray(fstack.index_map["freq"]["centre"])
+    axis_w = np.asarray(fstack.index_map["freq"]["width"])
+    step = 1.0 if axis_c[-1] >= axis_c[0] else -1.0
+    edges = np.append(axis_c - step * 0.5 * axis_w, axis_c[-1] + step * 0.5 * axis_w[-1])
+    nu_src = STACK_NU21 / (1 + z)
+    bins = np.digitize(freq[None, :] - nu_src[:, None], edges) - 1
+    good = (bins >= 0) & (bins < len(axis_c))
+    num = np.zeros((4, len(axis_c)))
+    den = np.zeros((4, len(axis_c)))
+    for p in range(4):
+        np.add.at(num[p], bins[good], (fw[:, p] * beam[:, p])[good])
+        np.add.at(den[p], bins[good], fw[:, p][good])
+    host_fs = np.where(den > 0, num / np.where(den > 0, den, 1.0), 0.0)
+    err_fs = np.abs(fstack.stack[:].cpu().numpy() - host_fs).max() / np.abs(host_fs).max()
+    err_fw = np.abs(fstack.weight[:].cpu().numpy() - den).max() / np.abs(den).max()
+    check("SourceStack vs a float64 segment sum of the same formed beams on the host (a one-hot product in a "
+          "fixed order on the card)", f"stack {err_fs:.3e}, weight {err_fw:.3e} (limit {TOL_SOURCESTACK})",
+          max(err_fs, err_fw) <= TOL_SOURCESTACK)
+
+    # checks 1 and 4 need the task's per-pol arrays: a BeamFormCat set up on the same stack
+    task = BeamFormCat()
+    task.read_config({})
+    task.setup(tel, stack)
+    cat = containers.SpectroscopicCatalog(object_id=np.arange(nsrc))
+    pos = np.zeros(nsrc, dtype=[("ra", np.float64), ("dec", np.float64)])
+    pos["ra"], pos["dec"] = ra, dec
+    cat["position"][:] = pos
+    task._process_catalog(cat)
+    task._initialize_beam_with_data()
+    nbeam = min(N_BEAM_CHECK, nsrc // 2)
+    pick = np.random.Generator(np.random.SFC64(STACK_SEED + 2)).choice(nsrc - ninj, nbeam - ninj // 4,
+                                                                        replace=False) + ninj
+    pick = np.concatenate([np.arange(ninj // 4), pick])
+    arrays = {p: (task.vis[k].cpu(), task.sumweight[k].cpu(), task.visweight[k].cpu(), task._uv[k][0].cpu(),
+                  task._uv[k][1].cpu()) for k, p in enumerate(task.process_pol)}
+    t0 = time.perf_counter()
+    hf, hwt = host_beamform(tel, arrays, np.asarray(stack.ra), ra_c[pick], dec_c[pick], int(task.ha_side),
+                            task.process_pol)
+    del arrays
+    err_f = np.abs(beam[pick] - hf).max() / np.abs(hf).max()
+    err_hw = np.abs(fw[pick] - hwt).max() / np.abs(hwt).max()
+    check(f"formed beams and weights of {len(pick)} sampled sources ({ninj // 4} injected) vs a float64 evaluation "
+          f"of the formula on the host CPU ({time.perf_counter() - t0:.1f} s)", f"beam {err_f:.3e}, weight "
+          f"{err_hw:.3e} (limit {TOL_BEAMFORM_HOST})", max(err_f, err_hw) <= TOL_BEAMFORM_HOST)
+
+    # check 1: the kernel against its plain version on the card, at the task's batch of 32
+    kern = {}
+    lat = np.radians(tel.latitude)
+    sel = np.arange(min(N_KERNEL_CHECK, nsrc))
+    windows = []
+    for s in sel:
+        idx = task._transit_index(task.sra[s])
+        windows.append(task._ha_array(task.ra, idx, task.sra[s], int(task.ha_side), True))
+    worst, scale = 0.0, 0.0
+    batch_args = []
+    for b0 in range(0, len(sel), 32):
+        wb = windows[b0 : b0 + 32]
+        ra_idx = np.stack([w[1] for w in wb]).astype(np.int32)
+        ha = np.stack([w[0] for w in wb])
+        decs = np.radians(task.sdec[sel[b0 : b0 + 32]])[:, None]
+        a = np.cos(decs) * np.sin(ha)
+        b = np.cos(lat) * np.sin(decs) - np.sin(lat) * np.cos(decs) * np.cos(ha)
+        args = (task.vis[0], task.sumweight[0], task.visweight[0], torch.as_tensor(ra_idx, device=device),
+                torch.as_tensor(a, dtype=torch.float32, device=device),
+                torch.as_tensor(b, dtype=torch.float32, device=device), *task._uv[0])
+        batch_args.append((args, ra_idx))
+        got = cuda_kernels.beamform_sums(*args, natural=True)
+        ref = interferometry.beamform_sums_plain(*args, natural=True)
+        for g, r in zip(got, ref):
+            worst = max(worst, (g.double() - r.double()).abs().max().item())
+            scale = max(scale, r.double().abs().max().item())
+    kerr = worst / scale
+    check(f"beamform kernel vs its plain version on the {'card' if on_card else 'CPU'}, {len(sel)} sources "
+          f"(pol XX, natural; F, W and Q)", f"max|diff| {worst:.3e}, / max|ref| {kerr:.3e} (limit "
+          f"{TOL_BEAMFORM_KERNEL})", kerr <= TOL_BEAMFORM_KERNEL)
+    kern["beamform"] = {"max_abs_err": worst, "library_ms": None}
+    nfreq_k, _, nprod = task.vis[0].shape
+    if on_card:
+        # every batch of the check, timed and bounded on its own (their
+        # windows differ: the first holds the injected sources, far apart),
+        # reported as the mean of a launch
+        def mean_ms(fn, reps):
+            return float(np.mean([cuda_ms(lambda a=a: fn(*a, natural=True), reps) for a, _ in batch_args]))
+
+        k1 = mean_ms(cuda_kernels.beamform_sums, 20)
+        p1 = mean_ms(interferometry.beamform_sums_plain, 3)
+        p2 = mean_ms(interferometry.beamform_sums_plain, 3)
+        k2 = mean_ms(cuda_kernels.beamform_sums, 20)
+        rate = sfu_rate()
+        bounds = [beamform_bound(ra_idx, nfreq_k, nprod, True, rate) for _, ra_idx in batch_args]
+        bound = float(np.mean([b for b, _ in bounds]))
+        bys = [by for _, by in bounds]
+        bound_by = max(set(bys), key=bys.count)
+        log(f"kernel beamform, mean of {len(batch_args)} batches [S<=32, nha={batch_args[0][1].shape[1]}, "
+            f"nfreq={nfreq_k}, nprod={nprod}] ms: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f}, bound "
+            f"{bound:.4f} ({bound_by}; each batch {', '.join(f'{b:.4f}' for b, _ in bounds)}); the phase's "
+            f"{launches['beamform']} launches at this time: {launches['beamform'] * min(k1, k2) / 1e3:.3f} s")
+        kern["beamform"].update({"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": bound_by})
+    del task, batch_args
+    gc.collect()
+
+    # check 2: the banded covariance on the regrid's first block of the first day
+    times, wblock = STACK_PROBES.pop("block")
+    lsd_t = tel.unix_to_lsd(times)
+    grid = LSD + np.arange(-5 * KERNEL_WIDTH, samples + 5 * KERNEL_WIDTH) / samples
+    R = torch.as_tensor(np.ascontiguousarray(regrid.lanczos_forward_matrix(grid, lsd_t, KERNEL_WIDTH).T),
+                        dtype=torch.float32, device=device)
+    bw = 2 * KERNEL_WIDTH - 1
+    out = cuda_kernels.banded_covariance_batched(R, wblock, bw)
+    # against the plain version in float64 a channel's rows at a time (the
+    # whole block's float64 reference would be 19 GB)
+    cerr, cscale = 0.0, 0.0
+    R64 = R.double()
+    for r0 in range(0, wblock.shape[0], nstack):
+        ref = banded.banded_covariance(R64, wblock[r0 : r0 + nstack].double(), bw)
+        cerr = max(cerr, (out[r0 : r0 + nstack].double() - ref).abs().max().item())
+        cscale = max(cscale, ref.abs().max().item())
+        del ref
+    crel = cerr / cscale
+    check(f"banded_covariance at the regrid's block R{tuple(R.shape)} Ni{tuple(wblock.shape)} bw {bw} vs its "
+          "plain version in float64", f"max_abs_err {cerr:.3e}, rel {crel:.3e} (limit {TOL_KERNEL})",
+          crel <= TOL_KERNEL)
+    del out, R64
+    stack_kern = {"launches": launches["banded_covariance"], "max_abs_err": cerr}
+    if on_card:
+        kk1 = cuda_ms(lambda: cuda_kernels.banded_covariance_batched(R, wblock, bw), 5)
+        pp1 = cuda_ms(lambda: banded.banded_covariance(R, wblock, bw), 2)
+        pp2 = cuda_ms(lambda: banded.banded_covariance(R, wblock, bw), 2)
+        kk2 = cuda_ms(lambda: cuda_kernels.banded_covariance_batched(R, wblock, bw), 5)
+        cb, cb_by = covariance_bound(R, wblock, bw)
+        log(f"kernel banded_covariance [stacking path, B={wblock.shape[0]}] ms: kernel {kk1:.4f} {kk2:.4f}, plain "
+            f"{pp1:.4f} {pp2:.4f}, bound {cb:.4f} ({cb_by})")
+        stack_kern.update({"ms": min(kk1, kk2), "plain_ms": min(pp1, pp2), "bound_ms": cb, "bound_by": cb_by})
+    del R, wblock
+    STACK_PROBES.clear()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"phase 18 (stacking path) failed: {', '.join(failures)}")
+    return launches, kern["beamform"], stack_kern
+
+
 def _bl_max(tel) -> float:
     from draco_tpu_torch.analysis.powerspec import TransformJyPerBeamToKelvin
 
@@ -2485,12 +3242,16 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=2, help="seed of the time streams and kernel inputs")
     args = parser.parse_args()
+    # the later phases hold tens of GB in blocks of changing sizes: let the
+    # caching allocator grow its segments rather than split them (set before
+    # torch first touches the card)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     repo = Path(__file__).resolve().parent
-    if not (repo / "draco_tpu_torch" / "csrc" / "banded_covariance.cu").is_file():
+    if not all((repo / "draco_tpu_torch" / "csrc" / f"{n}.cu").is_file() for n in ("banded_covariance", "beamform")):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(repo))
 
@@ -2505,11 +3266,13 @@ def main() -> int:
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| tf32 matmul {torch.backends.cuda.matmul.allow_tf32}")
 
-    # phase 1: build
+    # phase 1: build every kernel, one nvcc for each source, all started together
     t0 = time.perf_counter()
-    _build.load("banded_covariance")
-    log(f"build: banded_covariance.cu {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds.get('banded_covariance', 0.0):.2f} s)")
+    built = _build.build_all()
+    for name in _build.sources():
+        _build.load(name)
+    log(f"build: {', '.join(f'{n}.cu {t:.2f} s' for n, t in built.items()) or 'nothing to build'} "
+        f"(all together {time.perf_counter() - t0:.2f} s)")
 
     # phase 2: the kernel at the dish slice's shape
     tel, bt = telescope(NSIDE)
@@ -2573,7 +3336,7 @@ def main() -> int:
 
     # phases 10 and 11: the task chain through the pipeline Manager
     t0 = time.perf_counter()
-    tel, _ = telescope(NSIDE)
+    tel = telescope(NSIDE)[0]
     chain_launches = run_task_chain(tel, device)
     log(f"phases 10-11 wall time {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -2626,6 +3389,23 @@ def main() -> int:
     ringmap_launches = cuda_kernels.launches["banded_covariance"]
     log(f"phase 17 wall time {time.perf_counter() - t0:.1f} s; banded_covariance launches {ringmap_launches} "
         "(the path has no regrid)")
+    torch.cuda.empty_cache()
+
+    # phase 18: the day-stacking and source-beamforming path, after dropping
+    # the spherical-transform tables the earlier phases cached on the card
+    import gc
+
+    from draco_tpu_torch.ops import sht as sht_mod
+
+    held = torch.cuda.memory_allocated(device) / 2**30
+    sht_mod._sht_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory allocated before phase 18: {held:.2f} GiB, {torch.cuda.memory_allocated(device) / 2**30:.2f} "
+        "GiB without the cached SHT tables")
+    t0 = time.perf_counter()
+    stack_launches, beam_kern, stack_kern = run_stacking(device)
+    log(f"phase 18 wall time {time.perf_counter() - t0:.1f} s; launches {stack_launches}")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [{
@@ -2642,6 +3422,14 @@ def main() -> int:
         "kl_path": {"launches": kl_launches},
         "delay_path": {"launches": delay_launches},
         "ringmap_path": {"launches": ringmap_launches},
+        "stacking_path": stack_kern,
+    }, {
+        "name": "beamform",
+        "route": "cuda",
+        "source": "draco_tpu_torch/csrc/beamform.cu",
+        "replaces": "draco_tpu/ops/interferometry.py:161",
+        "launches": stack_launches["beamform"],
+        **beam_kern,
     }]}
     print(json.dumps(record))
     print(card)

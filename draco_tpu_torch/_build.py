@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 next to this file, then loaded with :mod:`ctypes`.  The library name
 carries a hash of the source, so an edited kernel is rebuilt and a built
 one is reused.  Nothing is compiled when the package is imported: the
-first launch of a kernel builds it.
+first launch of a kernel builds it, or :func:`build_all` builds every
+kernel at once, one ``nvcc`` process for each source.
 """
 
 from __future__ import annotations
@@ -53,26 +54,52 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def sources() -> list[str]:
+    """Names of the kernels in ``csrc/`` (one ``<name>.cu`` each)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc_cmd(name: str, out: Path) -> list[str]:
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build_all(names: list[str] | None = None) -> dict[str, float]:
+    """Build every kernel of ``names`` (default: all of ``csrc/``) that is not
+    built yet, one ``nvcc`` process for each source, all started together;
+    return the seconds from the start to each one's end."""
+    names = sources() if names is None else list(names)
+    with _lock:
+        todo = [n for n in names if not library_path(n).exists()]
+        if not todo:
+            return {}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = {}
+        for name in todo:
+            tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(_nvcc_cmd(name, tmp), stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, err = proc.communicate()
+            build_seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{out}\n{err}")
+            else:
+                os.replace(tmp, library_path(name))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return {name: build_seconds[name] for name in todo}
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
     with _lock:
         lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        path = library_path(name)
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, path)
-            build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
-        _libs[name] = lib
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib

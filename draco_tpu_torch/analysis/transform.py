@@ -7,15 +7,22 @@ SelectFreq:333, MModeTransform:535, MModeInverseTransform:708,
 SiderealMModeResample:795, ShiftRA:993, Regridder:854), the Stokes I
 extraction (StokesIVis:1333, stokes_I:1382) and the weighted reductions
 (ReduceBase:1904, ReduceVar:2065, ReduceChisq:2092,
-ReduceChisqInverseRedundancy:2120).  Every task works on its container's
-device.
+ReduceChisqInverseRedundancy:2120), and the rest of the JAX module:
+GenerateSubBands:436, ElevationDependentHybridVisWeight:500, SelectPol:1068,
+PolWeightedAverage:1234, TransformJanskyToKelvin:1451, MixData:1606,
+Jackknife:1800, MixTwoDatasets:1814, Downselect:1848 and HPFTimeStream:2146.
+Every task works on its container's device.
 
 Two plain functions carry the math of the slice:
 
 * :func:`regrid_sidereal`, the maximum-likelihood inverse of a Lanczos
   interpolation onto a regular grid (``LanczosRegridder._regrid``,
   reference transform.py:854-986), whose banded covariance is the
-  hand-written CUDA kernel on the card;
+  hand-written CUDA kernel on the card.  Its rows are independent, and it
+  solves them in blocks of whole leading-axis (frequency) entries, so that
+  the band covariance and its Cholesky factor of a CHIME-width day do not
+  all live on the card at once: a deliberate difference from the JAX
+  package, which solves every row in one program;
 * :func:`mmode_weights`, the m-mode noise weights of ``MModeTransform``
   (reference transform.py:599-602).
 """
@@ -26,7 +33,7 @@ import numpy as np
 import torch
 
 from ..core import config, containers, io
-from ..core.task import ContainerTask, group_tasks
+from ..core.task import ContainerTask, PipelineStopIteration, group_tasks
 from ..ops import mmode
 from ..ops import regrid as regrid_ops
 from ..ops import tools
@@ -51,7 +58,26 @@ __all__ = [
     "ReduceVar",
     "ReduceChisq",
     "ReduceChisqInverseRedundancy",
+    "GenerateSubBands",
+    "ElevationDependentHybridVisWeight",
+    "SelectPol",
+    "PolWeightedAverage",
+    "TransformJanskyToKelvin",
+    "MixData",
+    "Jackknife",
+    "MixTwoDatasets",
+    "Downselect",
+    "HPFTimeStream",
 ]
+
+# bytes of one block's band covariance in regrid_sidereal (the Cholesky
+# factor overwrites it; the weighted data, the dirty map and the solution add
+# about half as much again): a CHIME day of 16 channels x 7155 stacks on a
+# 4096-sample grid is two blocks of eight channels.  The banded solve's
+# column loop costs the same for any block, so fewer blocks are faster
+REGRID_BLOCK_BYTES = 9 << 30
+
+C_LIGHT = 299792458.0
 
 
 def regrid_sidereal(
@@ -69,7 +95,9 @@ def regrid_sidereal(
     vis [..., ntime] (real or complex) and its inverse-noise weight [...,
     ntime] at host sample times ``times`` [ntime]; the output grid spans
     ``[start, end)``.  The Wiener solve runs on ``vis.device`` in the real
-    dtype of ``vis``.
+    dtype of ``vis``, over blocks of whole leading-axis entries whose band
+    covariance takes at most ``REGRID_BLOCK_BYTES`` (at least one entry a
+    block); the rows are independent, so the blocks change no result.
 
     Returns ``(grid [samples] numpy, vis_out [..., samples], ni [...,
     samples])`` where ``ni`` is the inverse-noise weight of each output
@@ -90,17 +118,24 @@ def regrid_sidereal(
     Si = torch.full((grid.size,), epsilon, dtype=rdt, device=vis.device)
 
     ntime = vis.shape[-1]
-    solved, ni = regrid_ops.band_wiener(
-        R,
-        weight.reshape(-1, ntime).to(rdt).contiguous(),
-        Si,
-        vis.reshape(-1, ntime),
-        2 * kernel_width - 1,
-    )
+    bw = 2 * kernel_width - 1
+    rows = vis.reshape(-1, ntime)
+    wrows = weight.reshape(-1, ntime)
+    nrows = rows.shape[0]
+    nlead = vis.shape[0] if vis.ndim > 1 else 1
+    per_lead = nrows // nlead
+    # whole leading-axis entries a block, as many rows as the band covariance budget holds
+    max_rows = REGRID_BLOCK_BYTES // ((bw + 1) * grid.size * R.element_size())
+    solved = torch.empty((nrows, samples), dtype=vis.dtype, device=vis.device)
+    ni = torch.empty((nrows, samples), dtype=rdt, device=vis.device)
+    for l0, l1 in tools.axis_blocks(nlead, per_lead, max_rows):
+        r0, r1 = l0 * per_lead, l1 * per_lead
+        xh, nw = regrid_ops.band_wiener(R, wrows[r0:r1].to(rdt).contiguous(), Si, rows[r0:r1], bw)
+        solved[r0:r1] = xh[:, pad:-pad]
+        ni[r0:r1] = nw[:, pad:-pad]
+        del xh, nw
     out_shape = (*vis.shape[:-1], samples)
-    solved = solved[:, pad:-pad].reshape(out_shape)
-    ni = ni[:, pad:-pad].reshape(out_shape)
-    return grid[pad:-pad].copy(), solved, ni
+    return grid[pad:-pad].copy(), solved.reshape(out_shape), ni.reshape(out_shape)
 
 
 def mmode_weights(ni: torch.Tensor, mmax: int) -> torch.Tensor:
@@ -764,3 +799,562 @@ class _InverseStackRedundancyWeights(ReduceBase):
 
 class ReduceChisqInverseRedundancy(ReduceChisq, _InverseStackRedundancyWeights):
     """Chi-squared per dof, undoing redundancy averaging."""
+
+
+class GenerateSubBands(SelectFreq):
+    """Generate multiple frequency sub-bands from one container.
+
+    (reference transform.py:436-497)
+
+    Attributes
+    ----------
+    sub_band_spec : dict
+        ``{tag: {<SelectFreq property>: value, ...}, ...}`` — one output
+        per entry.
+    """
+
+    sub_band_spec = config.dict_prop()
+
+    def setup(self, data):
+        """Cache the container to sub-divide."""
+        self.data = data
+        self.base_tag = data.attrs.get("tag", None)
+        self._pending = list(self.sub_band_spec)
+
+    def process(self):
+        """Emit the next sub-band."""
+        if not self._pending:
+            raise PipelineStopIteration
+
+        tag = self._pending.pop(0)
+        self._configure_band(self.sub_band_spec[tag])
+        self.data.attrs["tag"] = tag if self.base_tag is None else f"{self.base_tag}_{tag}"
+        return super().process(self.data)
+
+    def _configure_band(self, spec):
+        """Reset every SelectFreq property, then apply this band's spec."""
+        for key, prop in vars(SelectFreq).items():
+            if isinstance(prop, config.Property):
+                setattr(self, key, spec.get(key, prop._default_value()))
+
+
+class ElevationDependentHybridVisWeight(ContainerTask):
+    """Broadcast hybrid-vis weights over the elevation axis (reference transform.py:500-532)."""
+
+    def process(self, data):
+        if "elevation_vis_weight" in data:
+            self.log.debug("Requested dataset already present; leaving it in place.")
+        else:
+            weights = data["vis_weight"][:]
+            del data["vis_weight"]
+            data.add_dataset("elevation_vis_weight")
+            data.weight[:] = weights[..., None, :].expand(data.weight.shape)
+        return data
+
+
+def _clone_for_pol(polcont, pol_labels):
+    """Clone a container with a new pol axis, mirroring its datasets."""
+    out = containers.empty_like(polcont, pol=np.array(pol_labels))
+    known = out.dataset_spec()
+    for name in polcont.datasets:
+        if name not in out.datasets and name in known:
+            out.add_dataset(name)
+    return out
+
+
+def _pol_labels(cont) -> list[str]:
+    return [p.decode() if isinstance(p, bytes) else str(p) for p in cont.index_map["pol"]]
+
+
+class SelectPol(ContainerTask):
+    """Extract Stokes parameters from beamformed data.
+
+    (reference transform.py:1068-1231).  Supports I, Q, U, V from linear
+    polarisations XX, YY, reXY, imXY.  Numeric datasets combine on their
+    device; bool datasets (numpy) on the host.
+
+    Attributes
+    ----------
+    pol : list
+        Subset of ["I", "Q", "U", "V"].
+    """
+
+    pol = config.list_prop()
+
+    # Stokes parameter -> {instrumental pol: sign} recipe
+    P = {
+        "I": {"XX": 1, "YY": 1},
+        "Q": {"XX": 1, "YY": -1},
+        "U": {"reXY": 1},
+        "V": {"imXY": 1},
+    }
+
+    def setup(self):
+        """Validate the requested polarisations."""
+        unknown = set(self.pol) - set(self.P)
+        if unknown:
+            raise ValueError(f"Cannot form {sorted(unknown)}; supported selections are {list(self.P)}.")
+        if len(set(self.pol)) != len(self.pol):
+            raise ValueError("`pol` lists the same Stokes parameter twice.")
+
+    def _combine_pol(self, name, arr, pax, input_pol, kind):
+        """Combine the pol axis of one dataset into the requested Stokes.
+
+        kind: 'data' (signed sum / N), 'weight' (inverse-variance
+        composition with a joint positivity flag), or 'other'.
+        """
+        at = lambda i: (slice(None),) * pax + (i,)  # noqa: E731
+        out_shape = arr.shape[:pax] + (len(self.pol),) + arr.shape[pax + 1 :]
+        if not isinstance(arr, torch.Tensor):
+            # bool (and other host) datasets: an OR over the recipe's pols
+            out = np.zeros(out_shape, dtype=arr.dtype)
+            for oo, stokes in enumerate(self.pol):
+                for pname in self.P[stokes]:
+                    out[at(oo)] |= arr[at(input_pol.index(pname))]
+            return out
+        out = torch.zeros(out_shape, dtype=arr.dtype, device=arr.device)
+        integer = not (arr.is_floating_point() or arr.is_complex())
+
+        for oo, stokes in enumerate(self.pol):
+            recipe = self.P[stokes]
+            nsum = len(recipe)
+            dst = out[at(oo)]
+            live = torch.ones(dst.shape, dtype=torch.bool, device=arr.device)
+
+            for pname, sign in recipe.items():
+                row = arr[at(input_pol.index(pname))]
+                if kind == "data":
+                    dst += sign * row
+                elif kind == "weight":
+                    live &= row > 0.0
+                    dst += invert_no_zero(row)
+                else:
+                    dst += row
+
+            if kind == "weight":
+                out[at(oo)] = live * nsum**2 * invert_no_zero(dst)
+            elif integer:
+                out[at(oo)] = dst // nsum
+            elif "freq_cov" in name:
+                out[at(oo)] = dst / nsum**2
+            else:
+                out[at(oo)] = dst / nsum
+        return out
+
+    def process(self, polcont):
+        """Extract the requested Stokes parameters."""
+        if "pol" not in polcont.index_map:
+            raise ValueError(f"{type(polcont)} carries no pol axis to select over.")
+        input_pol = _pol_labels(polcont)
+
+        needed = {p for stokes in self.pol for p in self.P[stokes]}
+        absent = sorted(needed - set(input_pol))
+        if absent:
+            raise ValueError(f"Forming {self.pol} requires polarisations {absent}, which the input lacks.")
+
+        data_name = getattr(polcont, "_data_dset_name", None)
+        weight_name = getattr(polcont, "_weight_dset_name", None)
+
+        outcont = _clone_for_pol(polcont, self.pol)
+
+        for name, dset in polcont.datasets.items():
+            if name not in outcont.datasets:
+                continue
+            out_dset = outcont.datasets[name]
+            axis_names = list(dset.attrs["axis"])
+            if "pol" not in axis_names:
+                out_dset[:] = dset[:]
+                continue
+            kind = "data" if name == data_name else "weight" if name == weight_name else "other"
+            out_dset[:] = self._combine_pol(name, dset[:], axis_names.index("pol"), input_pol, kind)
+
+        return outcont
+
+
+class PolWeightedAverage(ContainerTask):
+    """Optimally weighted pseudo-Stokes I from XX and YY (reference transform.py:1234-1330)."""
+
+    def process(self, polcont):
+        """Compute the weighted average over the XX/YY pol axis."""
+        if not hasattr(polcont, "_weight_dset_name"):
+            raise TypeError("Input must be a subclass of DataWeightContainer.")
+        if "pol" not in polcont.index_map:
+            raise ValueError(f"Input container of type {type(polcont)} has no 'pol' axis.")
+
+        input_pol = _pol_labels(polcont)
+        try:
+            ixx = input_pol.index("XX")
+            iyy = input_pol.index("YY")
+        except ValueError:
+            raise ValueError("Stokes I needs the XX and YY polarisations present.") from None
+
+        # slice picking exactly the XX and YY entries of the pol axis
+        step = abs(iyy - ixx)
+        first = min(ixx, iyy)
+        copol = slice(first, first + step + 1, step)
+
+        def pol_axis_of(axis_names):
+            axis = list(axis_names).index("pol")
+            return axis, (slice(None),) * axis + (copol,)
+
+        outcont = _clone_for_pol(polcont, ["I"])
+
+        waxis = polcont.weight.attrs["axis"]
+        wpax, wslc = pol_axis_of(waxis)
+
+        weight = polcont.weight[:][wslc]
+        wsum = weight.sum(dim=wpax, keepdim=True)
+        outcont.weight[:] = wsum
+        norm = invert_no_zero(wsum)
+
+        for name, dset in polcont.datasets.items():
+            if name == polcont._weight_dset_name or name not in outcont.datasets:
+                continue
+            target = outcont.datasets[name]
+            if "pol" not in dset.attrs["axis"]:
+                target[:] = dset[:]
+                continue
+            pax, dslc = pol_axis_of(dset.attrs["axis"])
+            wexp = tools.broadcast_weights(waxis, dset.attrs["axis"])
+            target[:] = (weight[wexp] * dset[:][dslc]).sum(dim=pax, keepdim=True) * norm[wexp]
+
+        return outcont
+
+
+class TransformJanskyToKelvin(ContainerTask):
+    """Convert visibilities between Jy and Kelvin units.
+
+    (reference transform.py:1451-1603).  Integrates the primary beam solid
+    angle from the telescope model on the host; the factors apply on the
+    data's device in float64.
+
+    Attributes
+    ----------
+    convert_Jy_to_K : bool
+        Direction of the conversion.
+    reference_declination : float
+        Flux reference declination in degrees (default: zenith).
+    share : "none" | "all"
+        Whether to copy the container before modifying.
+    nside : int
+        Healpix resolution for the beam-area integral.
+    """
+
+    convert_Jy_to_K = config.bool_prop(True)
+    reference_declination = config.float_prop(None)
+    share = config.enum(["none", "all"], default="all")
+    nside = config.int_prop(256)
+
+    def setup(self, telescope):
+        """Set the telescope object."""
+        self.telescope = io.get_telescope(telescope)
+        if self.reference_declination is None:
+            self.reference_declination = self.telescope.latitude
+        self._omega_cache = {}
+
+    def _beam_area(self, feed, freq_ind):
+        """Primary beam solid angle normalised at the reference declination."""
+        from ..ops import healpix
+
+        beam = np.asarray(self.telescope.beam(feed, freq_ind, self.nside))
+        horizon = self.telescope.horizon_mask(self.nside)
+        if beam.ndim == 2:
+            beam_pow = np.sum(np.abs(beam) ** 2, axis=-1) * horizon
+        else:
+            beam_pow = np.abs(beam) ** 2 * horizon
+
+        pxarea = 4 * np.pi / beam_pow.shape[0]
+        omega = beam_pow.sum() * pxarea
+
+        ref_pix = int(
+            np.asarray(healpix.ang2pix(self.nside, np.radians(90.0 - self.reference_declination), 0.0)).reshape(-1)[0]
+        )
+        omega *= invert_no_zero(beam_pow[ref_pix])
+        return float(omega)
+
+    def _omega_per_pair(self, sstream, freqs):
+        """sqrt(omega_i * omega_j) per (freq, prodstack) entry.
+
+        Solid angles are cached per (beamclass, freq); only one feed per
+        beamclass is ever integrated.
+        """
+        tel = self.telescope
+        pairs = sstream.prodstack
+        bc = tel.beamclass[np.stack([pairs["input_a"], pairs["input_b"]], axis=-1)]
+
+        channel = {f: int(np.argmin(np.abs(tel.frequencies - f))) for f in freqs}
+        # one representative feed index per beamclass
+        flat_feeds = np.stack([pairs["input_a"], pairs["input_b"]], axis=-1).ravel()
+        rep = dict(zip(bc.ravel(), flat_feeds))
+        for klass, feed in rep.items():
+            for f, fi in channel.items():
+                if (klass, f) not in self._omega_cache:
+                    self._omega_cache[(klass, f)] = self._beam_area(feed, fi)
+
+        lookup = np.vectorize(lambda klass, f: self._omega_cache[(klass, f)])
+        om = np.empty((len(freqs), len(pairs)))
+        for fi, f in enumerate(freqs):
+            om[fi] = np.sqrt(lookup(bc[:, 0], f) * lookup(bc[:, 1], f))
+        return om
+
+    def process(self, sstream):
+        """Apply the conversion to the data and weights."""
+        kB = 1.380649e-23
+        freqs = np.asarray(sstream.freq)
+
+        om_ij = self._omega_per_pair(sstream, freqs)
+        wavelength = (C_LIGHT / (freqs * 1e6))[:, np.newaxis, np.newaxis]
+        K_to_Jy = 2 * 1e26 * kB * om_ij[:, :, np.newaxis] / wavelength**2
+        Jy_to_K = invert_no_zero(K_to_Jy)
+
+        out = sstream if self.share == "all" else sstream.copy()
+        d_fac, w_fac = (Jy_to_K, K_to_Jy) if self.convert_Jy_to_K else (K_to_Jy, Jy_to_K)
+        dev = out.vis[:].device
+        out.vis[:] = out.vis[:] * torch.as_tensor(d_fac, device=dev)
+        out.weight[:] = out.weight[:] * torch.as_tensor(w_fac**2, device=dev)
+        return out
+
+
+class MixData(ContainerTask):
+    """Mix containers with specified linear coefficients.
+
+    (reference transform.py:1606-1797).  Useful for signal injection,
+    jackknives, weight replacement, etc.  No normalisation is applied.
+
+    Attributes
+    ----------
+    data_coeff, weight_coeff : list
+        Per-input coefficients for the data / weight datasets.
+    tag_coeff : list
+        Which input tags contribute to the output tag.
+    aux_coeff : dict
+        ``{dataset_name: [coefficients]}`` for auxiliary datasets.
+    invert_weight : bool
+        Mix variances instead of inverse variances.
+    require_nonzero_weight : bool
+        Zero the output weight wherever any input weight was zero.
+    """
+
+    data_coeff = config.list_type(float)
+    weight_coeff = config.list_type(float)
+    tag_coeff = config.list_type(bool)
+    aux_coeff = config.dict_prop({})
+    invert_weight = config.bool_prop(False)
+    require_nonzero_weight = config.bool_prop(False)
+
+    mixed_data = None
+
+    def setup(self):
+        """Validate coefficient lists."""
+        if len(self.data_coeff) != len(self.weight_coeff):
+            raise config.ConfigError("One weight coefficient is needed per data coefficient.")
+        self._data_ind = 0
+        self._tags = []
+        self._wfunc = invert_no_zero if self.invert_weight else (lambda x: x)
+
+    def _start_mix(self, data):
+        """Zero-initialised accumulator shaped like the first input."""
+        acc = containers.empty_like(data)
+        targets = ["data", "weight", *self.aux_coeff]
+        for key in targets:
+            if key in ("data", "weight"):
+                ds = getattr(acc, key)
+            else:
+                if key not in acc.datasets:
+                    acc.add_dataset(key)
+                ds = acc.datasets[key]
+            ds[:] = 0
+        if self.require_nonzero_weight:
+            self._flag = torch.ones(acc.weight.shape, dtype=torch.bool, device=acc.weight[:].device)
+        return acc
+
+    def _accumulate(self, target, coeff, values):
+        if coeff != 0.0:
+            target[:] = target[:] + coeff * values
+
+    def process(self, data):
+        """Add one container into the mix."""
+        step = self._data_ind
+        if step >= len(self.data_coeff):
+            raise RuntimeError("This task cannot accept more items than there are coefficients set.")
+
+        if self.mixed_data is None:
+            self.mixed_data = self._start_mix(data)
+        acc = self.mixed_data
+
+        if type(acc) is not type(data):
+            raise TypeError(f"Mixed containers disagree: {type(data)} vs type(data_stack) (={type(acc)})")
+        if tuple(acc.data.shape) != tuple(data.data.shape):
+            raise ValueError(f"Mixed datasets disagree in shape: {data.data.shape} vs {acc.data.shape}")
+
+        self._accumulate(acc.data, self.data_coeff[step], data.data[:])
+        wco = self.weight_coeff[step]
+        if wco != 0.0:
+            self._accumulate(acc.weight, wco, self._wfunc(data.weight[:]))
+            if self.require_nonzero_weight:
+                self._flag &= data.weight[:] > 0.0
+        for key, coeffs in self.aux_coeff.items():
+            self._accumulate(acc.datasets[key], coeffs[step], data.datasets[key][:])
+
+        take_tag = self.tag_coeff is None or self.tag_coeff[step]
+        if take_tag and "tag" in data.attrs:
+            self._tags.append(data.attrs["tag"])
+
+        self._data_ind = step + 1
+
+    def _make_output(self):
+        if self._data_ind != len(self.data_coeff):
+            raise RuntimeError(
+                f"Mixing ended early: {self._data_ind} inputs arrived but "
+                f"{len(self.data_coeff)} coefficients were configured."
+            )
+        data = self.mixed_data
+        self.mixed_data = None
+
+        final_w = data.weight[:]
+        if self.require_nonzero_weight:
+            final_w = final_w * self._flag
+            self._flag = None
+        data.weight[:] = self._wfunc(final_w)
+        data.attrs["tag"] = "_".join(self._tags)
+        return data
+
+    def process_finish(self):
+        """Return the mixed container."""
+        return self._make_output()
+
+
+class Jackknife(MixData):
+    """Half-difference jackknife of two datasets (reference transform.py:1800)."""
+
+    data_coeff = config.list_type(float, default=[0.5, -0.5])
+    weight_coeff = config.list_type(float, default=[0.25, 0.25])
+    tag_coeff = config.list_type(bool, default=[True, True])
+    invert_weight = config.bool_prop(True)
+    require_nonzero_weight = config.bool_prop(True)
+
+
+class MixTwoDatasets(MixData):
+    """Mix exactly two datasets per iteration (reference transform.py:1814)."""
+
+    data_coeff = config.list_type(float, 2)
+    weight_coeff = config.list_type(float, 2)
+    tag_coeff = config.list_type(bool, 2)
+
+    def process(self, data1, data2):
+        """Combine the two inputs and emit the result immediately."""
+        for d in (data1, data2):
+            super().process(d)
+        out = self._make_output()
+        self._data_ind = 0
+        self._tags = []
+        return out
+
+    def process_finish(self):
+        """No-op: outputs are emitted per iteration."""
+        return None
+
+
+class Downselect(io.SelectionsMixin, ContainerTask):
+    """Apply axis selections to every dataset of a container.
+
+    (reference transform.py:1848-1901).  Selections use the SelectionsMixin
+    syntax (``<axis>_range`` / ``<axis>_index``) plus ``<axis>_map`` for
+    selection by index-map value.
+    """
+
+    _sel_extra_suffixes = ("_map",)
+
+    def process(self, data):
+        """Apply the downselections."""
+        sel = self._resolve_sel()
+
+        # also support selection by index-map entry
+        if self.selections:
+            for k, v in self.selections.items():
+                if k.endswith("_map"):
+                    axis_name = k[: -len("_map")]
+                    imap = list(data.index_map[axis_name])
+                    sel[axis_name] = [imap.index(x) for x in v]
+
+        output_axes = {}
+        for ax, ax_sel in sel.items():
+            imap = np.asarray(data.index_map[ax])
+            output_axes[ax] = imap[ax_sel] if isinstance(ax_sel, slice) else imap[np.asarray(ax_sel)]
+
+        out = data.__class__(axes_from=data, attrs_from=data, skip_datasets=True, **output_axes)
+        containers.copy_datasets_filter(data, out, selection=sel)
+        return out
+
+
+class HPFTimeStream(ContainerTask):
+    """High-pass filter a timestream (reference transform.py:2146).
+
+    Solves for a low-pass model in a truncated Fourier basis and subtracts
+    it.  The per-row Wiener solves (reference transform.py:2230-2251) run as
+    one batched solve on the data's device (:func:`_hpf_rows`).
+
+    Attributes
+    ----------
+    tau : float
+        Timescale in seconds below which fluctuations are kept (i.e.
+        fluctuations slower than tau are removed).
+    pad : float
+        Implicit zero-padding in multiples of tau (edge-effect mitigation).
+    window : bool
+        Apply a Blackman window to the basis.
+    prior : float
+        Expected scale of the slow fluctuations (regulariser).
+    """
+
+    tau = config.float_prop()
+    pad = config.float_prop(2)
+    window = config.bool_prop(True)
+    prior = config.float_prop(1e2)
+
+    def process(self, tstream):
+        if "time" != tuple(tstream.data.attrs["axis"])[-1]:
+            raise TypeError("The dataset must end with its 'time' axis.")
+        if tuple(tstream.data.shape) != tuple(tstream.weight.shape):
+            raise ValueError("Weights do not match the data shape.")
+
+        tau = 2 * self.tau if self.window else self.tau
+
+        times = np.asarray(tstream.time)
+        dt = np.diff(times)
+        if not np.allclose(dt, dt[0], atol=1e-4):
+            self.log.warning("Irregular sample spacing detected; results may degrade.")
+
+        span = 2 * tau + times[-1] - times[0]
+        nmodes = int(np.ceil(span / tau))
+        low_freqs = np.arange(-nmodes, nmodes) / span
+
+        F = np.exp(2.0j * np.pi * np.outer(times, low_freqs))
+        if self.window:
+            F = F * np.blackman(2 * nmodes)
+
+        d = tstream.data[:]
+        dflat = d.reshape(-1, len(times))
+        wflat = tstream.weight[:].reshape(-1, len(times)).to(torch.float64)
+        filtered = _hpf_rows(dflat, wflat, torch.as_tensor(F, device=d.device), self.prior)
+        tstream.data[:] = filtered.reshape(d.shape)
+        return tstream
+
+
+def _hpf_rows(d: torch.Tensor, w: torch.Tensor, F: torch.Tensor, prior: float) -> torch.Tensor:
+    """Batched low-pass solve + subtract for :class:`HPFTimeStream`: d [rows,
+    t] complex, w [rows, t] float64, F [t, modes] complex128."""
+    Fh = F.conj().T
+    wsum = w.sum(dim=-1, keepdim=True)
+    mu = (d * w).sum(dim=-1, keepdim=True) * invert_no_zero(wsum)
+    dd = d - mu
+
+    dirty = (dd * w) @ Fh.T  # [rows, modes]
+    Ci = torch.einsum("mt,rt,tn->rmn", Fh, w.to(F.dtype), F)
+    Ci = Ci + torch.eye(F.shape[1], dtype=F.dtype, device=F.device) / prior**2
+
+    f_lpf = torch.linalg.solve(Ci, dirty[..., None])[..., 0]
+    t_lpf = f_lpf.real @ F.real.T - f_lpf.imag @ F.imag.T
+    out = dd - t_lpf
+    # rows with no valid data are left unchanged
+    return torch.where(wsum > 0, out, d.to(out.dtype))

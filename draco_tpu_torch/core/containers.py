@@ -951,7 +951,10 @@ class VisBase(DataWeightContainer):
 
     @property
     def weight(self):
-        return self.datasets["vis_weight"]
+        # the named weight dataset: a hybrid stream's elevation-dependent
+        # weights replace ``vis_weight`` (the JAX package's property names
+        # ``vis_weight`` whatever the container holds)
+        return self.datasets[self._weight_dset_name]
 
 
 class VisContainer(VisBase):

@@ -39,10 +39,13 @@ def banded_covariance(R: torch.Tensor, Ni: torch.Tensor, bw: int) -> torch.Tenso
 
 
 def banded_cholesky(ab: torch.Tensor, bw: int) -> torch.Tensor:
-    """Cholesky factor L of banded HPD matrices, in the same lower band form.
+    """Cholesky factor L of banded HPD matrices, in the same lower band form,
+    written into ``ab`` and returned.
 
-    ab [..., bw+1, m].  A non-positive pivot gives NaN in that column and
-    the ones after it, so a singular band is detectable downstream.
+    ab [..., bw+1, m].  Column j of ``ab`` is read only before column j of
+    L is written, so the factor needs no copy of the band's size.  A
+    non-positive pivot gives NaN in that column and the ones after it, so a
+    singular band is detectable downstream.
     """
     m = ab.shape[-1]
     lead = ab.shape[:-2]
@@ -55,7 +58,7 @@ def banded_cholesky(ab: torch.Tensor, bw: int) -> torch.Tensor:
     valid = (tot <= bw).to(ab.dtype)
     rows = torch.arange(bw, device=dev)
 
-    L = torch.empty_like(ab)
+    L = ab
     H = torch.zeros(*lead, bw, bw + 1, dtype=ab.dtype, device=dev)
     nan = torch.tensor(float("nan"), dtype=ab.real.dtype, device=dev)
     for j in range(m):
@@ -74,17 +77,19 @@ def banded_cholesky(ab: torch.Tensor, bw: int) -> torch.Tensor:
 def _solve_lower(lb: torch.Tensor, b: torch.Tensor, bw: int) -> torch.Tensor:
     """Solve L y = b with L in lower band form [..., bw+1, m]; b [..., m]."""
     m = b.shape[-1]
-    # coeff[..., t-1, j] = L[j, j-t] = lb[..., t, j-t]; zero for j < t
-    coeffs = torch.zeros(*lb.shape[:-2], bw, m, dtype=lb.dtype, device=lb.device)
-    for t in range(1, min(bw, m - 1) + 1):
-        coeffs[..., t - 1, t:] = lb[..., t, : m - t]
+    # row j couples y[j-t] through L[j, j-t] = lb[..., t, j-t], t = 1..min(j, bw),
+    # which lies at offset j + t (m - 1) of the flattened band: a strided
+    # view a row, where a shifted copy of L would double its memory
+    flat = lb.reshape(*lb.shape[:-2], (bw + 1) * m)
     # broadcast_tensors, not broadcast_shapes: the latter's first call
     # imports torch's symbolic-shape machinery, seconds of host time
     shape = torch.broadcast_tensors(b, lb[..., 0, :])[0].shape
     y = torch.empty(shape, dtype=torch.result_type(b, lb), device=b.device)
     hist = torch.zeros(*y.shape[:-1], bw, dtype=y.dtype, device=b.device)
     for j in range(m):
-        s = (coeffs[..., j] * hist).sum(dim=-1)
+        n = min(j, bw)
+        coeffs = flat[..., j + m - 1 : j + n * (m - 1) + 1 : m - 1] if n else flat[..., :0]
+        s = (coeffs * hist[..., :n]).sum(dim=-1)
         yj = (b[..., j] - s) / lb[..., 0, j]
         y[..., j] = yj
         hist = torch.cat([yj[..., None], hist[..., :-1]], dim=-1)
@@ -115,7 +120,7 @@ def solveh_banded_lower(ab: torch.Tensor, b: torch.Tensor, bw: int | None = None
     """Solve the banded HPD systems A x = b.
 
     ab [..., bw+1, m] lower band form; b [..., m], broadcast against the
-    leading axes of ``ab``.
+    leading axes of ``ab``.  The Cholesky factor replaces ``ab``.
     """
     if bw is None:
         bw = ab.shape[-2] - 1

@@ -1,13 +1,23 @@
 """Wrappers of the hand-written CUDA kernels.
 
+Each wrapper launches its kernel (built on first use, on the current
+stream) for CUDA tensors and runs the kernel's plain version for CPU
+tensors; it never falls back from the card to the plain version: a CUDA
+input that the kernel does not take raises.  ``launches`` counts the
+kernel launches by name.
+
 ``banded_covariance_batched`` replaces the TPU kernel
 ``draco_tpu/ops/pallas_kernels.py::banded_covariance_pallas``: all band
 diagonals of ``R diag(Ni_b) R^T`` for a batch of weight rows.  On a CUDA
 tensor it launches ``csrc/banded_covariance.cu`` (built on first use) on
 the current stream; on a CPU tensor it runs the plain reference
-:func:`draco_tpu_torch.ops.banded.banded_covariance`.  It never falls back
-from the card to the plain version: a CUDA input that the kernel does not
-take raises.
+:func:`draco_tpu_torch.ops.banded.banded_covariance`.
+
+``beamform_sums`` replaces the XLA programs of the JAX package's source
+beamformers (``draco_tpu/ops/interferometry.py``: ``_beamform_sources_jit``,
+``_beamform_sources_ha_jit``, ``_beamform_kernel_jit``): on a CUDA tensor it
+launches ``csrc/beamform.cu``; on a CPU tensor it runs
+:func:`draco_tpu_torch.ops.interferometry.beamform_sums_plain`.
 """
 
 from __future__ import annotations
@@ -19,11 +29,11 @@ import torch
 from .. import _build
 from . import banded
 
-__all__ = ["banded_covariance_batched", "tile_rows", "tile_windows", "launches", "reset_launches"]
+__all__ = ["banded_covariance_batched", "beamform_sums", "tile_rows", "tile_windows", "launches", "reset_launches"]
 
 # kernel name -> launches since the last reset (incremented only where a
 # kernel is actually launched)
-launches: dict[str, int] = {"banded_covariance": 0}
+launches: dict[str, int] = {"banded_covariance": 0, "beamform": 0}
 
 
 def reset_launches() -> None:
@@ -110,3 +120,71 @@ def banded_covariance_batched(R: torch.Tensor, Ni: torch.Tensor, bw: int) -> tor
         raise RuntimeError(f"banded_covariance kernel launch failed: CUDA error {err}")
     launches["banded_covariance"] += 1
     return out
+
+
+def _beamform_lib() -> ctypes.CDLL:
+    lib = _build.load("beamform")
+    if lib.beamform_f32.argtypes is None:
+        lib.beamform_f32.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.beamform_f32.restype = ctypes.c_int
+    return lib
+
+
+def beamform_sums(vis, sw, vw, ra_idx, a, b, u, v, natural: bool):
+    """The beamforming contraction of one polarisation's stacks.
+
+    vis [nfreq, nra, nprod] complex; sw and (natural weights only) vw
+    [nfreq, nra, nprod]; ra_idx [S, nha] RA indices; a, b [S, nha] the
+    track coefficients; u, v [nfreq, nprod] in wavelengths.  Returns (F, W,
+    Q) [nfreq, S, nha] as
+    :func:`~draco_tpu_torch.ops.interferometry.beamform_sums_plain` defines
+    them (Q None unless ``natural``).  CUDA inputs must be contiguous, on
+    one device, vis complex64, the rest float32 and ra_idx int32, every RA
+    index in [0, nra).
+    """
+    nfreq, nra, nprod = vis.shape
+    S, nha = ra_idx.shape
+    inputs = [vis, sw, ra_idx, a, b, u, v] + ([vw] if natural else [])
+    shapes = {"sw": (sw, vis.shape), "a": (a, ra_idx.shape), "b": (b, ra_idx.shape), "u": (u, (nfreq, nprod)),
+              "v": (v, (nfreq, nprod))}
+    if natural:
+        if vw is None:
+            raise ValueError("natural weights need vw")
+        shapes["vw"] = (vw, vis.shape)
+    for name, (x, shape) in shapes.items():
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if all(x.device.type == "cpu" for x in inputs):
+        # interferometry imports this module for the wrapper: its plain
+        # version is reached at call time
+        from .interferometry import beamform_sums_plain
+
+        return beamform_sums_plain(vis, sw, vw, ra_idx, a, b, u, v, natural)
+    if not all(x.is_cuda and x.device == vis.device for x in inputs):
+        raise ValueError("the beamform inputs must share one CUDA device")
+    if vis.dtype != torch.complex64 or ra_idx.dtype != torch.int32 or any(
+        x.dtype != torch.float32 for x in inputs if x is not vis and x is not ra_idx
+    ):
+        raise TypeError(
+            "the CUDA beamform kernel takes complex64 vis, int32 ra_idx and float32 for the rest, got "
+            + ", ".join(str(x.dtype) for x in inputs)
+        )
+    if not all(x.is_contiguous() for x in inputs):
+        raise ValueError("the CUDA beamform kernel takes contiguous inputs")
+    if ra_idx.numel() and bool(((ra_idx < 0) | (ra_idx >= nra)).any()):
+        raise IndexError(f"an RA index lies outside [0, {nra})")
+    lib = _beamform_lib()
+    F = torch.empty(nfreq, S, nha, dtype=torch.float32, device=vis.device)
+    W = torch.empty_like(F)
+    Q = torch.empty_like(F) if natural else None
+    with torch.cuda.device(vis.device):
+        stream = torch.cuda.current_stream(vis.device).cuda_stream
+        err = lib.beamform_f32(
+            vis.data_ptr(), sw.data_ptr(), vw.data_ptr() if natural else None, ra_idx.data_ptr(), a.data_ptr(),
+            b.data_ptr(), u.data_ptr(), v.data_ptr(), F.data_ptr(), W.data_ptr(), Q.data_ptr() if natural else None,
+            nfreq, nra, nprod, S, nha, int(natural), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"beamform kernel launch failed: CUDA error {err}")
+    launches["beamform"] += 1
+    return F, W, Q

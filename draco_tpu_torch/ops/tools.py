@@ -6,8 +6,10 @@ Port of the fringe subset of ``draco_tpu.ops.tools``
 lookups (``find_key``, ``find_keys``, ``find_inputs``,
 ``redefine_stack_index_map``) and the product-array helpers (``cmap``,
 ``icmap``, ``apply_gain``, ``extract_diagonal``,
-``unpack_product_array``, ``calculate_redundancy``) and the apodisation
-windows (``window_generalised``).
+``unpack_product_array``, ``calculate_redundancy``), the apodisation
+windows (``window_generalised``) and the small helpers of the stacking and
+beamforming tasks (``broadcast_weights``, ``correct_phase_wrap``,
+``find_contiguous_slices``).
 
 The exact-phase scheme rests on every high product being an exact
 float32 value and on no fused multiply-add changing a rounded product.
@@ -33,7 +35,7 @@ __all__ = [
     "find_key", "find_keys", "find_inputs", "redefine_stack_index_map", "cmap", "icmap",
     "unique_pair_indices", "apply_gain", "extract_diagonal", "unpack_product_array", "redundancy_index",
     "calculate_redundancy",
-    "axis_blocks", "svd", "window_generalised",
+    "axis_blocks", "svd", "window_generalised", "broadcast_weights", "correct_phase_wrap", "find_contiguous_slices",
 ]
 
 # elements of the largest temporary a blocked helper makes
@@ -46,8 +48,15 @@ SVD_ROUTINE_KEYWORD = "dri" + "ver"
 _DEKKER_SPLIT = 4097.0
 
 
-def invert_no_zero(x: torch.Tensor) -> torch.Tensor:
-    """Reciprocal returning exactly zero where ``|x|`` is below the smallest normal."""
+def invert_no_zero(x):
+    """Reciprocal returning exactly zero where ``|x|`` is below the smallest
+    normal: a tensor on its device, host data as numpy in its own type."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+        if x.dtype.kind not in "fc":
+            x = x.astype(np.float64)
+        small = np.abs(x) < np.finfo(x.dtype).tiny
+        return np.where(small, 0.0, 1.0 / np.where(small, 1.0, x))
     small = torch.abs(x) < torch.finfo(x.real.dtype).tiny
     return torch.where(small, torch.zeros_like(x), 1.0 / torch.where(small, torch.ones_like(x), x))
 
@@ -453,3 +462,43 @@ def calculate_redundancy(input_flags, prod_map, stack_index, nstack: int, times=
     ia, ib, seg = index
     red = torch.zeros(nstack, flags.shape[1], dtype=torch.float32, device=flags.device)
     return red.index_add_(0, seg, flags[ia] * flags[ib])
+
+
+def broadcast_weights(waxis_names, daxis_names):
+    """Slice tuple broadcasting a weight array onto a data array (reference tools.py:173)."""
+    extra = set(waxis_names) - set(daxis_names)
+    if extra:
+        raise ValueError(f"The weight carries axes the data lacks: {extra}")
+    in_data_order = [ax for ax in daxis_names if ax in waxis_names]
+    if in_data_order != list(waxis_names):
+        raise ValueError(f"Weight axes {waxis_names} do not appear in data axes {daxis_names} in the correct order.")
+    kept = set(waxis_names)
+    return tuple(slice(None) if ax in kept else None for ax in daxis_names)
+
+
+def correct_phase_wrap(phi, deg: bool = False):
+    """Wrap phase into [-pi, pi) or [-180, 180) (reference tools.py:894).
+
+    A tensor stays a tensor on its device; host data comes back as numpy.
+    """
+    period = 180.0 if deg else np.pi
+    if isinstance(phi, torch.Tensor):
+        return torch.remainder(phi + period, 2 * period) - period
+    return ((np.asarray(phi) + period) % (2 * period)) - period
+
+
+def find_contiguous_slices(index):
+    """Convert indices into contiguous slices (reference tools.py:916)."""
+    index = list(index)
+    slices = []
+    if not index:
+        return slices
+    start = prev = index[0]
+    for x in index[1:]:
+        if x == prev + 1:
+            prev = x
+            continue
+        slices.append(slice(start, prev + 1))
+        start = prev = x
+    slices.append(slice(start, prev + 1))
+    return slices

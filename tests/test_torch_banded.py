@@ -82,14 +82,14 @@ def _spd_band(m, bw, B, dtype, seed=7):
 def test_solveh_banded_matches_jax(dtype, tol):
     m, bw, B = 60, 5, 3
     ab, rhs = _spd_band(m, bw, B, dtype)
-    got = banded.solveh_banded_lower(torch.from_numpy(ab), torch.from_numpy(rhs), bw).numpy()
+    got = banded.solveh_banded_lower(torch.tensor(ab), torch.from_numpy(rhs), bw).numpy()
     ref = np.stack(
         [np.asarray(jbanded.solveh_banded_lower(ab[b], rhs[b], bw)) for b in range(B)]
     )
     assert got.dtype == dtype
     # the factor and solves follow the same recurrences in the same order
     assert _rel(got, ref) <= tol
-    lb = banded.banded_cholesky(torch.from_numpy(ab), bw).numpy()
+    lb = banded.banded_cholesky(torch.tensor(ab), bw).numpy()
     lb_ref = np.stack([np.asarray(jbanded.banded_cholesky(ab[b], bw)) for b in range(B)])
     assert _rel(lb, lb_ref) <= (1e-12 if dtype == np.float64 else TOL32)
 
@@ -97,7 +97,7 @@ def test_solveh_banded_matches_jax(dtype, tol):
 def test_solveh_banded_against_dense_solve():
     m, bw, B = 40, 3, 2
     ab, rhs = _spd_band(m, bw, B, np.float64, seed=3)
-    x = banded.solveh_banded_lower(torch.from_numpy(ab), torch.from_numpy(rhs), bw).numpy()
+    x = banded.solveh_banded_lower(torch.tensor(ab), torch.from_numpy(rhs), bw).numpy()
     for b in range(B):
         A = np.zeros((m, m))
         for d in range(bw + 1):

@@ -7,7 +7,10 @@ file imports no JAX, so it runs on a machine with only PyTorch:
 
 Tolerances: the kernel against its plain version in float64 on the same
 inputs, max|diff| / max|ref| <= 1e-5 for the float32 kernel (float32 sums)
-and <= 1e-12 for the float64 kernel; the band-end zeros exactly.
+and <= 1e-12 for the float64 kernel; the band-end zeros exactly.  The
+beamforming kernel against its plain version on the same float32 inputs,
+<= 1e-5 of the largest sum (their sine and cosine routines and summation
+orders differ).
 """
 
 import numpy as np
@@ -565,3 +568,88 @@ def test_wiener_delay_transform_on_the_card_matches_the_cpu(cuda):
     assert _rel_any(op.filter[:].cpu(), cop.filter[:]) <= 1e-6
     assert _rel_any(ds.spectrum[:].cpu(), cds.spectrum[:]) <= 1e-5
     assert _rel_any(cube.vis[:].cpu(), ccube.vis[:]) <= 1e-5
+
+
+def _beamform_inputs(seed, nfreq=3, nra=50, nprod=45, S=5, nha=11, dev="cpu"):
+    """Seeded inputs of the beamforming kernel: one window across the RA
+    wrap, zero weights (a whole RA row, a whole product, single cells),
+    nprod not a multiple of 32; vis complex64, the rest float32."""
+    rng = np.random.Generator(np.random.SFC64(seed))
+    vis = (rng.standard_normal((nfreq, nra, nprod)) + 1j * rng.standard_normal((nfreq, nra, nprod))).astype(np.complex64)
+    sw = rng.uniform(0.5, 2.0, (nfreq, nra, nprod)).astype(np.float32)
+    sw[0, 3] = 0.0
+    sw[:, :, 5] = 0.0
+    vw = rng.uniform(0.5, 2.0, (nfreq, nra, nprod)).astype(np.float32)
+    vw[1, 10, :4] = 0.0
+    start = rng.integers(0, nra - nha, S)
+    start[0] = nra - nha // 2
+    ra_idx = ((start[:, None] + np.arange(nha)) % nra).astype(np.int32)
+    ha = rng.uniform(-0.1, 0.1, (S, nha))
+    dec = np.radians(rng.uniform(20, 70, (S, 1)))
+    lat = np.radians(49.0)
+    a = (np.cos(dec) * np.sin(ha)).astype(np.float32)
+    b = (np.cos(lat) * np.sin(dec) - np.sin(lat) * np.cos(dec) * np.cos(ha)).astype(np.float32)
+    # CHIME-like baselines: up to ~300 wavelengths
+    u = rng.uniform(-130, 130, (nfreq, nprod)).astype(np.float32)
+    v = rng.uniform(-260, 260, (nfreq, nprod)).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (vis, sw, vw, ra_idx, a, b, u, v)]
+
+
+@pytest.mark.parametrize("natural", [True, False])
+@pytest.mark.parametrize("S,nprod,nha", [(5, 45, 11), (1, 32, 7), (3, 1789, 85), (40, 7, 3)])
+def test_beamform_kernel_matches_plain(cuda, natural, S, nprod, nha):
+    """Kernel against plain version on the same float32 inputs: both form the
+    phase from the same rounded d and reduce it to turns, but take their sine
+    and cosine from different routines and sum in another order; 1e-5 of the
+    largest |F| (and of W, Q)."""
+    from draco_tpu_torch.ops import interferometry
+
+    vis, sw, vw, ra_idx, a, b, u, v = _beamform_inputs(S * nprod, S=S, nprod=nprod, nha=nha, nra=max(50, nha + 2),
+                                                       dev=cuda)
+    before = cuda_kernels.launches["beamform"]
+    F, W, Q = cuda_kernels.beamform_sums(vis, sw, vw if natural else None, ra_idx, a, b, u, v, natural)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["beamform"] == before + 1
+    Fp, Wp, Qp = interferometry.beamform_sums_plain(vis, sw, vw, ra_idx, a, b, u, v, natural)
+    assert cuda_kernels.launches["beamform"] == before + 1
+    assert F.shape == (vis.shape[0], S, nha) and F.dtype == torch.float32
+    assert _rel(F, Fp) <= 1e-5 and _rel(W, Wp) <= 1e-5
+    if natural:
+        assert _rel(Q, Qp) <= 1e-5
+    else:
+        assert Q is None and Qp is None
+    again = cuda_kernels.beamform_sums(vis, sw, vw if natural else None, ra_idx, a, b, u, v, natural)
+    assert torch.equal(again[0], F)  # no atomics: the same sums every run
+
+
+def test_beamform_kernel_ha_resolved_padding_on_the_card(cuda):
+    """HA-resolved beamforming with padded window slots (index 0, validity 0)
+    on the card against the CPU, natural and inverse-variance weights."""
+    from draco_tpu_torch.ops import interferometry
+
+    vis, sw, vw, ra_idx, a, b, u, v = _beamform_inputs(21)
+    S, nha = ra_idx.shape
+    valid = torch.ones(S, nha)
+    valid[2, -4:] = 0.0
+    ra_idx[2, -4:] = 0
+    cosha, sinha = torch.rand(S, nha).double(), torch.rand(S, nha).double()
+    sd, cd = torch.rand(S).double(), torch.rand(S).double()
+    for inv in (False, True):
+        args = (vis, sw, vw, ra_idx, cosha, sinha, sd, cd, 0.8, u, v, valid, inv)
+        got = interferometry.beamform_sources_batched_ha(*[x.to(cuda) if torch.is_tensor(x) else x for x in args])
+        ref = interferometry.beamform_sources_batched_ha(*args)
+        for g, r in zip(got, ref):
+            assert _rel(g.cpu(), r) <= 1e-5
+            assert (g.cpu()[2, :, -4:] == 0).all()
+
+
+def test_beamform_kernel_refuses_what_it_does_not_take(cuda):
+    vis, sw, vw, ra_idx, a, b, u, v = _beamform_inputs(3, dev=cuda)
+    with pytest.raises(TypeError):
+        cuda_kernels.beamform_sums(vis.to(torch.complex128), sw, vw, ra_idx, a, b, u, v, True)
+    with pytest.raises(TypeError):
+        cuda_kernels.beamform_sums(vis, sw.double(), vw, ra_idx, a, b, u, v, True)
+    with pytest.raises(IndexError):
+        cuda_kernels.beamform_sums(vis, sw, vw, ra_idx + vis.shape[1], a, b, u, v, True)
+    with pytest.raises(ValueError):
+        cuda_kernels.beamform_sums(vis, sw, vw, ra_idx, a, b, u.cpu(), v, True)

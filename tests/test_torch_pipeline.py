@@ -216,7 +216,7 @@ def test_every_task_of_the_simulation_examples_resolves(example):
 
 
 @pytest.mark.parametrize(
-    "path", ["draco.analysis.flagging.MaskFreq", "draco_tpu.analysis.transform.GenerateSubBands"]
+    "path", ["draco.analysis.flagging.MaskFreq", "draco_tpu.analysis.fringestop.Mix"]
 )
 def test_a_task_not_ported_yet_raises(path):
     with pytest.raises(PipelineRuntimeError, match="not ported to draco_tpu_torch yet") as e:
@@ -891,3 +891,126 @@ def _managers():
     from draco_tpu.core.pipeline import Manager as JManager
 
     return JManager, Manager
+
+
+STACK_TELESCOPE = dict(RINGMAP_TELESCOPE, num_freq=2)
+STACK_NTIME = 256  # samples a sidereal day
+STACK_PAD = 4
+STACK_LSD = 3000
+STACK_NSRC = 16
+
+
+def _stacking_config(tmp):
+    an = "draco.analysis."
+    return {"pipeline": {"tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "btm"],
+         "params": {"product_directory": str(tmp / "products")}},
+        {"type": "draco.core.io.LoadFilesFromParams", "out": "tstream", "params": {"files": [str(tmp / "day_*.h5")]}},
+        {"type": "draco.core.io.LoadFilesFromParams", "out": "catalog", "params": {"files": [str(tmp / "cat.h5")]}},
+        {"type": an + "sidereal.SiderealGrouper", "requires": "tel", "in": "tstream", "out": "day"},
+        {"type": an + "sidereal.SiderealRegridder", "requires": "tel", "in": "day", "out": "sday",
+         "params": {"samples": 128}},
+        {"type": an + "sidereal.SiderealStacker", "in": "sday", "out": "sstack", "params": {"with_sample_variance": True}},
+        {"type": an + "sidereal.SiderealStackerMatch", "in": "sday", "out": "mstack"},
+        {"type": an + "beamform.BeamFormCat", "requires": ["tel", "sstack"], "in": "catalog", "out": "fbeam",
+         "params": {"timetrack": 2000.0}},
+        {"type": an + "sourcestack.SourceStack", "in": "fbeam", "out": "fstack", "params": {"freqside": 0}},
+        {"type": an + "sourcestack.RandomSubset", "requires": "catalog", "out": "subcat",
+         "params": {"number": 1, "size": 6, "seed": 18}},
+        {"type": an + "beamform.BeamFormCat", "requires": ["tel", "sstack"], "in": "subcat", "out": "fbeam_ha",
+         "params": {"collapse_ha": False, "timetrack": 2000.0}},
+        {"type": an + "sidereal.SiderealRebinner", "requires": "tel", "in": "day", "out": "rday",
+         "params": {"samples": 128}},
+        {"type": an + "sidereal.RebinGradientCorrection", "requires": "sday", "in": "rday", "out": "rday_corr"},
+    ]}}
+
+
+@pytest.fixture(scope="module")
+def stacking_chain(tmp_path_factory):
+    """Phase 18's chain at CPU size: a dual-pol 2 x 4-feed cylinder at 2
+    channels, three sidereal days of 256 samples (each day's two halves and
+    the boundary files it shares with its neighbours, as ``chip_smoke.py``
+    writes them), noise and two point sources; a 16-source catalogue.  Run
+    through the JAX package's Manager and the port's."""
+    import pickle
+
+    from draco_tpu.analysis.transform import TelescopeStreamMixIn
+    from draco_tpu.core import containers as jcontainers
+    from draco_tpu.telescope import PolarisedCylinderTelescope as JPolCylinder
+
+    tmp = tmp_path_factory.mktemp("stacking")
+    jtel = JPolCylinder(**STACK_TELESCOPE)
+    (tmp / "products").mkdir()
+    with open(tmp / "products" / "telescope.pkl", "wb") as f:
+        pickle.dump(jtel, f)
+    maps = TelescopeStreamMixIn()
+    maps.setup(jtel)
+    files = [(-STACK_PAD, STACK_PAD)]
+    for d in range(3):
+        lo, mid, hi = d * STACK_NTIME + STACK_PAD, d * STACK_NTIME + STACK_NTIME // 2, (d + 1) * STACK_NTIME - STACK_PAD
+        files += [(lo, mid), (mid, hi), (hi, hi + 2 * STACK_PAD)]
+    bl = np.asarray(jtel.baselines)
+    nu = jtel.frequencies * 1e6 / 299792458.0
+    for i, (k0, k1) in enumerate(files):
+        lsd = STACK_LSD + np.arange(k0, k1) / STACK_NTIME
+        ts = jcontainers.TimeStream(freq=jtel.frequencies, input=jtel.nfeed, prod=maps.bt_prod, stack=maps.bt_stack,
+                                    reverse_map_stack=maps.bt_rev, time=jtel.lsd_to_unix(lsd))
+        rng = np.random.Generator(np.random.SFC64(100 + i))
+        shape = ts.vis.shape
+        vis = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        for ra0, amp in ((40.0, 30.0), (200.0, 50.0)):
+            ha = np.radians((360.0 * (lsd % 1.0) - ra0 + 180.0) % 360.0 - 180.0)
+            vis += amp * np.exp(2j * np.pi * bl[:, 0, None] * np.sin(ha)[None] * nu[:, None, None]) * np.exp(
+                -0.5 * (ha / 0.1) ** 2)
+        w = np.ones(shape, np.float32)
+        w[0, 3, : (k1 - k0) // 3] = 0.0
+        ts.vis[:] = vis.astype(np.complex64)
+        ts.weight[:] = w
+        ts.input_flags[:] = 1.0
+        ts.save(str(tmp / f"day_{i:02d}.h5"))
+    rng = np.random.Generator(np.random.SFC64(7))
+    cat = jcontainers.SpectroscopicCatalog(object_id=np.arange(STACK_NSRC))
+    pos = np.zeros(STACK_NSRC, dtype=[("ra", np.float64), ("dec", np.float64)])
+    pos["ra"] = np.concatenate([[40.0, 200.0, 359.5], rng.uniform(0, 360, STACK_NSRC - 3)])
+    pos["dec"] = jtel.latitude + rng.uniform(-3, 3, STACK_NSRC)
+    red = np.zeros(STACK_NSRC, dtype=[("z", np.float64), ("z_error", np.float64)])
+    red["z"] = 1420.405751768 / rng.uniform(jtel.frequencies.min(), jtel.frequencies.max(), STACK_NSRC) - 1.0
+    cat["position"][:] = pos
+    cat["redshift"][:] = red
+    cat.save(str(tmp / "cat.h5"))
+    return _run_both(_stacking_config(tmp))
+
+
+def test_stacking_chain_matches_jax(stacking_chain):
+    """Phase 18's chain through both Managers: the stack and its weights
+    within 1e-5 (float32 West updates of float32 regrids), its sample
+    variance within 1e-4 (the float32 rounding of the sources' |vis|^2,
+    50^2 here, left in a noise-sized sum: ``host_west_stack`` in
+    ``chip_smoke.py`` bounds it),
+    the matched stack within 3e-3 (the float32 cancellation of each day's
+    mean: ``tests/test_torch_sidereal.py``), the formed beams, their weights
+    and the frequency stack within 1e-5 of their largest values (complex64
+    contractions in both), the rebinned and corrected days within 1e-5;
+    every label's container type and shape the JAX package's."""
+    jprod, tprod = stacking_chain
+    tols = {"sday": 1e-5, "sstack": 1e-5, "mstack": 3e-3, "fbeam": 1e-5, "fbeam_ha": 1e-5, "fstack": 1e-5,
+            "rday_corr": 1e-5, "subcat": 0.0}
+    for label, tol in tols.items():
+        assert len(tprod[label]) == len(jprod[label]), label
+        for got, ref in zip(tprod[label], jprod[label]):
+            assert type(got).__name__ == type(ref).__name__, label
+            assert set(got.datasets) == set(ref.datasets), (label, set(got.datasets), set(ref.datasets))
+            for name, ds in ref.datasets.items():
+                r = np.asarray(ds[:])
+                g = got.datasets[name][:]
+                g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+                assert g.shape == r.shape, (label, name)
+                t = 1e-4 if name == "sample_variance" else tol
+                if r.dtype.kind not in "fc" or t == 0.0:
+                    np.testing.assert_array_equal(g, r, err_msg=f"{label}.{name}")
+                else:
+                    scale = max(np.abs(r).max(), 1e-300)
+                    assert np.abs(g - r).max() <= t * scale, (label, name, np.abs(g - r).max() / scale)
+    assert len(tprod["sday"]) == 3 and len(tprod["rday_corr"]) == 3
+    fb = tprod["fbeam"][0].beam[:].numpy()
+    assert np.isfinite(fb).all() and np.abs(fb[:2, 0]).max() > 5 * np.median(np.abs(fb[3:, 0]))

@@ -128,11 +128,12 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(draco_tpu_torch.__path__, 'draco_tpu_torch.')]\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "assert len(names) >= 54 and 'draco_tpu_torch.__main__' in names, names\n"
+        "assert len(names) >= 58 and 'draco_tpu_torch.__main__' in names, names\n"
         "new = ['analysis.flagging', 'analysis.svdfilter', 'analysis.fgfilter', 'analysis.powerspectrum',\n"
         "       'ops.filters', 'telescope.kltransform', 'telescope.psestimation',\n"
         "       'analysis.delay', 'analysis.delayopt', 'ops.delay', 'ops.kernels',\n"
-        "       'analysis.ringmapmaker', 'analysis.powerspec']\n"
+        "       'analysis.ringmapmaker', 'analysis.powerspec',\n"
+        "       'analysis.beamform', 'analysis.sourcestack', 'ops.gaussian_process', 'ops.interferometry']\n"
         "assert all('draco_tpu_torch.' + n in names for n in new), names\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'draco_tpu') or m.startswith(('jax.', 'draco_tpu.')))\n"
         "assert not bad, bad\n"
