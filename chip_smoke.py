@@ -199,8 +199,11 @@ Phases, each of which raises on failure (exit code != 0):
    ``RebinGradientCorrection`` (against its regridded self).  Probes keep
    64 sampled (freq, stack) rows of every day.  Prints the per-task
    seconds, the peak device memory and both kernels' launches (zeroed just
-   before the run).  Checks: the launches (3 days x 2 regrid blocks;
-   beamform > 0); every kept product finite, of its type and shape; the
+   before the run), then ``BeamFormCat``'s split (host windows, ``beam_at``,
+   the contraction, the torch normalisation) from one synchronised run of
+   its stages.  Checks: the launches (3 days x 2 regrid blocks; beamform
+   exactly 8, one a polarisation for each ``BeamFormCat``'s whole
+   catalogue); every kept product finite, of its type and shape; the
    stack's rows within 1e-6 of a float64 West update on the host (the
    sample variance within its float32 rounding bound) and nsample 3 where
    all days have weight; the matched stack within 1e-5 of float64 on the
@@ -210,10 +213,13 @@ Phases, each of which raises on failure (exit code != 0):
    inverse-variance mean over XX, YY and the channels within 5 sigma of 0;
    ``SourceStack`` within 1e-6 of a float64 host segment sum; 64 sampled
    sources' formed beams within 1e-4 of a float64 evaluation of the JAX
-   program's formula on the host; the beamform kernel within 1e-5 of its
-   plain version on 256 sources, timed beside it at the task's batch of
-   32; the banded covariance at the regrid's block against its plain
-   version in float64.
+   program's formula on the host; the task's tracks, built at once, equal
+   to a window a source; the beamform kernel within 1e-5 of its plain
+   version (F, W and Q each) on 8 batches of 32 sources and on the whole
+   catalogue in one launch (the plain version in batches of 32), each timed
+   beside it; the split run's formed beams within 1e-5 of the Manager's;
+   the banded covariance at the regrid's block against its plain version
+   in float64.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -627,6 +633,30 @@ def run_slice(bt, tel, sky, times, vis, weight, device, samples, chunk):
     t4 = _sync_clock(device)
     stages["roundtrip_s"] = t4 - t3
     return stages, mvis, w, maps
+
+
+def kernel_device_ms(fn, reps: int, key: str) -> float:
+    """Device ms a launch of the kernel whose name holds ``key``, from
+    ``torch.profiler`` over ``reps`` calls of ``fn`` after a warm one: the
+    summed kernel time over the launches the trace holds (a trace can miss
+    some, so not over ``reps``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if key in ev.key:
+            total += getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+            count += ev.count
+    if count == 0:
+        raise RuntimeError(f"the profiler traced no kernel named like {key!r}")
+    return total / 1e3 / count
 
 
 def _sync_clock(device) -> float:
@@ -3005,8 +3035,9 @@ def run_stacking(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = STACK_NFR
     del products
     if on_card:
         check("the main path launched both kernels", f"banded_covariance {launches['banded_covariance']} (expect "
-              f"{ndays} days x {blocks} blocks of {block_freqs} channels), beamform {launches['beamform']}",
-              launches["banded_covariance"] == ndays * blocks and launches["beamform"] > 0)
+              f"{ndays} days x {blocks} blocks of {block_freqs} channels), beamform {launches['beamform']} (expect "
+              "2 BeamFormCat calls x 4 pols: one launch a pol for each whole catalogue)",
+              launches["banded_covariance"] == ndays * blocks and launches["beamform"] == 2 * 4)
     nha = fbeam_ha.beam.shape[-1]
     want = {
         "stack": (stack, containers.SiderealStream, "vis", (nfreq, nstack, samples)),
@@ -3131,37 +3162,57 @@ def run_stacking(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = STACK_NFR
           f"of the formula on the host CPU ({time.perf_counter() - t0:.1f} s)", f"beam {err_f:.3e}, weight "
           f"{err_hw:.3e} (limit {TOL_BEAMFORM_HOST})", max(err_f, err_hw) <= TOL_BEAMFORM_HOST)
 
-    # check 1: the kernel against its plain version on the card, at the task's batch of 32
+    # check 1: the kernel against its plain version, on the check's batches
+    # of 32 (the catalogue's first 256 sources) and on the whole catalogue in
+    # one launch (against the plain version in batches of 32)
     kern = {}
     lat = np.radians(tel.latitude)
-    sel = np.arange(min(N_KERNEL_CHECK, nsrc))
-    windows = []
-    for s in sel:
-        idx = task._transit_index(task.sra[s])
-        windows.append(task._ha_array(task.ra, idx, task.sra[s], int(task.ha_side), True))
-    worst, scale = 0.0, 0.0
-    batch_args = []
-    for b0 in range(0, len(sel), 32):
-        wb = windows[b0 : b0 + 32]
-        ra_idx = np.stack([w[1] for w in wb]).astype(np.int32)
-        ha = np.stack([w[0] for w in wb])
-        decs = np.radians(task.sdec[sel[b0 : b0 + 32]])[:, None]
-        a = np.cos(decs) * np.sin(ha)
-        b = np.cos(lat) * np.sin(decs) - np.sin(lat) * np.cos(decs) * np.cos(ha)
-        args = (task.vis[0], task.sumweight[0], task.visweight[0], torch.as_tensor(ra_idx, device=device),
-                torch.as_tensor(a, dtype=torch.float32, device=device),
-                torch.as_tensor(b, dtype=torch.float32, device=device), *task._uv[0])
-        batch_args.append((args, ra_idx))
-        got = cuda_kernels.beamform_sums(*args, natural=True)
-        ref = interferometry.beamform_sums_plain(*args, natural=True)
-        for g, r in zip(got, ref):
-            worst = max(worst, (g.double() - r.double()).abs().max().item())
-            scale = max(scale, r.double().abs().max().item())
-    kerr = worst / scale
-    check(f"beamform kernel vs its plain version on the {'card' if on_card else 'CPU'}, {len(sel)} sources "
-          f"(pol XX, natural; F, W and Q)", f"max|diff| {worst:.3e}, / max|ref| {kerr:.3e} (limit "
-          f"{TOL_BEAMFORM_KERNEL})", kerr <= TOL_BEAMFORM_KERNEL)
-    kern["beamform"] = {"max_abs_err": worst, "library_ms": None}
+    transits = task._transit_indices(task.sra)
+    windows = [task._ha_array(task.ra, transits[s], task.sra[s], int(task.ha_side), True) for s in range(nsrc)]
+    ra_all = np.stack([w[1] for w in windows]).astype(np.int32)
+    ha_all = np.stack([w[0] for w in windows])
+    decs = np.radians(task.sdec)[:, None]
+    a_all = np.cos(decs) * np.sin(ha_all)
+    b_all = np.cos(lat) * np.sin(decs) - np.sin(lat) * np.cos(decs) * np.cos(ha_all)
+    tracks = task._source_tracks()
+    check("the task's tracks of the whole catalogue, built at once, vs a window a source",
+          f"{len(tracks.src_ids)} of {nsrc} sources kept, RA indices and hour angles equal",
+          np.array_equal(tracks.src_ids, np.arange(nsrc)) and np.array_equal(tracks.ra_idx, ra_all)
+          and np.array_equal(tracks.ha, ha_all))
+
+    def kernel_args(sl):
+        return (task.vis[0], task.sumweight[0], task.visweight[0], torch.as_tensor(ra_all[sl], device=device),
+                torch.as_tensor(a_all[sl], dtype=torch.float32, device=device),
+                torch.as_tensor(b_all[sl], dtype=torch.float32, device=device), *task._uv[0])
+
+    batch_args = [(kernel_args(slice(b0, b0 + 32)), ra_all[b0 : b0 + 32])
+                  for b0 in range(0, min(N_KERNEL_CHECK, nsrc), 32)]
+    plain_batches = [kernel_args(slice(b0, b0 + 32)) for b0 in range(0, nsrc, 32)]
+    whole = kernel_args(slice(None))
+
+    def compare(pairs):
+        """max|diff| and max|ref| of F, W and Q over (kernel, plain) output pairs."""
+        worst, scale = np.zeros(3), np.zeros(3)
+        for got, ref in pairs:
+            for i, (g, r) in enumerate(zip(got, ref)):
+                worst[i] = max(worst[i], (g.double() - r.double()).abs().max().item())
+                scale[i] = max(scale[i], r.double().abs().max().item())
+        return worst, worst / scale
+
+    wb, rb = compare((cuda_kernels.beamform_sums(*args, natural=True),
+                      interferometry.beamform_sums_plain(*args, natural=True)) for args, _ in batch_args)
+    check(f"beamform kernel vs its plain version on the {'card' if on_card else 'CPU'}, {len(batch_args)} batches "
+          "of 32 sources (pol XX, natural)", f"max|diff| / max|ref| F {rb[0]:.3e}, W {rb[1]:.3e}, Q {rb[2]:.3e} "
+          f"(limit {TOL_BEAMFORM_KERNEL})", rb.max() <= TOL_BEAMFORM_KERNEL)
+    got = cuda_kernels.beamform_sums(*whole, natural=True)
+    ww, rw = compare(([g[:, b0 : b0 + 32] for g in got], interferometry.beamform_sums_plain(*args, natural=True))
+                     for b0, args in zip(range(0, nsrc, 32), plain_batches))
+    del got
+    check(f"beamform kernel on the whole catalogue ({nsrc} sources, one launch) vs its plain version in batches of 32",
+          f"max|diff| / max|ref| F {rw[0]:.3e}, W {rw[1]:.3e}, Q {rw[2]:.3e} (limit {TOL_BEAMFORM_KERNEL})",
+          rw.max() <= TOL_BEAMFORM_KERNEL)
+    kern["beamform"] = {"max_abs_err": float(max(wb.max(), ww.max())), "library_ms": None,
+                        "max_rel_err_F_W_Q": np.maximum(rb, rw).tolist()}
     nfreq_k, _, nprod = task.vis[0].shape
     if on_card:
         # every batch of the check, timed and bounded on its own (their
@@ -3170,21 +3221,78 @@ def run_stacking(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = STACK_NFR
         def mean_ms(fn, reps):
             return float(np.mean([cuda_ms(lambda a=a: fn(*a, natural=True), reps) for a, _ in batch_args]))
 
+        def plain_all():
+            for args in plain_batches:
+                interferometry.beamform_sums_plain(*args, natural=True)
+
+        def whole_ms(reps):
+            return cuda_ms(lambda: cuda_kernels.beamform_sums(*whole, natural=True), reps)
+
+        def device_ms(args, reps):
+            return kernel_device_ms(lambda: cuda_kernels.beamform_sums(*args, natural=True), reps, "beamform_rows")
+
         k1 = mean_ms(cuda_kernels.beamform_sums, 20)
         p1 = mean_ms(interferometry.beamform_sums_plain, 3)
         p2 = mean_ms(interferometry.beamform_sums_plain, 3)
         k2 = mean_ms(cuda_kernels.beamform_sums, 20)
+        kw1 = whole_ms(5)
+        pw1 = cuda_ms(plain_all, 1)
+        pw2 = cuda_ms(plain_all, 1)
+        kw2 = whole_ms(5)
+        sub = kernel_args(slice(0, nsub))
+        k_sub = cuda_ms(lambda: cuda_kernels.beamform_sums(*sub, natural=True), 20)
+        # the kernel alone, without the row plan's bookkeeping
+        d_batch = float(np.mean([device_ms(a, 20) for a, _ in batch_args]))
+        d_whole, d_sub = device_ms(whole, 5), device_ms(sub, 20)
         rate = sfu_rate()
         bounds = [beamform_bound(ra_idx, nfreq_k, nprod, True, rate) for _, ra_idx in batch_args]
         bound = float(np.mean([b for b, _ in bounds]))
         bys = [by for _, by in bounds]
         bound_by = max(set(bys), key=bys.count)
-        log(f"kernel beamform, mean of {len(batch_args)} batches [S<=32, nha={batch_args[0][1].shape[1]}, "
-            f"nfreq={nfreq_k}, nprod={nprod}] ms: kernel {k1:.4f} {k2:.4f}, plain {p1:.4f} {p2:.4f}, bound "
-            f"{bound:.4f} ({bound_by}; each batch {', '.join(f'{b:.4f}' for b, _ in bounds)}); the phase's "
-            f"{launches['beamform']} launches at this time: {launches['beamform'] * min(k1, k2) / 1e3:.3f} s")
-        kern["beamform"].update({"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": bound_by})
-    del task, batch_args
+        bound_w, by_w = beamform_bound(ra_all, nfreq_k, nprod, True, rate)
+        bound_sub, by_sub = beamform_bound(ra_all[:nsub], nfreq_k, nprod, True, rate)
+        phase_s = (launches["beamform"] // 2) * (min(kw1, kw2) + k_sub) / 1e3
+        log(f"kernel beamform, mean of {len(batch_args)} batches [S<=32, nha={ra_all.shape[1]}, nfreq={nfreq_k}, "
+            f"nprod={nprod}] ms a call (row plan + kernel): {k1:.4f} {k2:.4f}, the kernel alone {d_batch:.4f}, plain "
+            f"{p1:.4f} {p2:.4f}, bound {bound:.4f} ({bound_by}; each batch {', '.join(f'{b:.4f}' for b, _ in bounds)})")
+        log(f"kernel beamform, the whole catalogue in one launch [S={nsrc}] ms a call: {kw1:.4f} {kw2:.4f}, the "
+            f"kernel alone {d_whole:.4f}, plain in {len(plain_batches)} batches of 32 {pw1:.4f} {pw2:.4f}, bound "
+            f"{bound_w:.4f} ({by_w}); [S={nsub}, the HA-resolved call's shape] a call {k_sub:.4f}, the kernel alone "
+            f"{d_sub:.4f}, bound {bound_sub:.4f} ({by_sub}); the phase's {launches['beamform']} launches "
+            f"({launches['beamform'] // 2} at each shape) at these times: {phase_s:.4f} s")
+        kern["beamform"].update({
+            "ms": min(kw1, kw2), "device_ms": d_whole, "plain_ms": min(pw1, pw2), "bound_ms": bound_w,
+            "bound_by": by_w, "sources": nsrc, "phase_kernel_s": phase_s,
+            "batch32": {"ms": min(k1, k2), "device_ms": d_batch, "plain_ms": min(p1, p2), "bound_ms": bound,
+                        "bound_by": bound_by},
+            f"sources_{nsub}": {"ms": k_sub, "device_ms": d_sub, "bound_ms": bound_sub, "bound_by": by_sub},
+        })
+    del batch_args, plain_batches, whole
+
+    # BeamFormCat's split: one synchronised run of its stages on the whole
+    # catalogue, against the Manager's formed beams
+    t = [_sync_clock(device)]
+    tracks = task._source_tracks()
+    t.append(_sync_clock(device))
+    beams = task._track_beams(tracks)
+    t.append(_sync_clock(device))
+    sums = task._track_sums(tracks, slice(None))
+    t.append(_sync_clock(device))
+    formed, wformed = task._finish_tracks(tracks, slice(None), sums, beams)
+    t.append(_sync_clock(device))
+    del sums, beams
+    split = np.diff(t)
+    log(f"BeamFormCat split ({nsrc} sources, {task.npol} pols; s): host windows {split[0]:.4f}, beam_at "
+        f"{split[1]:.4f}, contraction (row plan + kernel, {task.npol} launches) {split[2]:.4f}, torch normalisation "
+        f"{split[3]:.4f}; the Manager's first BeamFormCat "
+        f"{next(t for name, t in timing.items() if name.startswith('BeamFormCat'))} s in all")
+    err_split = max(np.abs(formed.cpu().numpy() - beam).max() / np.abs(beam).max(),
+                    np.abs(wformed.cpu().numpy() - fw).max() / np.abs(fw).max())
+    check("the split run's formed beams and weights vs the Manager's", f"{err_split:.3e} (limit "
+          f"{TOL_BEAMFORM_KERNEL})", err_split <= TOL_BEAMFORM_KERNEL)
+    kern["beamform"]["beamformcat_split_s"] = dict(zip(("host_windows", "beam_at", "contraction", "normalisation"),
+                                                       split.tolist()))
+    del task, tracks, formed, wformed
     gc.collect()
 
     # check 2: the banded covariance on the regrid's first block of the first day

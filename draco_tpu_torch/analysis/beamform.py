@@ -9,13 +9,17 @@ HealpixBeamForm:1676, icrs_to_cirs:1773).
 The fringestop + weighted product sum (the Cython ``beamform``, reference
 draco/util/_fast_tools.pyx:211) runs on the data's device through
 :mod:`draco_tpu_torch.ops.interferometry`, whose contraction is the
-hand-written CUDA kernel ``csrc/beamform.cu`` on the card.  The catalogue,
-window and primary-beam bookkeeping is host numpy, as in the JAX package;
-the primary beam of the whole catalogue is evaluated in one ``beam_at`` call
-per (feed, frequency) where the JAX package calls it per source.
+hand-written CUDA kernel ``csrc/beamform.cu`` on the card, one launch a
+polarisation for the whole catalogue.  The catalogue, window and
+primary-beam bookkeeping is host numpy, vectorised over the catalogue where
+the JAX package loops over sources; the primary beam of the whole catalogue
+is evaluated in one ``beam_at`` call per (feed, frequency) where the JAX
+package calls it per source.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -25,9 +29,10 @@ from ..core.task import ContainerTask
 from ..ops import healpix, tools
 from ..ops.interferometry import (
     beamform_kernel,
-    beamform_sources_batched,
-    beamform_sources_batched_ha,
+    collapse_track_sums,
     fringestop_phase,
+    resolve_track_sums,
+    track_sums,
 )
 from ..ops.tools import invert_no_zero
 from .sidereal import _search_nearest
@@ -38,6 +43,8 @@ SIDEREAL_S = 86164.0905 / 86400.0
 
 # time samples a block when counting the stacks' redundancy
 _REDUNDANCY_BLOCK = 1 << 28
+# (source, sample) gaps a block when finding transits in a time stream
+_TRANSIT_BLOCK = 1 << 24
 
 
 def icrs_to_cirs(ra, dec, epoch, apparent=True):
@@ -76,8 +83,11 @@ class BeamFormBase(ContainerTask):
     timetrack = config.float_prop(900.0)
     variable_timetrack = config.bool_prop(False)
     freqside = config.int_prop(None)
-    # Sources per batched call (the reference advances one source per
-    # Cython call, beamform.py:290); 1 selects the per-source path.
+    # 1 selects the per-source path (the reference advances one source per
+    # Cython call, beamform.py:290); above 1 the batched path, which on the
+    # card contracts the whole catalogue in one launch a polarisation and on
+    # the CPU takes at most this many sources a call.  The results do not
+    # depend on it.
     source_batch = config.int_prop(32)
     data_available = True
 
@@ -273,24 +283,30 @@ class BeamFormBase(ContainerTask):
         hour_angle = (hour_angle + np.pi) % (2.0 * np.pi) - np.pi
         return hour_angle, window, ha_mask
 
-    def _transit_index(self, source_ra):
-        """Nearest RA sample to a source transit, or None when outside the
-        observation (timestream inputs only)."""
+    def _transit_indices(self, source_ra):
+        """Nearest RA sample to each source's transit [nsrc] int64, -1 where
+        a transit lies outside the observation (timestream inputs only)."""
+        ra = np.asarray(self.ra)
+        source_ra = np.asarray(source_ra, dtype=np.float64)
         if self.is_sstream:
-            return np.searchsorted(self.ra, source_ra) % len(self.ra)
-        gap = abs(self.ra - source_ra)
-        best = np.argmin(gap)
-        cadence = self.ra[1] - self.ra[0]
-        return None if gap[best] > 1.5 * abs(cadence) else best
+            return np.searchsorted(ra, source_ra) % len(ra)
+        best = np.empty(len(source_ra), dtype=np.int64)
+        gap = np.empty(len(source_ra))
+        step = max(1, _TRANSIT_BLOCK // len(ra))
+        for i in range(0, len(source_ra), step):
+            g = np.abs(ra[None, :] - source_ra[i : i + step, None])
+            best[i : i + step] = g.argmin(axis=1)
+            gap[i : i + step] = np.take_along_axis(g, best[i : i + step, None], axis=1)[:, 0]
+        return np.where(gap > 1.5 * abs(ra[1] - ra[0]), -1, best)
 
-    def _source_freq_mask(self, src):
-        """Frequency flag mask around a source's 21cm line (freqside mode)."""
-        centre = np.argmin(abs(self.freq["centre"] - self.sfreq[src]))
-        flag = np.ones(self.nfreq, dtype=bool)
-        lo = max(0, centre - self.freqside)
-        hi = min(self.nfreq, centre + self.freqside + 1)
-        flag[lo:hi] = False
-        return flag
+    def _freq_masks(self):
+        """Frequency flags [nsrc, nfreq] around each source's 21cm line
+        (freqside mode): True outside ``freqside`` channels of it."""
+        centre = np.abs(self.freq["centre"][None, :] - self.sfreq[:, None]).argmin(axis=1)
+        lo = np.maximum(0, centre - self.freqside)
+        hi = np.minimum(self.nfreq, centre + self.freqside + 1)
+        chan = np.arange(self.nfreq)
+        return ~((chan >= lo[:, None]) & (chan < hi[:, None]))
 
     # -- main loop -----------------------------------------------------------
     def _new_output(self):
@@ -337,20 +353,20 @@ class BeamFormBase(ContainerTask):
         fbb = torch.zeros(shape, dtype=torch.float64, device=dev)
         fbw = torch.zeros(shape, dtype=torch.float64, device=dev)
         fbha = None if self.collapse_ha else np.zeros((self.nsource, self.nha))
+        f_masks = self._freq_masks() if self.freqside is not None else np.zeros((self.nsource, self.ls), bool)
+        transits = self._transit_indices(self.sra)
 
         for src in range(self.nsource):
             if src % 1000 == 0:
                 self.log.info(f"Beamforming source {src} of {self.nsource}")
             dec = np.radians(self.sdec[src])
 
-            f_mask = np.zeros(self.ls, dtype=bool)
-            if self.freqside is not None:
-                f_mask = self._source_freq_mask(src)
-                if f_mask.all():
-                    continue
+            f_mask = f_masks[src]
+            if self.freqside is not None and f_mask.all():
+                continue
 
-            sra_index = self._transit_index(self.sra[src])
-            if sra_index is None:
+            sra_index = transits[src]
+            if sra_index < 0:
                 continue
 
             ha_side = int(self.ha_side / np.cos(dec)) if self.variable_timetrack else int(self.ha_side)
@@ -418,121 +434,148 @@ class BeamFormBase(ContainerTask):
         """Beamforming with sources batched on the device.
 
         Equivalent to the per-source loop (reference beamform.py:290-385)
-        but each batch of sources gathers its RA windows and runs every
-        (source, freq, ha, product) contraction in one call per
-        polarisation (:func:`draco_tpu_torch.ops.interferometry.beamform_sources_batched`
-        / ``..._ha``: the CUDA kernel on the card).  Variable-length and
-        edge-clipped HA windows are padded and zeroed through the
-        primary-beam factor (collapse-HA) or an explicit validity mask
-        (HA-resolved).
+        but the tracks of every kept source are built at once
+        (:meth:`_source_tracks`) and contracted in one call per polarisation
+        (:func:`draco_tpu_torch.ops.interferometry.track_sums`: one launch
+        of the CUDA kernel on the card for the whole catalogue; on the CPU
+        the plain version, in batches of at most ``source_batch`` sources
+        under a ~2.5 GB gather budget).  Variable-length and edge-clipped HA
+        windows are padded and zeroed through the primary-beam factor
+        (collapse-HA) or an explicit validity mask (HA-resolved).
         """
         dev = self.vis[0].device
-        nsrc = self.nsource
         npol_out = len(self.return_pol)
-        shape = (nsrc, npol_out, self.ls) + (() if self.collapse_ha else (self.nha,))
+        shape = (self.nsource, npol_out, self.ls) + (() if self.collapse_ha else (self.nha,))
         fbb = torch.zeros(shape, dtype=torch.float64, device=dev)
         fbw = torch.zeros(shape, dtype=torch.float64, device=dev)
-        fbha = None if self.collapse_ha else np.zeros((nsrc, self.nha))
+        fbha = None if self.collapse_ha else np.zeros((self.nsource, self.nha))
 
-        # per-source windows and masks (host bookkeeping, small)
-        decs = np.radians(self.sdec)
-        keep = np.ones(nsrc, dtype=bool)
-        f_masks = np.zeros((nsrc, self.nfreq), dtype=bool)
-        windows = []
-        for src in range(nsrc):
-            if self.freqside is not None:
-                f_masks[src] = self._source_freq_mask(src)
-                if f_masks[src].all():
-                    keep[src] = False
-                    windows.append(None)
-                    continue
-            sra_index = self._transit_index(self.sra[src])
-            if sra_index is None:
-                keep[src] = False
-                windows.append(None)
-                continue
-            ha_side = int(self.ha_side / np.cos(decs[src])) if self.variable_timetrack else int(self.ha_side)
-            windows.append(self._ha_array(self.ra, sra_index, self.sra[src], ha_side, self.is_sstream))
-
-        src_ids = np.nonzero(keep)[0]
-        if len(src_ids) == 0:
+        tracks = self._source_tracks()
+        if tracks is None:
             return fbb, fbw, fbha
-
-        S = int(self.source_batch)
-        if dev.type == "cpu":
-            # the plain version gathers [freq, S, nha, nprod] windows: a ~2 GB budget
-            nprod_max = max(v.shape[-1] for v in self.vis)
-            nham_all = max(len(windows[s][0]) for s in src_ids)
-            per_src = max(1, nham_all * self.ls * nprod_max * 20)
-            S = max(1, min(S, int(2.5e9 // per_src)))
-
-        f_masks_t = torch.as_tensor(f_masks, device=dev)
-        if self.collapse_ha:
-            # every kept source's primary beam at once: one beam_at call per
-            # (feed, frequency) for the whole catalogue, the same numbers
-            # source by source as a call per source
-            cache = {}
-            has = [windows[s][0] for s in src_ids]
-            beams = {
-                p: dict(zip(src_ids, self._beamfunc_many(p, decs[src_ids], has, cache))) for p in self.process_pol
-            }
-            del cache
-        for b0 in range(0, len(src_ids), S):
-            batch = src_ids[b0 : b0 + S]
-            nb = len(batch)
-            nham = self.nha if not self.collapse_ha else max(len(windows[s][0]) for s in batch)
-            ra_idx = np.zeros((nb, nham), np.int32)
-            cosha = np.zeros((nb, nham))
-            sinha = np.zeros((nb, nham))
-            ha_valid = np.zeros((nb, nham), np.float32)
-            sels = []
-            for k, s_id in enumerate(batch):
-                ha_array, ra_index_range, ha_mask = windows[s_id]
-                # collapse-HA: packed at the start, the primary-beam factor zeroes the
-                # padding; HA-resolved: outputs at their full-grid positions
-                # (reference beamform.py:370-380)
-                sel = slice(0, len(ha_array)) if self.collapse_ha else ha_mask
-                sels.append(sel)
-                ra_idx[k][sel] = ra_index_range
-                cosha[k][sel] = np.cos(ha_array)
-                sinha[k][sel] = np.sin(ha_array)
-                ha_valid[k][sel] = 1.0
-                if not self.collapse_ha and fbha is not None:
-                    fbha[s_id][sel] = ha_array
-            if self.collapse_ha:
-                pb = np.zeros((self.npol, nb, self.ls, nham))
-                for pol, pol_str in enumerate(self.process_pol):
-                    for k, s_id in enumerate(batch):
-                        pb[pol, k, :, sels[k]] = beams[pol_str][s_id]
-
-            formed, wout = [], []
-            for pol in range(self.npol):
-                common = (
-                    self.vis[pol], self.sumweight[pol], self.visweight[pol], ra_idx, cosha, sinha,
-                    np.sin(decs[batch]), np.cos(decs[batch]), self.latitude, *self._uv[pol],
-                )
-                if self.collapse_ha:
-                    f_p, w_p = beamform_sources_batched(*common, pb[pol], self.weight == "inverse_variance")
-                else:
-                    f_p, w_p = beamform_sources_batched_ha(*common, ha_valid, self.weight == "inverse_variance")
-                formed.append(f_p.double())
-                wout.append(w_p.double())
-            formed = torch.stack(formed)  # [pol, nb, freq(, ha)]
-            wout = torch.stack(wout)
-
-            bidx = torch.as_tensor(batch, device=dev)
-            fm = f_masks_t.index_select(0, bidx)  # [nb, freq]
-            fm = fm[None] if self.collapse_ha else fm[None, :, :, None]
-            wout = torch.where(fm, torch.zeros_like(wout), wout)
-            if self.polarization == "I":
-                wsum = wout.sum(dim=0)
-                fsum = (formed * wout).sum(dim=0) * invert_no_zero(wsum)
-                fbb[bidx] = fsum[:, None]
-                fbw[bidx] = 2.0 * wsum[:, None]
-            else:
-                fbb[bidx] = formed.transpose(0, 1)
-                fbw[bidx] = 2.0 * wout.transpose(0, 1)
+        if fbha is not None:
+            fbha[tracks.src_ids] = tracks.ha
+        beams = self._track_beams(tracks) if self.collapse_ha else None
+        for sl in self._track_batches(tracks):
+            bidx = torch.as_tensor(tracks.src_ids[sl], device=dev)
+            fbb[bidx], fbw[bidx] = self._finish_tracks(tracks, sl, self._track_sums(tracks, sl), beams)
         return fbb, fbw, fbha
+
+    def _source_tracks(self):
+        """Every kept source's hour-angle track, built at once on the host.
+
+        None when no source is kept; else a namespace of ``src_ids`` [n]
+        (the kept sources), ``ra_idx`` [n, nham] int32, ``ha``, ``cosha``,
+        ``sinha`` [n, nham], ``valid`` [n, nham] bool, ``sind``, ``cosd``
+        [n] and ``f_masks`` [n, nfreq].  Collapse-HA tracks are packed at the
+        start of their row, HA-resolved ones sit at their full-grid
+        positions (reference beamform.py:370-380); a padded slot holds RA
+        index 0 and hour angle 0, as the per-source windows of
+        :meth:`_ha_array` would leave it.
+        """
+        ra = np.asarray(self.ra)
+        nra = len(ra)
+        f_masks = self._freq_masks() if self.freqside is not None else np.zeros((self.nsource, self.nfreq), bool)
+        transits = self._transit_indices(self.sra)
+        keep = transits >= 0
+        if self.freqside is not None:
+            keep &= ~f_masks.all(axis=1)
+        src_ids = np.flatnonzero(keep)
+        if len(src_ids) == 0:
+            return None
+        dec = np.radians(self.sdec[src_ids])
+        if self.variable_timetrack:
+            side = (self.ha_side / np.cos(dec)).astype(np.int64)
+        else:
+            side = np.full(len(src_ids), int(self.ha_side), dtype=np.int64)
+
+        slot = np.arange(2 * side.max() + 1)
+        window = transits[src_ids, None] - side[:, None] + slot
+        valid = slot < 2 * side[:, None] + 1
+        if self.is_sstream:
+            # sidereal data wraps around the RA circle
+            window %= nra
+        else:
+            # timestream data clips at the observation edges
+            valid &= (window >= 0) & (window < nra)
+        if self.collapse_ha:
+            # pack each track at the start of its row
+            rows, cols = np.nonzero(valid)
+            pos = (np.cumsum(valid, axis=1) - 1)[rows, cols]
+            packed = np.zeros((len(src_ids), int(valid.sum(axis=1).max())), dtype=np.int64)
+            packed[rows, pos] = window[rows, cols]
+            window = packed
+            valid = np.zeros(packed.shape, dtype=bool)
+            valid[rows, pos] = True
+        window = np.where(valid, window, 0)
+        ha = np.deg2rad(ra[window] - self.sra[src_ids, None])
+        ha = np.where(valid, (ha + np.pi) % (2.0 * np.pi) - np.pi, 0.0)
+        return SimpleNamespace(
+            src_ids=src_ids, ra_idx=window.astype(np.int32), ha=ha, cosha=np.where(valid, np.cos(ha), 0.0),
+            sinha=np.sin(ha), valid=valid, sind=np.sin(dec), cosd=np.cos(dec), f_masks=f_masks[src_ids],
+        )
+
+    def _track_beams(self, tracks):
+        """Primary beam [npol, n, nfreq, nham] float32 along the packed
+        tracks, zero on the padding: one ``beam_at`` call per (feed,
+        frequency) for the whole catalogue, the same numbers source by
+        source as a call per source."""
+        has = np.split(tracks.ha[tracks.valid], np.cumsum(tracks.valid.sum(axis=1))[:-1])
+        decs = np.radians(self.sdec[tracks.src_ids])
+        cache = {}
+        pb = np.zeros((self.npol,) + tracks.valid.shape + (self.ls,), dtype=np.float32)  # [pol, n, h, freq]
+        for pol, pol_str in enumerate(self.process_pol):
+            pb[pol][tracks.valid] = np.concatenate(self._beamfunc_many(pol_str, decs, has, cache), axis=1).T
+        return pb.transpose(0, 1, 3, 2)
+
+    def _track_batches(self, tracks):
+        """Slices of the kept sources contracted together: all of them on the
+        card; on the CPU the plain version gathers [freq, S, nha, nprod]
+        windows, so at most ``source_batch`` sources within a ~2.5 GB budget."""
+        n = len(tracks.src_ids)
+        if self.vis[0].device.type != "cpu":
+            return [slice(0, n)]
+        nprod_max = max(v.shape[-1] for v in self.vis)
+        per_src = max(1, int(tracks.valid.sum(axis=1).max()) * self.ls * nprod_max * 20)
+        S = max(1, min(int(self.source_batch), int(2.5e9 // per_src)))
+        return [slice(b0, b0 + S) for b0 in range(0, n, S)]
+
+    def _track_sums(self, tracks, sl):
+        """The contraction (F, W, Q) of the tracks ``sl`` for every processed
+        polarisation: one kernel launch each on the card."""
+        return [
+            track_sums(
+                self.vis[p], self.sumweight[p], self.visweight[p], tracks.ra_idx[sl], tracks.cosha[sl],
+                tracks.sinha[sl], tracks.sind[sl], tracks.cosd[sl], self.latitude, *self._uv[p],
+                self.weight == "inverse_variance",
+            )
+            for p in range(self.npol)
+        ]
+
+    def _finish_tracks(self, tracks, sl, sums, beams):
+        """Normalise :meth:`_track_sums`' output, zero the weights of the
+        masked channels and combine the polarisations: (formed, weight) [n,
+        npol_out, freq(, ha)] float64, the weight with the factor 2 of the
+        real part's half variance."""
+        inverse_variance = self.weight == "inverse_variance"
+        formed, wout = [], []
+        for p, sums_p in enumerate(sums):
+            if self.collapse_ha:
+                f_p, w_p = collapse_track_sums(*sums_p, beams[p, sl], inverse_variance)
+            else:
+                f_p, w_p = resolve_track_sums(*sums_p, tracks.valid[sl].astype(np.float32), inverse_variance)
+            formed.append(f_p.double())
+            wout.append(w_p.double())
+        formed = torch.stack(formed)  # [pol, n, freq(, ha)]
+        wout = torch.stack(wout)
+        fm = torch.as_tensor(tracks.f_masks[sl], device=wout.device)
+        fm = fm[None] if self.collapse_ha else fm[None, :, :, None]
+        wout = torch.where(fm, torch.zeros_like(wout), wout)
+        if self.polarization == "I":
+            wsum = wout.sum(dim=0)
+            fsum = (formed * wout).sum(dim=0) * invert_no_zero(wsum)
+            return fsum[:, None], 2.0 * wsum[:, None]
+        return formed.transpose(0, 1), 2.0 * wout.transpose(0, 1)
 
     def process_finish(self):
         """Release the large cached data arrays."""

@@ -16,20 +16,30 @@ the current stream; on a CPU tensor it runs the plain reference
 ``beamform_sums`` replaces the XLA programs of the JAX package's source
 beamformers (``draco_tpu/ops/interferometry.py``: ``_beamform_sources_jit``,
 ``_beamform_sources_ha_jit``, ``_beamform_kernel_jit``): on a CUDA tensor it
-launches ``csrc/beamform.cu``; on a CPU tensor it runs
+builds the row plan of :func:`beamform_plan` and launches
+``csrc/beamform.cu`` once; on a CPU tensor it runs
 :func:`draco_tpu_torch.ops.interferometry.beamform_sums_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from . import banded
 
-__all__ = ["banded_covariance_batched", "beamform_sums", "tile_rows", "tile_windows", "launches", "reset_launches"]
+__all__ = [
+    "banded_covariance_batched",
+    "beamform_plan",
+    "beamform_sums",
+    "tile_rows",
+    "tile_windows",
+    "launches",
+    "reset_launches",
+]
 
 # kernel name -> launches since the last reset (incremented only where a
 # kernel is actually launched)
@@ -122,11 +132,58 @@ def banded_covariance_batched(R: torch.Tensor, Ni: torch.Tensor, bw: int) -> tor
     return out
 
 
+# most (s, h) pairs one block of the beamform kernel takes: a row hit by more
+# (the padded window slots at RA index 0, or a catalogue piled on few RA
+# samples) is cut into several work items
+BEAMFORM_ITEM_PAIRS = 256
+
+
+class BeamformPlan(NamedTuple):
+    """The (s, h) pairs of ``ra_idx`` grouped by RA row, as the beamform kernel takes them.
+
+    ``pairs`` [S * nha] holds j = s * nha + h stably sorted by ``ra_idx[s,
+    h]``; work item i takes ``pairs[item_start[i] : item_start[i] +
+    item_count[i]]``, all on row ``item_row[i]``, 1 to ``max_pairs`` of them.
+    Items run in row order, and a row's items in pair order.  int32 tensors on
+    ``ra_idx``'s device.
+    """
+
+    pairs: torch.Tensor
+    item_row: torch.Tensor
+    item_start: torch.Tensor
+    item_count: torch.Tensor
+
+
+def beamform_plan(ra_idx: torch.Tensor, nra: int, max_pairs: int = BEAMFORM_ITEM_PAIRS) -> BeamformPlan:
+    """Invert ``ra_idx`` [S, nha] into the rows' pair lists (CSR), each cut
+    into work items of at most ``max_pairs`` pairs; raises IndexError for an
+    RA index outside [0, nra).
+
+    Index bookkeeping in torch on ``ra_idx``'s device: a stable sort by row,
+    each pair's rank within its row (a binary search for the row's start),
+    an item heading every ``max_pairs``-th pair of a row; two host reads
+    (the index range, the number of items).
+    """
+    i32 = torch.int32
+    rows, pairs = torch.sort(ra_idx.reshape(-1), stable=True)
+    if len(rows) == 0:
+        empty = torch.zeros(0, dtype=i32, device=rows.device)
+        return BeamformPlan(empty, empty, empty, empty)
+    lo, hi = rows[[0, -1]].tolist()
+    if lo < 0 or hi >= nra:
+        raise IndexError(f"an RA index lies outside [0, {nra})")
+    rank = torch.arange(len(rows), device=rows.device) - torch.searchsorted(rows, rows)
+    item_start = torch.nonzero(rank % max_pairs == 0).squeeze(1)
+    item_row = rows[item_start]
+    item_count = (torch.searchsorted(rows, item_row, right=True) - item_start).clamp_(max=max_pairs)
+    return BeamformPlan(pairs.to(i32), item_row.to(i32), item_start.to(i32), item_count.to(i32))
+
+
 def _beamform_lib() -> ctypes.CDLL:
     lib = _build.load("beamform")
-    if lib.beamform_f32.argtypes is None:
-        lib.beamform_f32.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.beamform_f32.restype = ctypes.c_int
+    if lib.beamform_rows_f32.argtypes is None:
+        lib.beamform_rows_f32.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.beamform_rows_f32.restype = ctypes.c_int
     return lib
 
 
@@ -140,7 +197,9 @@ def beamform_sums(vis, sw, vw, ra_idx, a, b, u, v, natural: bool):
     :func:`~draco_tpu_torch.ops.interferometry.beamform_sums_plain` defines
     them (Q None unless ``natural``).  CUDA inputs must be contiguous, on
     one device, vis complex64, the rest float32 and ra_idx int32, every RA
-    index in [0, nra).
+    index in [0, nra) (:func:`beamform_plan` raises IndexError).  On the
+    card the whole call is one launch of the kernel over the row plan,
+    however many sources it holds.
     """
     nfreq, nra, nprod = vis.shape
     S, nha = ra_idx.shape
@@ -171,18 +230,18 @@ def beamform_sums(vis, sw, vw, ra_idx, a, b, u, v, natural: bool):
         )
     if not all(x.is_contiguous() for x in inputs):
         raise ValueError("the CUDA beamform kernel takes contiguous inputs")
-    if ra_idx.numel() and bool(((ra_idx < 0) | (ra_idx >= nra)).any()):
-        raise IndexError(f"an RA index lies outside [0, {nra})")
     lib = _beamform_lib()
     F = torch.empty(nfreq, S, nha, dtype=torch.float32, device=vis.device)
     W = torch.empty_like(F)
     Q = torch.empty_like(F) if natural else None
     with torch.cuda.device(vis.device):
+        plan = beamform_plan(ra_idx, nra)
         stream = torch.cuda.current_stream(vis.device).cuda_stream
-        err = lib.beamform_f32(
-            vis.data_ptr(), sw.data_ptr(), vw.data_ptr() if natural else None, ra_idx.data_ptr(), a.data_ptr(),
-            b.data_ptr(), u.data_ptr(), v.data_ptr(), F.data_ptr(), W.data_ptr(), Q.data_ptr() if natural else None,
-            nfreq, nra, nprod, S, nha, int(natural), stream,
+        err = lib.beamform_rows_f32(
+            vis.data_ptr(), sw.data_ptr(), vw.data_ptr() if natural else None, *(x.data_ptr() for x in plan),
+            a.data_ptr(), b.data_ptr(), u.data_ptr(), v.data_ptr(), F.data_ptr(), W.data_ptr(),
+            Q.data_ptr() if natural else None, nfreq, nra, nprod, S * nha, len(plan.item_row), BEAMFORM_ITEM_PAIRS,
+            int(natural), stream,
         )
     if err != 0:
         raise RuntimeError(f"beamform kernel launch failed: CUDA error {err}")

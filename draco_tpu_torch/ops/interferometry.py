@@ -34,6 +34,9 @@ __all__ = [
     "beamform_kernel",
     "beamform_sources_batched",
     "beamform_sources_batched_ha",
+    "track_sums",
+    "collapse_track_sums",
+    "resolve_track_sums",
 ]
 
 
@@ -177,16 +180,8 @@ def beamform_sources_batched(
     weight : [S, nfreq] output weights (before the factor-2 real-part
         variance correction)
     """
-    F, sw_h, Q = _sums(vis, sumweight, visweight, ra_idx, cosha, sinha, sind, cosd, lat, u, v, inverse_variance)
-    pbT = _as_device(primary_beam, vis).permute(1, 0, 2)  # [f, S, h]
-    sumw = (sw_h * pbT**2).sum(dim=-1)  # [f, S]
-    formed_full = (F * pbT).sum(dim=-1) * invert_no_zero(sumw)
-    if inverse_variance:
-        wout = sumw
-    else:
-        w2 = (Q * pbT**2).sum(dim=-1)
-        wout = sumw**2 * invert_no_zero(w2)
-    return formed_full.T, wout.T
+    sums = track_sums(vis, sumweight, visweight, ra_idx, cosha, sinha, sind, cosd, lat, u, v, inverse_variance)
+    return collapse_track_sums(*sums, primary_beam, inverse_variance)
 
 
 def beamform_sources_batched_ha(
@@ -203,18 +198,13 @@ def beamform_sources_batched_ha(
     formed : [S, nfreq, nha]
     weight : [S, nfreq, nha]
     """
-    F, sumw, Q = _sums(vis, sumweight, visweight, ra_idx, cosha, sinha, sind, cosd, lat, u, v, inverse_variance)
-    valid = _as_device(ha_valid, vis)[None]  # [1, S, h]
-    formed_n = F * invert_no_zero(sumw) * valid
-    if inverse_variance:
-        wout = sumw * valid
-    else:
-        wout = sumw**2 * invert_no_zero(Q) * valid
-    return formed_n.permute(1, 0, 2), wout.permute(1, 0, 2)
+    sums = track_sums(vis, sumweight, visweight, ra_idx, cosha, sinha, sind, cosd, lat, u, v, inverse_variance)
+    return resolve_track_sums(*sums, ha_valid, inverse_variance)
 
 
-def _sums(vis, sw, vw, ra_idx, cosha, sinha, sind, cosd, lat, u, v, inverse_variance):
-    """Track coefficients from host or device inputs, then :func:`beamform_sums`."""
+def track_sums(vis, sw, vw, ra_idx, cosha, sinha, sind, cosd, lat, u, v, inverse_variance):
+    """Track coefficients from host or device inputs, then :func:`beamform_sums`
+    (F, W, Q [nfreq, S, nha]; Q None for inverse-variance weights)."""
     rdt = vis.real.dtype
     cosha, sinha, sind, cosd = (_as_device(x, vis, torch.float64) for x in (cosha, sinha, sind, cosd))
     a, b = _track_coefficients(cosha, sinha, sind, cosd, float(lat))
@@ -223,3 +213,30 @@ def _sums(vis, sw, vw, ra_idx, cosha, sinha, sind, cosd, lat, u, v, inverse_vari
         _as_device(ra_idx, vis, torch.int32), a.to(rdt).contiguous(), b.to(rdt).contiguous(),
         _as_device(u, vis), _as_device(v, vis), natural=not inverse_variance,
     )
+
+
+def collapse_track_sums(F, sw_h, Q, primary_beam, inverse_variance: bool):
+    """:func:`beamform_sources_batched`'s output from its :func:`track_sums`:
+    the primary-beam weighted HA collapse and normalisation ([S, nfreq]
+    each)."""
+    pbT = _as_device(primary_beam, F).permute(1, 0, 2)  # [f, S, h]
+    sumw = (sw_h * pbT**2).sum(dim=-1)  # [f, S]
+    formed_full = (F * pbT).sum(dim=-1) * invert_no_zero(sumw)
+    if inverse_variance:
+        wout = sumw
+    else:
+        w2 = (Q * pbT**2).sum(dim=-1)
+        wout = sumw**2 * invert_no_zero(w2)
+    return formed_full.T, wout.T
+
+
+def resolve_track_sums(F, sumw, Q, ha_valid, inverse_variance: bool):
+    """:func:`beamform_sources_batched_ha`'s output from its :func:`track_sums`
+    ([S, nfreq, nha] each)."""
+    valid = _as_device(ha_valid, F)[None]  # [1, S, h]
+    formed_n = F * invert_no_zero(sumw) * valid
+    if inverse_variance:
+        wout = sumw * valid
+    else:
+        wout = sumw**2 * invert_no_zero(Q) * valid
+    return formed_n.permute(1, 0, 2), wout.permute(1, 0, 2)

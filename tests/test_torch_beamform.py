@@ -238,6 +238,9 @@ CASES = [
     ("copol-uniform-ha", {"polarization": "copol", "weight": "uniform", "collapse_ha": False}),
     ("copol-uniform-ha-per-source", {"polarization": "copol", "weight": "uniform", "collapse_ha": False,
                                      "source_batch": 1}),
+    ("full-natural-batch-4", {"polarization": "full", "weight": "natural", "source_batch": 4}),
+    ("copol-uniform-ha-batch-4", {"polarization": "copol", "weight": "uniform", "collapse_ha": False,
+                                  "source_batch": 4}),
     ("full-freqside", {"polarization": "full", "freqside": 0}),
     ("I-variable-track", {"polarization": "I", "variable_timetrack": True}),
     ("I-no-beam-icrs", {"polarization": "I", "no_beam_model": True}),
@@ -264,10 +267,17 @@ def test_beamform_cat_matches_jax(tels, name, params):
     assert (_np(fb.weight[:]) > 0).any()
 
 
-@pytest.mark.parametrize("source_batch", [1, 32])
-def test_beamform_on_a_time_stream_matches_jax(tels, source_batch):
+@pytest.mark.parametrize(
+    "source_batch, collapse_ha",
+    [pytest.param(1, True, id="1"), pytest.param(32, False, id="32"), pytest.param(4, True, id="4-collapsed"),
+     pytest.param(4, False, id="4-ha"), pytest.param(32, True, id="32-collapsed")],
+)
+def test_beamform_on_a_time_stream_matches_jax(tels, source_batch, collapse_ha):
+    """Source batches of 1 (the per-source path), 4 and the whole catalogue
+    (32 > 5 sources), the tracks clipped at the stream's edges (padded at RA
+    index 0)."""
     jtel, tel = tels
-    params = {**TRACK, "polarization": "copol", "source_batch": source_batch, "collapse_ha": source_batch == 1}
+    params = {**TRACK, "polarization": "copol", "source_batch": source_batch, "collapse_ha": collapse_ha}
     ref = jbeamform.BeamForm()
     ref.read_config(params)
     ref.setup(jtel, _catalog(jcontainers))
@@ -279,6 +289,40 @@ def test_beamform_on_a_time_stream_matches_jax(tels, source_batch):
     assert_same(fb, ref_fb, 1e-5)
     # some sources never transit the observation and stay empty
     assert (np.abs(_np(fb.weight[:])).reshape(len(SOURCES), -1).max(axis=1) == 0).any()
+
+
+@pytest.mark.parametrize(
+    "timestream, collapse_ha, variable", [(False, True, False), (False, False, False), (True, True, False),
+                                          (True, False, False), (False, True, True), (True, True, True)],
+)
+def test_source_tracks_match_per_source_windows(tels, timestream, collapse_ha, variable):
+    """The whole catalogue's tracks, built at once, hold each source's
+    window of ``_ha_array`` (packed, or at its grid positions), zero
+    elsewhere; the kept sources are those with a transit in the data."""
+    _, tel = tels
+    task = beamform.BeamFormCat()
+    task.read_config({**TRACK, "collapse_ha": collapse_ha, "variable_timetrack": variable})
+    task.setup(tel, _stream(containers, tel, timestream=timestream))
+    task._process_catalog(_catalog(containers))
+    tracks = task._source_tracks()
+    decs = np.radians(task.sdec)
+    kept = []
+    for src in range(task.nsource):
+        idx = task._transit_indices(task.sra[src : src + 1])[0]
+        if idx < 0:
+            continue
+        kept.append(src)
+        side = int(task.ha_side / np.cos(decs[src])) if variable else int(task.ha_side)
+        ha, window, mask = task._ha_array(np.asarray(task.ra), idx, task.sra[src], side, task.is_sstream)
+        k = len(kept) - 1
+        sel = np.arange(len(ha)) if collapse_ha else np.flatnonzero(mask)
+        np.testing.assert_array_equal(tracks.ra_idx[k, sel], window)
+        np.testing.assert_array_equal(tracks.ha[k, sel], ha)
+        np.testing.assert_array_equal(np.flatnonzero(tracks.valid[k]), sel)
+        rest = ~tracks.valid[k]
+        assert np.all(tracks.ra_idx[k, rest] == 0) and np.all(tracks.cosha[k, rest] == 0)
+    np.testing.assert_array_equal(tracks.src_ids, kept)
+    assert len(kept) < task.nsource if timestream else len(kept) == task.nsource
 
 
 def _grid_beam(package, freq, pols=("XX", "YY")):

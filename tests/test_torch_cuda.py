@@ -573,7 +573,8 @@ def test_wiener_delay_transform_on_the_card_matches_the_cpu(cuda):
 def _beamform_inputs(seed, nfreq=3, nra=50, nprod=45, S=5, nha=11, dev="cpu"):
     """Seeded inputs of the beamforming kernel: one window across the RA
     wrap, zero weights (a whole RA row, a whole product, single cells),
-    nprod not a multiple of 32; vis complex64, the rest float32."""
+    nprod not a multiple of 32; vis complex64, the rest float32.  A window
+    longer than nra wraps more than once."""
     rng = np.random.Generator(np.random.SFC64(seed))
     vis = (rng.standard_normal((nfreq, nra, nprod)) + 1j * rng.standard_normal((nfreq, nra, nprod))).astype(np.complex64)
     sw = rng.uniform(0.5, 2.0, (nfreq, nra, nprod)).astype(np.float32)
@@ -581,7 +582,7 @@ def _beamform_inputs(seed, nfreq=3, nra=50, nprod=45, S=5, nha=11, dev="cpu"):
     sw[:, :, 5] = 0.0
     vw = rng.uniform(0.5, 2.0, (nfreq, nra, nprod)).astype(np.float32)
     vw[1, 10, :4] = 0.0
-    start = rng.integers(0, nra - nha, S)
+    start = rng.integers(0, max(1, nra - nha), S)
     start[0] = nra - nha // 2
     ra_idx = ((start[:, None] + np.arange(nha)) % nra).astype(np.int32)
     ha = rng.uniform(-0.1, 0.1, (S, nha))
@@ -620,6 +621,89 @@ def test_beamform_kernel_matches_plain(cuda, natural, S, nprod, nha):
         assert Q is None and Qp is None
     again = cuda_kernels.beamform_sums(vis, sw, vw if natural else None, ra_idx, a, b, u, v, natural)
     assert torch.equal(again[0], F)  # no atomics: the same sums every run
+
+
+@pytest.mark.parametrize("natural", [True, False])
+@pytest.mark.parametrize(
+    "S,nra,nprod,nha,pad",
+    [(512, 64, 45, 11, 0), (512, 64, 1789, 11, 4), (40, 64, 7155, 11, 0), (3, 16, 33, 85, 0), (8, 50, 2049, 5, 2)],
+    ids=["shared-rows", "padded-above-K", "beyond-a-tile", "window-longer-than-day", "tile-plus-one"],
+)
+def test_beamform_kernel_on_shared_rows_matches_plain(cuda, natural, S, nra, nprod, nha, pad):
+    """Many sources on few RA rows (512 over 64), the last ``pad`` slots of
+    every window padded at RA index 0 (row 0 then takes 2048 pairs, more
+    than one work item), odd nprod, nprod beyond one shared-memory tile:
+    1e-5 of the largest sum, one launch, the same bits on a rerun."""
+    from draco_tpu_torch.ops import interferometry
+
+    vis, sw, vw, ra_idx, a, b, u, v = _beamform_inputs(S + nprod, S=S, nprod=nprod, nha=nha, nra=nra, dev=cuda)
+    if pad:
+        ra_idx[:, nha - pad :] = 0
+        a[:, nha - pad :] = 0.0
+    if pad and S * pad > cuda_kernels.BEAMFORM_ITEM_PAIRS:
+        assert int(cuda_kernels.beamform_plan(ra_idx, nra).item_row.eq(0).sum()) > 1
+    before = cuda_kernels.launches["beamform"]
+    got = cuda_kernels.beamform_sums(vis, sw, vw if natural else None, ra_idx, a, b, u, v, natural)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["beamform"] == before + 1
+    ref = interferometry.beamform_sums_plain(vis, sw, vw, ra_idx, a, b, u, v, natural)
+    for g, r in zip(got, ref):
+        if r is None:
+            assert g is None
+            continue
+        assert g.shape == (vis.shape[0], S, nha) and _rel(g, r) <= 1e-5
+    again = cuda_kernels.beamform_sums(vis, sw, vw if natural else None, ra_idx, a, b, u, v, natural)
+    for g, h in zip(got, again):
+        assert (g is None and h is None) or torch.equal(g, h)  # one writer an output, a fixed order
+
+
+def _beam_stream(device, tel, nra=64, seed=29):
+    """A seeded stacked sidereal stream of every unique pair, on ``device``."""
+    from draco_tpu_torch.analysis.transform import TelescopeStreamMixIn
+    from draco_tpu_torch.core import containers
+
+    maps = TelescopeStreamMixIn()
+    maps.setup(tel)
+    ss = containers.SiderealStream(freq=tel.frequencies, input=tel.nfeed, prod=maps.bt_prod, stack=maps.bt_stack,
+                                   reverse_map_stack=maps.bt_rev, ra=nra, device=device)
+    ss.attrs["lsd"] = 1000
+    rng = np.random.Generator(np.random.SFC64(seed))
+    shape = ss.vis.shape
+    ss.vis[:] = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    weight = rng.uniform(0.5, 2.0, shape).astype(np.float32)
+    weight[0, 2] = 0.0
+    ss.weight[:] = weight
+    ss.input_flags[:] = np.ones(ss.input_flags.shape, dtype=np.float32)
+    return ss
+
+
+@pytest.mark.parametrize("collapse_ha", [True, False])
+def test_beamform_cat_on_the_card_matches_the_cpu(cuda, collapse_ha):
+    """BeamFormCat on 200 sources over 64 RA samples: on the card one
+    launch a polarisation for the whole catalogue, on the CPU batches of
+    32 of the plain version; formed beams and weights within 1e-5."""
+    from draco_tpu_torch.analysis import beamform
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.telescope import PolarisedCylinderTelescope
+
+    tel = PolarisedCylinderTelescope(**dict(RING_CYL, num_freq=2))
+    nsrc = 200
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        cat = containers.SourceCatalog(object_id=np.arange(nsrc))
+        pos = np.zeros(nsrc, dtype=[("ra", np.float64), ("dec", np.float64)])
+        pos["ra"], pos["dec"] = np.linspace(0.0, 359.0, nsrc), 45.0 + 5.0 * np.sin(np.arange(nsrc))
+        cat["position"][:] = pos
+        cat.attrs["coordinates"] = "CIRS"
+        before = cuda_kernels.launches["beamform"]
+        fb = _run_task(beamform.BeamFormCat(), {"timetrack": 6000.0, "collapse_ha": collapse_ha}, (tel,
+                       _beam_stream(dev, tel)), cat)
+        out[dev.type] = (fb, cuda_kernels.launches["beamform"] - before)
+    (fb, nlaunch), (cfb, claunch) = out["cuda"], out["cpu"]
+    assert nlaunch == 4 and claunch == 0
+    assert fb.beam[:].device == cuda
+    for name in ("beam", "weight"):
+        assert _rel(fb.datasets[name][:].cpu(), cfb.datasets[name][:]) <= 1e-5, name
 
 
 def test_beamform_kernel_ha_resolved_padding_on_the_card(cuda):
