@@ -219,7 +219,39 @@ Phases, each of which raises on failure (exit code != 0):
    catalogue in one launch (the plain version in batches of 32), each timed
    beside it; the split run's formed beams within 1e-5 of the Manager's;
    the banded covariance at the regrid's block against its plain version
-   in float64.
+   in float64;
+19. the flagging and fringe-stop path on phase 17's and 18's cylinder and
+   band, in two runs of the pipeline ``Manager``.  19a: one half-day file
+   (4344 samples; the cut) of phase 18's ``EmitDayStream`` with the autos and the
+   weights a correlator reports (the radiometer equation's weights,
+   scattering by 1% from sample to sample) and unflagged interference in
+   every product of its cells (3 narrowband channels over 600 samples and 8
+   broadband bursts of 3-10 samples, at 20 x the radiometer metric's
+   scatter: more power in the autos and the cross products, the weights
+   lowered to match) -> ``ComputeSystemSensitivity`` ->
+   ``RFISensitivityMask`` (the task's defaults, with ``sir: true``) ->
+   ``ApplyTimeFreqMask``; beside it, on the same stream,
+   ``RFITransientVisMask`` (on one channel: the cut) and the ``RFIStaticVisMask`` group ->
+   ``CombineMasks`` -> ``ApplyTimeFreqMask`` -> ``SanitizeWeights`` ->
+   ``ThresholdVisWeightFrequency``, and ``DownMix`` -> ``UpMix`` (the time
+   branch, with the product mask).  19b: phase 17's ``EmitRingStream`` ->
+   ``MakeVisGrid`` -> ``BeamformNS`` -> ``DownMix`` -> ``UpMix`` (the ra and
+   el branches) -> ``CreateBeamStreamFromTelescope``.  Prints each task's
+   seconds, each Manager's wall time and peak device memory, the host's
+   CPU count, the OpenMP threads and build seconds of the native medians
+   and their calls and seconds, and the path's device programs timed alone.
+   Checks: every injected sample masked; the masked share outside the
+   injected cells below 5%; the sensitivity on every (freq, pol) row at 512
+   sampled times within 1e-5 of float64 numpy on the host;
+   ``RFISensitivityMask`` again on the CPU, on the same
+   ``SystemSensitivity``, equal to the card's mask (a differing sample is
+   listed with its SIR margin, and allowed only at the float64 tie); one
+   (37, 181) moving median of the metric, native against numpy, identical;
+   ``UpMix(DownMix(x))`` within 1e-6 relative RMS of x and ``DownMix`` on 64
+   sampled rows within 1e-5 of float64 on the host, for both streams; the
+   beam stream on 64 sampled (pol, freq, ew, el) rows within 1e-5 of a
+   float64 evaluation of ``beam_at`` and the conjugate fringe phasor on the
+   host, and its el-averaged weights 1.  The phase launches neither kernel.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -380,6 +412,30 @@ TOL_BEAMFORM_HOST = 1e-4
 TOL_BEAMFORM_KERNEL = 1e-5
 TOL_SOURCESTACK = 1e-6
 STACK_PROBES: dict = {}  # what phase 18's probes keep for the host checks
+# phase 19: the flagging and fringe-stop path on phase 17's and 18's cylinder and band
+FLAG_NFREQ = RING_NFREQ
+FLAG_DAY = 8640  # samples a sidereal day: FLAG_NARROW and FLAG_BURSTS place the interference on a whole day
+# the cut: a quarter of phase 18's day.  The host's medians are the phase's
+# cost; at the half-day file (4344) the phase took 202.7 s alone, which in a
+# call whose host runs as slowly as the slowest seen would pass 1200 s
+FLAG_NTIME = 2172
+FLAG_TRANSIENT_CHANNELS = (3, 4)  # the cut: the channel range RFITransientVisMask runs on
+FLAG_SEED = 19
+FLAG_TSYS = (50.0, 60.0)  # auto power of the X and the Y feeds
+FLAG_SIGMA = 0.01  # the weights' relative scatter from sample to sample: the radiometer metric's scatter
+FLAG_AMP = 20.0  # the injected interference, in units of the metric's scatter
+FLAG_NARROW = ((3, 1200), (8, 4100), (12, 6500))  # (channel, first sample) of the narrowband lines
+FLAG_NARROW_LEN = 600  # samples of a whole day: the lines cover 7% of the stream, scaled with it
+FLAG_BURSTS = ((700, 3), (1900, 5), (2800, 10), (3600, 4), (5200, 7), (6100, 3), (7300, 8), (8100, 6))
+FLAG_C = 299792458.0
+N_FLAG_CHECK = 64  # sampled rows of the mixers' and the beam stream's host checks
+N_FLAG_SENS_T = 512  # sampled times of the sensitivity's host check
+FLAG_TOL_SENS = 1e-5
+FLAG_TOL_MIX = 1e-5
+FLAG_TOL_ROUNDTRIP = 1e-6
+FLAG_TOL_BEAM = 1e-5
+FLAG_MASKED_MAX = 0.05
+FLAG_PROBES: dict = {}  # what phase 19's probes keep for the host checks
 
 LSD = 8000
 CHAIN_SAMPLES_PER_DAY = 8640
@@ -3337,6 +3393,582 @@ def run_stacking(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = STACK_NFR
     return launches, kern["beamform"], stack_kern
 
 
+def flag_cells(nfreq: int, ntime: int):
+    """Phase 19a's injected interference, its places and the lines' lengths
+    scaled from a day of ``FLAG_DAY`` samples to ``nfreq`` channels and
+    ``ntime`` samples (the bursts' lengths not): [(freq slice, time slice)]
+    of the narrowband lines and of the broadband bursts.  A line longer than
+    ~10% of its channel's samples moves the channel's 15% time quantile
+    enough that ``RFISensitivityMask``'s 1-D mask takes the whole channel."""
+    nline = FLAG_NARROW_LEN * ntime // FLAG_DAY
+    narrow = [(slice(f * nfreq // FLAG_NFREQ, f * nfreq // FLAG_NFREQ + 1),
+               slice(t * ntime // FLAG_DAY, t * ntime // FLAG_DAY + nline)) for f, t in FLAG_NARROW]
+    bursts = [(slice(0, nfreq), slice(t * ntime // FLAG_DAY, t * ntime // FLAG_DAY + n)) for t, n in FLAG_BURSTS]
+    return narrow, bursts
+
+
+def flag_correlator(ts, tel, rng_seed: int):
+    """Give phase 18's day stream the autos and weights a correlator reports,
+    and the phase's interference in every product of its cells.
+
+    Autos: ``FLAG_TSYS`` per polarisation (real).  Weights: the radiometer
+    equation's ``nint * cnt / (T_a T_b)`` for a stack of ``cnt`` products,
+    divided by ``g^2``, where ``g = 1 + FLAG_SIGMA * n`` (n a standard normal
+    draw per (freq, pol group, time)) is the sample-to-sample scatter of the
+    weights a correlator estimates: the radiometer metric
+    (``ComputeSystemSensitivity``'s measured over radiometric noise) is then
+    ``g``.  In an interference cell the autos (and the cross products) gain
+    the power ``FLAG_TSYS`` and the weights drop by the square of the doubled
+    power and of ``1 + FLAG_AMP * FLAG_SIGMA``: the metric rises by
+    ``FLAG_AMP`` times its own scatter.  Returns the boolean [freq, time]
+    map of the injected cells."""
+    import torch
+
+    vis, weight = ts.vis[:], ts.weight[:]
+    dev = vis.device
+    nfreq, nstack, ntime = vis.shape
+    ps = ts.prodstack
+    pol = np.asarray(tel.polarisation)
+    pa, pb = pol[ps["input_a"].astype(int)], pol[ps["input_b"].astype(int)]
+    group = np.where(pa == pb, np.where(pa == "X", 0, 2), 1)  # XX, XY, YY
+    tsys = np.where(pol == "X", FLAG_TSYS[0], FLAG_TSYS[1])
+    t_a, t_b = tsys[ps["input_a"].astype(int)], tsys[ps["input_b"].astype(int)]
+    rev = np.asarray(ts.reverse_map["stack"]["stack"]).astype(int)
+    cnt = np.bincount(rev[rev < nstack], minlength=nstack).astype(np.float64)
+    autos = np.flatnonzero(ps["input_a"] == ps["input_b"])
+    nint = np.median(ts.index_map["freq"]["width"]) * 1e6 * np.median(np.diff(ts.time))
+
+    zeroed = torch.nonzero(weight == 0, as_tuple=True)  # the day file's flagged cells stay flagged
+    inj = np.zeros((nfreq, ntime), dtype=bool)
+    for fs, tsl in sum(flag_cells(nfreq, ntime), []):
+        inj[fs, tsl] = True
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rng_seed)
+    g = 1.0 + FLAG_SIGMA * torch.randn((nfreq, 3, ntime), generator=gen, device=dev, dtype=torch.float64)
+    inj_t = torch.as_tensor(inj, device=dev)
+    g = torch.where(inj_t[:, None], g * (1.0 + FLAG_AMP * FLAG_SIGMA), g)
+    power = torch.where(inj_t, 2.0, 1.0).to(torch.float64)  # [freq, time]
+    base = torch.as_tensor(nint * cnt / (t_a * t_b), device=dev)  # [stack]
+    group_t = torch.as_tensor(group, device=dev)
+    auto_t = torch.as_tensor(autos, device=dev)
+    auto_power = torch.as_tensor(np.where(pa == "X", FLAG_TSYS[0], FLAG_TSYS[1])[autos], device=dev)
+    for f in range(nfreq):
+        gf = g[f].index_select(0, group_t)  # [stack, time]
+        weight[f] = base[:, None] / (gf * power[f]) ** 2
+        vis[f] += (FLAG_TSYS[0] * inj_t[f]).to(vis.dtype)[None]
+        vis[f, auto_t] = (auto_power[:, None] * power[f][None]).to(vis.dtype)
+    weight[zeroed] = 0.0
+    return inj
+
+
+def flag_tasks() -> dict:
+    """Define phase 19's source task (one day of phase 18's stream with a
+    correlator's autos, weights and interference), its probes and its list
+    maker in this module; return their task paths."""
+    import torch
+
+    from draco_tpu_torch.analysis.beamform import icrs_to_cirs
+    from draco_tpu_torch.analysis.flagging import RFISensitivityMask
+    from draco_tpu_torch.analysis.transform import TelescopeStreamMixIn
+    from draco_tpu_torch.core import config, io
+    from draco_tpu_torch.core.task import ContainerTask, PipelineStopIteration
+    from draco_tpu_torch.device import resolve
+
+    class EmitFlagDay(ContainerTask):
+        """Samples [0, ntime) of phase 18's day stream (its noise, flagged
+        cells and catalogue sources), through :func:`flag_correlator`."""
+
+        ntime = config.int_prop(FLAG_NTIME)
+
+        def setup(self, tel):
+            self.tel = io.get_telescope(tel)
+            self.maps = TelescopeStreamMixIn()
+            self.maps.setup(self.tel)
+            ra, dec, _ = stack_catalog(self.tel, STACK_NSRC, STACK_NINJ, self.tel.nfreq)
+            ra_c, dec_c = icrs_to_cirs(ra[:STACK_NINJ], dec[:STACK_NINJ], stack_epoch(self.tel, 1))
+            self.sources = [(r, d, STACK_FLUX) for r, d in zip(ra_c, dec_c)]
+
+        def process(self):
+            if self._count:
+                raise PipelineStopIteration()
+            ts = stack_day_file(self.tel, self.maps, 0, self.ntime, STACK_NTIME, self.sources, resolve(),
+                                _seed(FLAG_SEED, 0))
+            ts.create_index_map("input", self.tel.input_index)  # the correlator's labels of the feeds
+            FLAG_PROBES["injected"] = flag_correlator(ts, self.tel, _seed(FLAG_SEED, 1))
+            # the weights and autos ComputeSystemSensitivity reads, at the
+            # host check's sampled times (later tasks edit the weights)
+            tsel = torch.as_tensor(FLAG_PROBES["sens_times"], device=ts.vis[:].device)
+            ps = ts.prodstack
+            autos = torch.as_tensor(np.flatnonzero(ps["input_a"] == ps["input_b"]), device=tsel.device)
+            FLAG_PROBES["weights0"] = ts.weight[:].index_select(2, tsel)
+            FLAG_PROBES["autos0"] = ts.vis[:].index_select(1, autos).index_select(2, tsel).real.clone()
+            ts.attrs["tag"] = "flagday"
+            return ts
+
+    class FlagProbe(ContainerTask):
+        """Passes its input through; keeps under ``key`` the container
+        (``kind: keep``), a copy of its vis on the card (``kind: copy``) or
+        the vis at the ``FLAG_PROBES`` sampled rows (``kind: rows``)."""
+
+        key = config.str_prop("x")
+        kind = config.str_prop("copy")
+
+        def process(self, data):
+            v = data.vis[:] if self.kind != "keep" else None
+            if self.kind == "keep":
+                FLAG_PROBES[self.key] = data
+            elif self.kind == "copy":
+                FLAG_PROBES[self.key] = v.clone()
+            else:
+                idx = FLAG_PROBES[self.key + "_rows"]
+                FLAG_PROBES[self.key] = v[tuple(torch.as_tensor(i, device=v.device) for i in idx)].cpu().numpy()
+            return data
+
+    class Collect(ContainerTask):
+        """Its inputs as one list, for ``CombineMasks``."""
+
+        def process(self, *items):
+            return list(items)
+
+    class KeepPreSIR(RFISensitivityMask):
+        """``RFISensitivityMask`` that keeps the mask its SIR dilates."""
+
+        def _apply_sir(self, mask, baseflag, eta=None):
+            FLAG_PROBES["pre_sir"] = mask.copy()
+            return super()._apply_sir(mask, baseflag, eta)
+
+    for cls in (EmitFlagDay, FlagProbe, Collect, KeepPreSIR):
+        globals()[cls.__name__] = cls
+    return {cls.__name__: f"{__name__}.{cls.__name__}" for cls in (EmitFlagDay, FlagProbe, Collect, KeepPreSIR)}
+
+
+def flag_config(product_dir: str, paths: dict, ntime: int, nfreq: int, transient: tuple) -> dict:
+    """Phase 19a's chain as a pipeline config mapping."""
+    fl = "draco.analysis.flagging."
+    transient_in = "tstream"
+    whole = tuple(transient) == (0, nfreq)
+    masks = ["sens_mask", "static_mask"] + (["transient_mask"] if whole else [])
+    tasks = [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "btm"], "params": {"product_directory": product_dir}},
+        {"type": paths["EmitFlagDay"], "requires": "tel", "out": "tstream", "params": {"ntime": ntime}},
+        {"type": "draco.analysis.sensitivity.ComputeSystemSensitivity", "requires": "tel", "in": "tstream",
+         "out": "sens"},
+        {"type": paths["FlagProbe"], "in": "sens", "out": "sens_p", "params": {"key": "sens", "kind": "keep"}},
+        {"type": paths["KeepPreSIR"], "in": "sens_p", "out": "sens_mask", "params": {"sir": True}},
+        {"type": fl + "ApplyTimeFreqMask", "in": ["tstream", "sens_mask"], "out": "tstream_sens",
+         "params": {"share": "vis"}},
+    ]
+    if not whole:
+        transient_in = "tstream_cut"
+        tasks.append({"type": "draco.analysis.transform.SelectFreq", "in": "tstream", "out": transient_in,
+                      "params": {"channel_range": list(transient)}})
+    tasks += [
+        {"type": fl + "RFITransientVisMask", "requires": "tel", "in": transient_in, "out": "transient_mask"},
+        {"type": fl + "RFIStaticVisMask", "requires": "tel", "in": "tstream", "out": "static_mask",
+         "params": {"stokes_i": False, "axes": ["stack"], "dataset": "vis", "weighting": "weighted"}},
+        {"type": paths["Collect"], "in": masks, "out": "masks"},
+        {"type": fl + "CombineMasks", "in": "masks", "out": "combined"},
+        {"type": paths["FlagProbe"], "in": "tstream", "out": "tstream_p", "params": {"key": "dx"}},
+        {"type": "draco.analysis.fringestop.DownMix", "requires": "tel", "in": "tstream_p", "out": "tdown"},
+        {"type": paths["FlagProbe"], "in": "tdown", "out": "tdown_p", "params": {"key": "ddown", "kind": "rows"}},
+        {"type": "draco.analysis.fringestop.UpMix", "requires": "tel", "in": "tdown_p", "out": "tup"},
+        {"type": fl + "ApplyTimeFreqMask", "in": ["tup", "combined"], "out": "tmasked"},
+        {"type": fl + "SanitizeWeights", "in": "tmasked", "out": "tclean"},
+        {"type": fl + "ThresholdVisWeightFrequency", "in": "tclean", "out": "freq_mask"},
+    ]
+    return {"pipeline": {"retain_products": "all", "tasks": tasks}}
+
+
+def flag_config_b(product_dir: str, source: str, paths: dict, nra: int, npix: int) -> dict:
+    """Phase 19b's chain: phase 17's hybrid stream, the mixers and the beam stream."""
+    rmm, fs = "draco.analysis.ringmapmaker.", "draco.analysis.fringestop."
+    return {"pipeline": {"retain_products": "final", "tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "btm"], "params": {"product_directory": product_dir}},
+        {"type": source, "requires": "tel", "out": "sstream", "params": {"nra": nra, "npix": npix}},
+        {"type": rmm + "MakeVisGrid", "requires": "tel", "in": "sstream", "out": "grid"},
+        {"type": rmm + "BeamformNS", "in": "grid", "out": "hstream",
+         "params": {"npix": npix, "span": 1.0, "weight": "natural", "precision": 64}},
+        {"type": paths["FlagProbe"], "in": "hstream", "out": "hstream_p", "params": {"key": "hx"}},
+        {"type": fs + "DownMix", "requires": "tel", "in": "hstream_p", "out": "hdown"},
+        {"type": paths["FlagProbe"], "in": "hdown", "out": "hdown_p", "params": {"key": "hdown", "kind": "rows"}},
+        {"type": fs + "UpMix", "requires": "tel", "in": "hdown_p", "out": "hup"},
+        {"type": paths["FlagProbe"], "in": "hup", "out": "hup_p", "params": {"key": "hup", "kind": "keep"}},
+        {"type": "draco.analysis.beam.CreateBeamStreamFromTelescope", "requires": "tel", "in": "hup_p",
+         "out": "bstream"},
+    ]}}
+
+
+def host_sensitivity(tel, ts_w, ts_autos, ps, rev, nstack: int, nint: float):
+    """``ComputeSystemSensitivity``'s measured and radiometric noise [pol, t]
+    of one channel in float64 numpy, from the channel's weights [stack, t]
+    and auto stacks' real parts [nauto, t]: the radiometer equation written
+    out (every input flag is 1)."""
+    pol = np.asarray(tel.polarisation)
+    pa, pb = pol[ps["input_a"].astype(int)], pol[ps["input_b"].astype(int)]
+    label = np.char.add(np.where(pa <= pb, pa, pb), np.where(pa <= pb, pb, pa))
+    cnt = np.bincount(rev[rev < nstack], minlength=nstack).astype(np.float64)
+    auto = ps["input_a"] == ps["input_b"]
+    scale = np.where(auto, 1.0, 2.0)
+    w = ts_w.astype(np.float64)
+    live = (w > 0).astype(np.float64)
+    inv = np.divide(1.0, w, out=np.zeros_like(w), where=w > 0)
+    meas, rad = [], []
+    apol = pa[auto]
+    nfeed = cnt[auto][:, None] * (ts_w[auto] > 0)
+    x = nfeed * ts_autos.astype(np.float64)
+    for p in ("XX", "XY", "YY"):
+        m = label == p
+        contrib = (cnt * scale)[m][:, None] * live[m]
+        counter = contrib.sum(axis=0)
+        meas.append(np.sqrt(2.0 * (contrib * cnt[m][:, None] * inv[m]).sum(axis=0) / counter**2))
+        pairs = [(i, j) for i in range(len(apol)) for j in range(len(apol))
+                 if "".join(sorted(apol[i] + apol[j])) == p]
+        num = sum(x[i] * x[j] for i, j in pairs)
+        den = sum(nfeed[i] * nfeed[j] for i, j in pairs)
+        rad.append(np.sqrt(2.0 * num / (nint * den**2)))
+    return np.array(meas), np.array(rad)
+
+
+def sir_margin(mask_row: np.ndarray, i: int, eta: float):
+    """The largest ``flagged - (1 - eta) * length`` over the windows of a
+    boolean row that contain sample ``i``, in exact rational arithmetic:
+    SIR flags ``i`` iff it is >= 0, and 0 is the tie."""
+    from fractions import Fraction
+
+    keep = 1 - Fraction(str(eta))
+    c = np.concatenate([[0], np.cumsum(mask_row.astype(np.int64))])
+    q = [Fraction(int(c[k])) - keep * k for k in range(len(c))]
+    return max(q[i + 1 :]) - min(q[: i + 1])
+
+
+def _native_timer():
+    """Wrap the native medians so that their calls and seconds are counted;
+    returns (counts dict, restore function)."""
+    from draco_tpu_torch import native
+
+    counts = {"calls": 0, "seconds": 0.0}
+    saved = {}
+    for name in ("weighted_median", "moving_weighted_median"):
+        fn = saved[name] = getattr(native, name)
+
+        def timed(*a, _fn=fn, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                counts["calls"] += 1
+                counts["seconds"] += time.perf_counter() - t0
+
+        setattr(native, name, timed)
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+
+    return counts, restore
+
+
+def _flag_run(label: str, cfg: dict, device, medians: dict) -> dict:
+    """Run one of phase 19's configs through the Manager; print its per-task
+    seconds, wall time, peak device memory and native medians' share."""
+    import gc
+
+    import torch
+
+    from draco_tpu_torch.core.pipeline import Manager
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    before = dict(medians)
+    manager = Manager(cfg)
+    t0 = _sync_clock(device)
+    products = manager.run()
+    wall = _sync_clock(device) - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else float("nan")
+    timing = {name.split(".")[-1]: round(t["wall"], 4) for name, t in manager.task_timing.items()}
+    nmed, smed = medians["calls"] - before["calls"], medians["seconds"] - before["seconds"]
+    log(f"phase {label} Manager run: {wall:.2f} s wall, peak device memory {peak:.2f} GiB; native medians {nmed} "
+        f"calls, {smed:.2f} s ({100 * smed / wall:.1f}% of the run)")
+    log(f"phase {label} task_timing (s): " + json.dumps(timing))
+    return products
+
+
+def run_flagging(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = RING_NFREQ, ntime: int = FLAG_NTIME,
+                 transient: tuple = FLAG_TRANSIENT_CHANNELS, nra: int = RING_NRA, npix: int = RING_NPIX,
+                 ncheck: int = N_FLAG_CHECK, nsens_t: int = N_FLAG_SENS_T):
+    """Phase 19: the flagging and fringe-stop path through the Manager.
+
+    The sizes default to the phase's; smaller ones make it a rehearsal on
+    the CPU.
+    """
+    import gc
+    import os
+    import pickle
+    import tempfile
+
+    import torch
+
+    from draco_tpu_torch import native
+    from draco_tpu_torch.analysis.beam import phased_beam
+    from draco_tpu_torch.analysis.fringestop import mix_in_place
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.ops import rfi
+    from draco_tpu_torch.ops.interferometry import projected_distance
+    from draco_tpu_torch.ops.tools import taper_mask
+
+    failures = []
+    t_phase = time.perf_counter()
+
+    def check(label, value, ok):
+        log(f"  {label}: {value}  [{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            failures.append(label)
+
+    tel = ring_telescope(ncyl, nfeed, nfreq)
+    nstack = tel.npairs
+    FLAG_PROBES.clear()
+    GB = 1e9
+    native.load()
+    log(f"flagging path: host {os.cpu_count()} CPUs, native medians {native.omp_threads()} OpenMP threads, "
+        f"library build {native.build_seconds:.2f} s (0: built before this process); {ncyl} x {nfeed} dual-pol "
+        f"feeds, {nstack} stacks, {nfreq} channels; 19a: {ntime} samples of a day, stream "
+        f"{12 * nfreq * nstack * ntime / GB:.2f} GB, RFITransientVisMask on channels {transient[0]}-{transient[1] - 1}; "
+        f"19b: the hybrid stream [4, {nfreq}, ew, {npix}, {nra}]")
+    paths = flag_tasks()
+    source, _ = ring_tasks()
+    medians, restore = _native_timer()
+    try:
+        with tempfile.TemporaryDirectory() as product_dir:
+            with open(Path(product_dir) / "telescope.pkl", "wb") as f:
+                pickle.dump(tel, f)
+
+            # 19a: time-stream RFI, with the rows and times its host checks sample
+            rng = np.random.Generator(np.random.SFC64(FLAG_SEED + 1))
+            FLAG_PROBES["ddown_rows"] = (rng.integers(0, nfreq, ncheck), rng.integers(0, nstack, ncheck))
+            FLAG_PROBES["sens_times"] = np.sort(rng.choice(ntime, nsens_t, replace=False))
+            products = _flag_run("19a", flag_config(product_dir, paths, ntime, nfreq, transient), device, medians)
+            flag_checks_a(products, tel, device, ntime, nfreq, ncheck, nsens_t, check)
+            del products
+            FLAG_PROBES.pop("dx", None)
+
+            # 19b: the hybrid stream's mixers and its beam stream
+            rng = np.random.Generator(np.random.SFC64(FLAG_SEED))
+            FLAG_PROBES["hdown_rows"] = (rng.integers(0, 4, ncheck), rng.integers(0, nfreq, ncheck),
+                                         rng.integers(0, ncyl, ncheck), rng.integers(0, npix, ncheck))
+            bstream = _flag_run("19b", flag_config_b(product_dir, source, paths, nra, npix), device,
+                                medians)["bstream"][0]
+        hup = FLAG_PROBES.pop("hup")
+        # UpMix(DownMix(x)) against x, and DownMix's sampled rows against float64 on the host
+        x0 = FLAG_PROBES.pop("hx")
+        num = (torch.view_as_real(hup.vis[:] - x0).double() ** 2).sum()
+        rel = float(torch.sqrt(num / (torch.view_as_real(x0).double() ** 2).sum()))
+        check("19b hybrid stream UpMix(DownMix(x)) relative RMS", f"{rel:.3e} (limit {FLAG_TOL_ROUNDTRIP})",
+              rel <= FLAG_TOL_ROUNDTRIP)
+        pi, fi, ei, li = FLAG_PROBES["hdown_rows"]
+        el = np.asarray(hup.index_map["el"])
+        ew = np.asarray(hup.index_map["ew"])
+        nu = np.asarray(hup.freq) * 1e6 / FLAG_C
+        omega = 2 * np.pi * nu[fi] * ew[ei] * np.cos(np.arcsin(el[li]) + np.radians(tel.latitude))
+        rows0 = x0[tuple(torch.as_tensor(i, device=x0.device) for i in (pi, fi, ei, li))].cpu().numpy()
+        want = rows0.astype(np.complex128) * np.exp(1j * omega[:, None] * np.radians(np.asarray(hup.ra))[None])
+        err = np.abs(FLAG_PROBES["hdown"] - want).max() / np.abs(want).max()
+        check(f"19b hybrid DownMix on {ncheck} sampled (pol, freq, ew, el) rows vs float64 on the host",
+              f"{err:.3e} (limit {FLAG_TOL_MIX})", err <= FLAG_TOL_MIX)
+        del x0
+
+        # the beam stream's sampled rows and el-averaged weights against float64 on the host
+        t0 = time.perf_counter()
+        dec = np.degrees(np.arcsin(el)) + tel.latitude
+        ha = (np.asarray(hup.ra) + 180.0) % 360.0 - 180.0
+        pols = [p.decode() if isinstance(p, bytes) else str(p) for p in hup.index_map["pol"]]
+        tpol = list(tel.polarisation)
+        tel_f = np.argmin(np.abs(np.asarray(hup.freq)[:, None] - tel.frequencies[None]), axis=1)
+        got = bstream.vis[:][tuple(torch.as_tensor(i, device=device) for i in (pi, fi, ei, li))].cpu().numpy()
+        want = np.zeros_like(got, dtype=np.complex128)
+        for k in range(ncheck):
+            angpos = np.stack([np.full(ha.size, 0.5 * np.pi - np.radians(dec[li[k]])), np.radians(ha)], axis=-1)
+            ba = np.asarray(tel.beam_at(tpol.index(pols[pi[k]][0]), tel_f[fi[k]], angpos))
+            bb = np.asarray(tel.beam_at(tpol.index(pols[pi[k]][1]), tel_f[fi[k]], angpos))
+            power = (ba * bb.conj()).sum(axis=-1) if ba.ndim == 2 else ba * bb.conj()
+            rot = np.radians(getattr(tel, "rotation_angle", 0.0))
+            d = projected_distance(np.radians(ha), np.radians(tel.latitude), np.radians(dec[li[k]]),
+                                   np.cos(rot) * ew[ei[k]] * nu[fi[k]], np.sin(rot) * ew[ei[k]] * nu[fi[k]])
+            want[k] = power * np.exp(2j * np.pi * d)
+        berr = np.abs(got - want).max() / np.abs(want).max()
+        wgot = bstream.weight[:].cpu().numpy()
+        check(f"19b beam stream on {ncheck} sampled (pol, freq, ew, el) rows vs float64 beam_at and phasor on the "
+              f"host ({time.perf_counter() - t0:.1f} s); el-averaged weights",
+              f"{berr:.3e} (limit {FLAG_TOL_BEAM}); weights in [{wgot.min():g}, {wgot.max():g}] (expect 1)",
+              berr <= FLAG_TOL_BEAM and np.all(wgot == 1.0))
+        ok = (isinstance(bstream, containers.HybridVisStream) and tuple(bstream.vis.shape) == tuple(hup.vis.shape)
+              and bool(torch.isfinite(torch.view_as_real(bstream.vis[:])).all()))
+        check("19b beam stream type, shape, finite", f"{type(bstream).__name__} {tuple(bstream.vis.shape)}", ok)
+
+        # the device programs of the path, each timed alone on the phase's shapes
+        progs = {}
+        t0 = _sync_clock(device)
+        mix_in_place(hup.vis[:], torch.as_tensor(np.zeros((nfreq, len(ew), len(el))), device=device),
+                     torch.as_tensor(np.radians(np.asarray(hup.ra)), device=device), freq_axis=1)
+        progs["fringestop.mix_in_place (hybrid)"] = _sync_clock(device) - t0
+        bw = torch.ones((nfreq, 4, 1, len(el), len(ha)), dtype=torch.float32, device=device)
+        bb_ = torch.ones((4, nfreq, 1, len(el), len(ha)), dtype=torch.complex64, device=device)
+        u = np.asarray(hup.freq)[:, None] * 1e6 / FLAG_C * ew[None]
+        t0 = _sync_clock(device)
+        phased_beam(bb_, bw, np.radians(ha), np.radians(dec), u, 0.0 * u, np.radians(tel.latitude))
+        progs["beam.phased_beam"] = _sync_clock(device) - t0
+        del bw, bb_, hup, bstream
+        gc.collect()
+        metric = FLAG_PROBES["metric"]
+        good = FLAG_PROBES["metric_good"]
+        t0 = _sync_clock(device)
+        rfi.sumthreshold(metric, 64, start_flag=~good, threshold1=5.0, remove_median=False, rho=1.0,
+                         variance=np.ones_like(metric), device=device)
+        progs["rfi.sumthreshold (max_m 64)"] = _sync_clock(device) - t0
+        t0 = _sync_clock(device)
+        rfi.scale_invariant_rank(~good, eta=0.2, axis=(0, -1), device=device)
+        progs["rfi.scale_invariant_rank"] = _sync_clock(device) - t0
+        t0 = _sync_clock(device)
+        taper_mask(~good, 32, device=device)
+        progs["tools.taper_mask (nwidth 32)"] = _sync_clock(device) - t0
+        progs.update(FLAG_PROBES.pop("sens_progs"))
+        log("phase 19 device programs alone (s): " + json.dumps({k: round(v, 4) for k, v in progs.items()}))
+    finally:
+        restore()
+    FLAG_PROBES.clear()
+    log(f"phase 19 native medians: {medians['calls']} calls, {medians['seconds']:.2f} s of the phase's "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise RuntimeError(f"phase 19 (flagging path) failed: {', '.join(failures)}")
+
+
+def flag_checks_a(products, tel, device, ntime: int, nfreq: int, ncheck: int, nsens_t: int, check):
+    """Phase 19a's checks on its Manager run's products."""
+    import torch
+
+    from draco_tpu_torch.analysis.sensitivity import measured_noise
+    from draco_tpu_torch.core import containers
+    from draco_tpu_torch.device import default_device
+    from draco_tpu_torch.ops import median
+
+    sens, mask = FLAG_PROBES.pop("sens"), products["sens_mask"][0]
+    inj = FLAG_PROBES.pop("injected")
+    m = np.asarray(mask.mask[:])
+    check("19a every injected sample masked by RFISensitivityMask",
+          f"{int(m[inj].sum())} of {int(inj.sum())} ({len(FLAG_NARROW)} lines x {FLAG_NARROW_LEN * ntime // FLAG_DAY}"
+          f" samples, {len(FLAG_BURSTS)} bursts of 3-10 samples, at {FLAG_AMP:g} x the metric's scatter)",
+          bool(m[inj].all()))
+    outside = float(m[~inj].mean())
+    check("19a masked fraction outside the injected cells", f"{outside:.5f} (limit {FLAG_MASKED_MAX})",
+          outside < FLAG_MASKED_MAX)
+    for label in ("static_mask", "transient_mask", "combined", "freq_mask"):
+        if label in products:
+            mk = np.asarray(products[label][0].mask[:])
+            sub = inj[slice(*FLAG_TRANSIENT_CHANNELS) if mk.shape[0] < nfreq else slice(None)]
+            log(f"  19a {label}: masked share {mk.mean():.5f}, of the injected cells {mk[sub].mean():.5f}")
+    clean = products["tclean"][0]
+    w = clean.weight[:]
+    cm = torch.as_tensor(np.asarray(products["combined"][0].mask[:]), device=w.device)
+    ok = bool((w.amax(dim=1) == 0)[cm].all()) and bool(torch.isfinite(w).all())
+    check("19a combined mask applied (every masked (freq, time) weight 0), SanitizeWeights output finite",
+          f"combined share {float(cm.float().mean()):.5f}", ok)
+
+    # the sensitivity against float64 numpy on the host
+    tstream = products["tstream_sens"][0]
+    ps = tstream.prodstack
+    rev = np.asarray(tstream.reverse_map["stack"]["stack"]).astype(int)
+    nstack = tstream.vis.shape[1]
+    nint = np.median(tstream.index_map["freq"]["width"]) * 1e6 * np.median(np.diff(tstream.time))
+    tsel_t = torch.as_tensor(FLAG_PROBES.pop("sens_times"), device=device)
+    w0, a0 = FLAG_PROBES.pop("weights0").cpu().numpy(), FLAG_PROBES.pop("autos0").cpu().numpy()
+    t0 = time.perf_counter()
+    worst = 0.0
+    nrows = 0
+    for f in range(nfreq):
+        wf, af = w0[f], a0[f]
+        hm, hr = host_sensitivity(tel, wf, af, ps, rev, nstack, nint)
+        gm = sens.measured[:][f].index_select(1, tsel_t).cpu().numpy()
+        gr = sens.radiometer[:][f].index_select(1, tsel_t).cpu().numpy()
+        worst = max(worst, float(np.max(np.abs(gm - hm) / np.abs(hm))), float(np.max(np.abs(gr - hr) / np.abs(hr))))
+        nrows += 3
+    check(f"19a sensitivity on all {nrows} (freq, pol) rows (the phase has fewer than {ncheck}) at {nsens_t} sampled "
+          f"times vs float64 numpy on the host ({time.perf_counter() - t0:.1f} s)",
+          f"{worst:.3e} (limit {FLAG_TOL_SENS})", worst <= FLAG_TOL_SENS)
+
+    # RFISensitivityMask again on the CPU, on the same SystemSensitivity
+    pre_card = FLAG_PROBES.pop("pre_sir")
+    cpu_sens = containers.SystemSensitivity(axes_from=sens, attrs_from=sens, device="cpu")
+    for name in ("measured", "radiometer", "weight", "frac_lost"):
+        cpu_sens.datasets[name][:] = sens.datasets[name][:].cpu()
+    t0 = time.perf_counter()
+    with default_device("cpu"):
+        task = KeepPreSIR()
+        task.read_config({"sir": True})
+        task.setup()
+        cpu_mask = np.asarray(task.process(cpu_sens).mask[:])
+    cpu_s = time.perf_counter() - t0
+    diff = np.argwhere(cpu_mask != m)
+    pre_cpu = FLAG_PROBES.pop("pre_sir")
+    same_pre = np.array_equal(pre_cpu, pre_card)
+    notes = []
+    allowed = same_pre
+    for f, t in diff:
+        margins = (sir_margin(pre_card[f], t, 0.2), sir_margin(pre_card[:, t], f, 0.2))
+        allowed &= max(margins) == 0
+        notes.append(f"({f}, {t}): card {bool(m[f, t])}, CPU {bool(cpu_mask[f, t])}, SIR margin over time "
+                     f"{float(margins[0]):+.3f} / freq {float(margins[1]):+.3f}")
+    check(f"19a RFISensitivityMask on the CPU ({cpu_s:.1f} s) against the card: the masks before SIR "
+          f"{'equal' if same_pre else 'DIFFER'}; after SIR {len(diff)} samples differ, each allowed only at an "
+          "exact SIR tie (margin 0: the float64 rounding of the prefix sums decides it)",
+          "; ".join(notes) or "identical", allowed)
+
+    # one (37, 181) moving median of the metric, native against numpy
+    metric = np.asarray(sens.measured[:][:, 0].cpu().numpy(), dtype=np.float64) / np.asarray(
+        sens.radiometer[:][:, 0].cpu().numpy(), dtype=np.float64)
+    good = ~m
+    FLAG_PROBES["metric"], FLAG_PROBES["metric_good"] = metric, good
+    n = min(1024, ntime)
+    xs, ws = metric[:, :n], good[:, :n].astype(np.float64)
+    t0 = time.perf_counter()
+    nat = median.moving_weighted_median(xs, ws, (37, 181))
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = median.moving_weighted_median(xs, ws, (37, 181), method="numpy")
+    t_np = time.perf_counter() - t0
+    check(f"19a one (37, 181) moving median on the metric's [{nfreq}, {n}] slice, native ({t_nat:.2f} s) against "
+          f"numpy ({t_np:.2f} s)", "identical" if np.array_equal(nat, ref) else "DIFFERENT", np.array_equal(nat, ref))
+
+    # the day stream's mixers: UpMix(DownMix(x)) against x, DownMix's rows against float64 on the host
+    tup = products["tmasked"][0]
+    x0 = FLAG_PROBES["dx"]
+    num = (torch.view_as_real(tup.vis[:] - x0).double() ** 2).sum()
+    rel = float(torch.sqrt(num / (torch.view_as_real(x0).double() ** 2).sum()))
+    check("19a day stream UpMix(DownMix(x)) relative RMS", f"{rel:.3e} (limit {FLAG_TOL_ROUNDTRIP})",
+          rel <= FLAG_TOL_ROUNDTRIP)
+    fi, si = FLAG_PROBES["ddown_rows"]
+    pos = tel.feedpositions[:, 0]
+    sep = pos[ps["input_a"][si].astype(int)] - pos[ps["input_b"][si].astype(int)]
+    nu = np.asarray(tup.freq)[fi] * 1e6 / FLAG_C
+    omega = 2 * np.pi * nu * sep * np.cos(np.radians(tel.latitude))
+    phi = np.radians(tel.unix_to_lsa(np.asarray(tup.time)))
+    rows0 = x0[torch.as_tensor(fi, device=x0.device), torch.as_tensor(si, device=x0.device)].cpu().numpy()
+    want = rows0.astype(np.complex128) * np.exp(1j * omega[:, None] * phi[None])
+    err = np.abs(FLAG_PROBES["ddown"] - want).max() / np.abs(want).max()
+    check(f"19a day stream DownMix on {ncheck} sampled (freq, stack) rows vs float64 on the host",
+          f"{err:.3e} (limit {FLAG_TOL_MIX})", err <= FLAG_TOL_MIX)
+
+    # the sensitivity's einsums alone, one channel at a time as the task runs them
+    dev = sens.measured[:].device
+    member = torch.ones((3, nstack), dtype=torch.float32, device=dev)
+    scale = torch.ones(nstack, dtype=torch.float32, device=dev)
+    cnt = torch.ones((1, nstack, ntime), dtype=torch.float32, device=dev)
+    t0 = _sync_clock(dev)
+    for f in range(nfreq):
+        measured_noise(member, scale, cnt, tup.weight[:][f : f + 1].float())
+    FLAG_PROBES["sens_progs"] = {"sensitivity.measured_noise (all channels)": _sync_clock(dev) - t0}
+
+
 def _bl_max(tel) -> float:
     from draco_tpu_torch.analysis.powerspec import TransformJyPerBeamToKelvin
 
@@ -3493,10 +4125,15 @@ def main() -> int:
     # phase 17: the ring-map path and the power spectrum built on it
     t0 = time.perf_counter()
     cuda_kernels.reset_launches()
-    run_ringmap(device)
+    medians, restore = _native_timer()
+    try:
+        run_ringmap(device)
+    finally:
+        restore()
     ringmap_launches = cuda_kernels.launches["banded_covariance"]
     log(f"phase 17 wall time {time.perf_counter() - t0:.1f} s; banded_covariance launches {ringmap_launches} "
-        "(the path has no regrid)")
+        f"(the path has no regrid); native medians {medians['calls']} calls, {medians['seconds']:.2f} s (17a's "
+        "RFIMask, both runs)")
     torch.cuda.empty_cache()
 
     # phase 18: the day-stacking and source-beamforming path, after dropping
@@ -3514,6 +4151,18 @@ def main() -> int:
     t0 = time.perf_counter()
     stack_launches, beam_kern, stack_kern = run_stacking(device)
     log(f"phase 18 wall time {time.perf_counter() - t0:.1f} s; launches {stack_launches}")
+
+    # phase 19: the flagging and fringe-stop path, after dropping phase 18's data
+    STACK_PROBES.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory allocated before phase 19: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    cuda_kernels.reset_launches()
+    run_flagging(device)
+    flag_launches = dict(cuda_kernels.launches)
+    log(f"phase 19 wall time {time.perf_counter() - t0:.1f} s; launches {flag_launches} (the path runs neither "
+        "kernel)")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [{
@@ -3531,6 +4180,7 @@ def main() -> int:
         "delay_path": {"launches": delay_launches},
         "ringmap_path": {"launches": ringmap_launches},
         "stacking_path": stack_kern,
+        "flagging_path": {"launches": flag_launches["banded_covariance"]},
     }, {
         "name": "beamform",
         "route": "cuda",
@@ -3538,6 +4188,7 @@ def main() -> int:
         "replaces": "draco_tpu/ops/interferometry.py:161",
         "launches": stack_launches["beamform"],
         **beam_kern,
+        "flagging_path": {"launches": flag_launches["beamform"]},
     }]}
     print(json.dumps(record))
     print(card)

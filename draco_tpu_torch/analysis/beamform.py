@@ -184,19 +184,8 @@ class BeamFormBase(ContainerTask):
         """Per-stack redundancy [nstack, nra] from the input flags, counted a
         block of time samples at a time (the full product triangle times
         every sample would not fit on the card)."""
-        flags = data.input_flags[:]
-        prod = data.index_map["prod"][:]
-        stack_index = data.reverse_map["stack"]["stack"][:]
-        nstack = data.vis.shape[1]
-        index = tools.redundancy_index(prod, stack_index, nstack, flags.shape[0], flags.device)
-        # flags that are zero at every sample count as all ones: decide once for the whole set
-        if not bool(flags.any()):
-            flags = torch.ones(flags.shape, dtype=torch.float32, device=flags.device)
-        nt = flags.shape[1]
-        out = torch.empty(nstack, nt, dtype=torch.float32, device=flags.device)
-        for t0, t1 in tools.axis_blocks(nt, len(index[0]), _REDUNDANCY_BLOCK):
-            out[:, t0:t1] = tools.calculate_redundancy(flags, prod, stack_index, nstack, slice(t0, t1), index)
-        return out
+        return tools.stack_redundancy(data.input_flags[:], data.index_map["prod"][:],
+                                      data.reverse_map["stack"]["stack"][:], data.vis.shape[1], _REDUNDANCY_BLOCK)
 
     def _process_catalog(self, catalog):
         if "position" not in catalog:

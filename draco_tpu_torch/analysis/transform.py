@@ -788,7 +788,7 @@ class _InverseStackRedundancyWeights(ReduceBase):
     def _get_weights(self, data):
         if "stack" not in data.index_map:
             raise RuntimeError("Weight calculation needs a 'stack' entry in the index map.")
-        counts = tools.calculate_redundancy(
+        counts = tools.stack_redundancy(
             data.input_flags[:],
             data.index_map["prod"][:],
             data.reverse_map["stack"]["stack"][:],

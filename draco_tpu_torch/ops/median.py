@@ -1,30 +1,46 @@
-"""Weighted median routines (host numpy).
+"""Weighted median routines (host).
 
-Copy of ``draco_tpu.ops.median``: replacements for the caput
+Port of ``draco_tpu.ops.median``: replacements for the caput
 ``algorithms.median`` Cython module (usage at reference
-draco/analysis/flagging.py:1329-1331, 1655-1665, 1692-1754), as
-vectorised sort-and-cumulate formulations.  The JAX package dispatches to
-an OpenMP kernel when it is built; the port runs the numpy formulation,
-which gives the same medians.
+draco/analysis/flagging.py:1329-1331, 1655-1665, 1692-1754).
+:func:`weighted_median` and :func:`moving_weighted_median` run the
+OpenMP kernels of :mod:`draco_tpu_torch.native` (``method="native"``, the
+default) or, when the caller asks for it with ``method="numpy"``, the
+vectorised sort-and-cumulate formulation, the plain version the native
+one is held against.  Both give the same medians: each picks values of
+the input, and with integer weights (masks) the cumulative sums are exact.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
+
 __all__ = ["weighted_median", "moving_weighted_median", "quantile"]
 
 
-def weighted_median(x, w, axis: int = -1):
+_METHODS = ("native", "numpy")
+
+
+def _check_method(method: str) -> None:
+    if method not in _METHODS:
+        raise ValueError(f"method must be one of {_METHODS}, not {method!r}")
+
+
+def weighted_median(x, w, axis: int = -1, method: str = "native"):
     """Weighted median of ``x`` along ``axis`` ("split" convention).
 
     Samples with zero weight are ignored; rows with no valid samples
     return 0.  With unit weights this matches ``np.median``.
     """
+    _check_method(method)
     x0 = np.asarray(x, dtype=np.float64)
     w0 = np.broadcast_to(np.asarray(w, dtype=np.float64), x0.shape)
     x = np.moveaxis(x0, axis, -1)
     w = np.moveaxis(w0, axis, -1)
+    if method == "native":
+        return native.weighted_median(x, w)
 
     order = np.argsort(x, axis=-1)
     xs = np.take_along_axis(x, order, -1)
@@ -92,7 +108,7 @@ def quantile(x, w, q, axis: int = -1):
     return np.where(tot[..., 0] > 0, med, 0.0)
 
 
-def moving_weighted_median(x, w, size):
+def moving_weighted_median(x, w, size, method: str = "native"):
     """Moving-window weighted median of ``x``.
 
     1-D input with a scalar (odd) ``size`` filters along the single axis;
@@ -102,22 +118,25 @@ def moving_weighted_median(x, w, size):
     sample is the weighted median over a centred ``size = (s0, s1)``
     window; samples outside the edges carry zero weight.
 
-    The windows are materialised with ``sliding_window_view`` and reduced
-    with one vectorised weighted median, chunked over rows to bound
-    memory.
+    ``method="native"`` runs the OpenMP kernel; ``"numpy"`` materialises
+    the windows with ``sliding_window_view`` and reduces them with one
+    vectorised weighted median, chunked over rows to bound memory.
     """
+    _check_method(method)
     x = np.asarray(x, dtype=np.float64)
     w = np.asarray(w, dtype=np.float64)
     if x.ndim == 1 and np.isscalar(size):
         # caput's 1-D form (reference flagging.py:1944): window along the
         # single axis.
-        out = moving_weighted_median(x[:, None], w[:, None], (int(size), 1))
+        out = moving_weighted_median(x[:, None], w[:, None], (int(size), 1), method=method)
         return out[:, 0]
     if np.isscalar(size):
         size = (int(size), int(size))
     s0, s1 = int(size[0]), int(size[1])
     if s0 % 2 == 0 or s1 % 2 == 0:
         raise ValueError(f"Window sizes must be odd, got {size}.")
+    if method == "native":
+        return native.moving_weighted_median(x, w, (s0, s1))
 
     lead = x.shape[:-2]
     n0, n1 = x.shape[-2:]
@@ -144,6 +163,6 @@ def moving_weighted_median(x, w, size):
             wv = np.lib.stride_tricks.sliding_window_view(
                 wp[b, r0 : r1 + 2 * p0], (s0, s1)
             ).reshape(r1 - r0, n1, -1)
-            out[b, r0:r1] = weighted_median(xv, wv, axis=-1)
+            out[b, r0:r1] = weighted_median(xv, wv, axis=-1, method="numpy")
 
     return out.reshape(*lead, n0, n1)

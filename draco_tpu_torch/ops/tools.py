@@ -9,7 +9,10 @@ lookups (``find_key``, ``find_keys``, ``find_inputs``,
 ``unpack_product_array``, ``calculate_redundancy``), the apodisation
 windows (``window_generalised``) and the small helpers of the stacking and
 beamforming tasks (``broadcast_weights``, ``correct_phase_wrap``,
-``find_contiguous_slices``).
+``find_contiguous_slices``) and the flagging library's baseline fits and
+mask helpers (``penalized_least_squares_1d``, ``arPLS_1d``, ``IarPLS_1d``
+and ``apply_hysteresis_threshold``: host scipy, as in the JAX package;
+``taper_mask``: a float64 ``conv1d`` on the device).
 
 The exact-phase scheme rests on every high product being an exact
 float32 value and on no fused multiply-add changing a rounded product.
@@ -34,8 +37,9 @@ __all__ = [
     "invert_no_zero", "twofloat_split", "phase_frac", "threefloat_split", "phase_frac3", "sincos_turns",
     "find_key", "find_keys", "find_inputs", "redefine_stack_index_map", "cmap", "icmap",
     "unique_pair_indices", "apply_gain", "extract_diagonal", "unpack_product_array", "redundancy_index",
-    "calculate_redundancy",
+    "calculate_redundancy", "stack_redundancy",
     "axis_blocks", "svd", "window_generalised", "broadcast_weights", "correct_phase_wrap", "find_contiguous_slices",
+    "penalized_least_squares_1d", "arPLS_1d", "IarPLS_1d", "apply_hysteresis_threshold", "taper_mask",
 ]
 
 # elements of the largest temporary a blocked helper makes
@@ -291,11 +295,12 @@ def redefine_stack_index_map(telescope, inputs, prod, stack, reverse_stack):
     stack_new = stack.copy()
     stack_flag = np.zeros(stack_new.size, dtype=bool)
     prod_pairs = np.stack([prod["input_a"], prod["input_b"]], axis=-1)
+    feedmask = telescope.feedmask  # a property that rebuilds on each access: read it once
 
     def product_ok(pind):
         a, b = prod_pairs[pind]
         ta, tb = tel_index[a], tel_index[b]
-        return ta is not None and tb is not None and telescope.feedmask[ta, tb]
+        return ta is not None and tb is not None and feedmask[ta, tb]
 
     for sind in range(stack_new.size):
         if product_ok(stack["prod"][sind]):
@@ -464,6 +469,22 @@ def calculate_redundancy(input_flags, prod_map, stack_index, nstack: int, times=
     return red.index_add_(0, seg, flags[ia] * flags[ib])
 
 
+def stack_redundancy(input_flags, prod_map, stack_index, nstack: int, block_elements: int = 1 << 28) -> torch.Tensor:
+    """:func:`calculate_redundancy` [nstack, nt] counted a block of time
+    samples at a time, so that a full product triangle times every sample
+    never sits on the device at once."""
+    flags = torch.as_tensor(input_flags)
+    index = redundancy_index(prod_map, stack_index, nstack, flags.shape[0], flags.device)
+    # flags that are zero at every sample count as all ones: decide once for the whole set
+    if not bool(flags.any()):
+        flags = torch.ones(flags.shape, dtype=torch.float32, device=flags.device)
+    nt = flags.shape[1]
+    out = torch.empty(nstack, nt, dtype=torch.float32, device=flags.device)
+    for t0, t1 in axis_blocks(nt, len(index[0]), block_elements):
+        out[:, t0:t1] = calculate_redundancy(flags, prod_map, stack_index, nstack, slice(t0, t1), index)
+    return out
+
+
 def broadcast_weights(waxis_names, daxis_names):
     """Slice tuple broadcasting a weight array onto a data array (reference tools.py:173)."""
     extra = set(waxis_names) - set(daxis_names)
@@ -502,3 +523,134 @@ def find_contiguous_slices(index):
         start = prev = x
     slices.append(slice(start, prev + 1))
     return slices
+
+
+def penalized_least_squares_1d(y, reweight_func, mask=None, lam: float = 1e2, epsilon: float = 1e-2,
+                               max_iter: int = 100):
+    """Iteratively reweighted penalised-least-squares baseline (reference tools.py:600-714).
+
+    Solves ``(W + lam D2^T D2) z = W y`` with a banded Cholesky solve,
+    iterating the weights via ``reweight_func``.  Host scipy, as in the JAX
+    package: a 1-D spectrum of at most a few thousand channels.
+    """
+    import warnings
+
+    from scipy import linalg as la
+    from scipy.sparse import dia_array
+
+    y = np.squeeze(np.asarray(y, dtype=np.float64))
+    if y.ndim != 1:
+        raise ValueError(f"Expected 1D data array - got shape {y.shape}")
+    n = y.shape[0]
+    if mask is None:
+        mask = np.zeros(n, dtype=bool)
+    elif np.all(mask):
+        warnings.warn("Every sample is masked; nothing to fit.")
+        return np.zeros_like(y)
+    mask = np.squeeze(np.asarray(mask, dtype=bool))
+
+    # lower-banded lam * D2 D2^T for the second-difference operator D2
+    stencil = np.tile([[1.0], [-2.0], [1.0]], (1, n - 1))
+    d2 = dia_array((stencil, [-2, -1, 0]), shape=(n, n - 2))
+    smooth = lam * (d2 @ d2.T)
+    bands = np.ones((3, n), dtype=np.float64)
+    for off in range(3):
+        bands[off, : n - off] = smooth.diagonal(off)
+
+    weights = np.zeros((3, n), dtype=np.float64)
+    weights[0] = 1.0
+    fit = np.zeros_like(y)
+    for it in range(max_iter):
+        weights[:, mask] = 0.0
+        w = weights[0]
+        fit = la.solveh_banded(bands + weights, w * y, lower=True, check_finite=False)
+        w_next = reweight_func(y - fit, mask, it)
+        if la.norm(w - w_next) / max(la.norm(w), 1e-30) < epsilon:
+            break
+        weights[0] = w_next
+    else:
+        warnings.warn(f"Baseline fit still moving after {max_iter} iterations.")
+    return fit
+
+
+def arPLS_1d(y, mask=None, lam: float = 1e2, epsilon: float = 1e-2, max_iter: int = 100):
+    """Asymmetrically reweighted PLS baseline (reference tools.py:717-780)."""
+    y = np.asarray(y, dtype=np.float64)
+    exp_cap = np.log(np.finfo(y.dtype).max)
+
+    def _reweight(resid, m, it):
+        below = (resid < 0) & ~m
+        if not below.any():
+            return np.full_like(resid, 0.5)
+        mu = np.mean(resid, where=below)
+        sigma = np.std(resid, where=below)
+        arg = np.clip(2 * (resid - (2 * sigma - mu)) * invert_no_zero(sigma), -exp_cap, exp_cap)
+        return invert_no_zero(np.exp(arg) + 1.0)
+
+    return penalized_least_squares_1d(y, _reweight, mask, lam, epsilon, max_iter)
+
+
+def IarPLS_1d(y, mask=None, lam: float = 1e2, epsilon: float = 1e-2, max_iter: int = 100):
+    """Improved asymmetrically reweighted PLS baseline (reference tools.py:783-841)."""
+    y = np.asarray(y, dtype=np.float64)
+    sqr_cap = np.finfo(y.dtype).max ** 0.5
+    exp_cap = np.log(np.finfo(y.dtype).max)
+
+    def _reweight(resid, m, it):
+        below = (resid < 0) & ~m
+        sigma = np.std(resid, where=below) if below.any() else 0.0
+        gain = np.exp(np.clip(it + 1, -exp_cap, exp_cap))
+        arg = np.clip(gain * (resid - 2 * sigma) * invert_no_zero(sigma), -sqr_cap, sqr_cap)
+        return 0.5 * (1 - arg * invert_no_zero(np.hypot(1.0, arg)))
+
+    return penalized_least_squares_1d(y, _reweight, mask, lam, epsilon, max_iter)
+
+
+def apply_hysteresis_threshold(image, low, high):
+    """Hysteresis thresholding (skimage.filters.apply_hysteresis_threshold), host scipy.
+
+    Points above ``high`` are kept, plus any points above ``low`` connected
+    (8-connectivity in 2D / full connectivity in nD) to a point above
+    ``high``.
+    """
+    from scipy import ndimage
+
+    image = np.asarray(image)
+    mask_low = image > low
+    mask_high = image > high
+    labels, num = ndimage.label(mask_low, structure=np.ones((3,) * image.ndim, dtype=bool))
+    if num == 0:
+        return mask_high
+    sums = np.bincount(labels.ravel(), weights=mask_high.ravel(), minlength=num + 1)
+    good_label = sums > 0
+    good_label[0] = False
+    return good_label[labels]
+
+
+def taper_mask(mask, nwidth: int, outer: bool = False, device=None) -> torch.Tensor:
+    """Taper a 2D mask along the last axis with a Hann kernel (reference tools.py:844).
+
+    The mask is edge-extended by the kernel's width, convolved row by row
+    (``conv1d`` in float64 on the mask's device, or ``device`` for host
+    input), thresholded at 1 and convolved again.  Returns a float64 tensor.
+    """
+    from ..device import as_tensor
+
+    m = as_tensor(mask if isinstance(mask, torch.Tensor) else np.asarray(mask), device).to(torch.float64)
+    m = torch.atleast_2d(m).reshape(-1, m.shape[-1])
+    width = 2 * nwidth - 1
+    kernel = torch.as_tensor(np.hanning(width), dtype=torch.float64, device=m.device)
+    kernel = (kernel / kernel.sum()).reshape(1, 1, -1)
+
+    tapered = torch.cat([m[:, :1].expand(-1, width), m, m[:, -1:].expand(-1, width)], dim=-1)
+    if outer:
+        tapered = 1.0 - tapered
+
+    def conv(x):
+        # np.convolve(row, kernel, "same"): the Hann kernel is symmetric
+        return torch.nn.functional.conv1d(x[:, None], kernel, padding=(width - 1) // 2)[:, 0]
+
+    tapered = conv(torch.isclose(conv(tapered), torch.ones((), dtype=torch.float64, device=m.device)).to(torch.float64))
+    if outer:
+        tapered = 1.0 - tapered
+    return tapered[:, width:-width]

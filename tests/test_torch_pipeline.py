@@ -216,7 +216,7 @@ def test_every_task_of_the_simulation_examples_resolves(example):
 
 
 @pytest.mark.parametrize(
-    "path", ["draco.analysis.flagging.MaskFreq", "draco_tpu.analysis.fringestop.Mix"]
+    "path", ["draco.analysis.dayenu.DayenuDelayFilter", "draco_tpu.analysis.interpolate.DPSSFilter"]
 )
 def test_a_task_not_ported_yet_raises(path):
     with pytest.raises(PipelineRuntimeError, match="not ported to draco_tpu_torch yet") as e:
