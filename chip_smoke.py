@@ -107,7 +107,8 @@ Phases, each of which raises on failure (exit code != 0):
    the beam transfer within 1e-4 of a complex128 pseudo-inverse's (of the
    rank the float32 one kept, the two ranks within 2 of each other);
 15. the KL path of the foreground-filter baseline config on the same
-   product: a product config with a ``kltransform`` stanza (a
+   product at its last two frequencies, 450 and 475 MHz (the cut; the beam
+   SVD and the KL solves grow with them): a product config with a ``kltransform`` stanza (a
    ``KLTransform`` and a ``DoubleKL``) and a ``psfisher`` stanza through
    ``ProductManager.from_config``, then ``SVDModeProject`` (forward) ->
    ``KLModeProject`` (forward, then filter) -> ``QuadraticPSEstimation``.
@@ -252,6 +253,59 @@ Phases, each of which raises on failure (exit code != 0):
    beam stream on 64 sampled (pol, freq, ew, el) rows within 1e-5 of a
    float64 evaluation of ``beam_at`` and the conjugate fringe phasor on the
    host, and its el-averaged weights 1.  The phase launches neither kernel.
+20. the DAYENU, DPSS, wavelet and HyFoReS filter path, in three runs of the
+   pipeline ``Manager``, the tasks' default windows and epsilons.  20a: phase
+   16's stream (``EmitFilterStream``: 7155 products x 1024 channels over
+   400-800 MHz, the foreground, white signal, noise and flagged channels of
+   ``delay_stream``) at 64 RA samples (the cut; its three flagged samples
+   moved onto them), with a delay tone (0.8 us, 10 x the signal) on one
+   Stokes-I baseline -> ``DayenuDelayFilterFixedCutoff`` (``single_mask:
+   false``, ``reduce_baseline: true``), ``DPSSFilterDelay`` (half-width 0.2
+   us) -> ``StokesIVis`` -> ``DPSSFilterDelayStokesI``, and
+   ``DayenuDelayFilter`` (``tauw`` 0.2 us, ``single_mask: false``) ->
+   ``StokesIVis`` -> ``DelaySpectrumFFT`` -> ``DelaySpectrumToPowerSpectrum``
+   -> ``WaveletSpectrumEstimator`` (over RA, 128 delays).  20b: every pair
+   of phase 17's cylinder and band at CHIME's 4096 RA samples
+   (``EmitMStream``: on intracylinder rows tones at m 60 and 5, on the
+   others the fringe of a source at dec 40 with a slow envelope and a tone
+   150 above it, noise, four flagged (channel, RA) cells with interference)
+   -> ``DayenuMFilter`` -> ``DPSSFilterMMode`` (half-width 0.3 a degree);
+   every component has a source's Gaussian envelope (20 degrees) about RA
+   180, so it is band-limited within the span (the filter does not wrap).
+   20c: phase 17's stream at 256 channels from 400 MHz (above 600 MHz no
+   elevation lies inside HyFoReS's aliased horizon) and 512 RA samples ->
+   ``MakeVisGrid`` -> ``BeamformNS`` (256 elevations) -> ``ForkHybrid`` (a
+   copy with a 5% bandpass ripple at 0.8 us, a second one, a signal-only
+   copy, an empty pixel mask) -> ``BeamformEW`` -> ``DayenuDelayFilterMap``;
+   ``DayenuDelayFilterHybridVis`` (``save_filter``, ``calculate_cov``) ->
+   ``DelayFilterHyFoReSBandpassHybridVis`` on the ripple copy ->
+   ``DelayFilterHyFoReSBandpassHybridVisClean`` (cutoff 1e-2); the other
+   copy filtered -> ``HyFoReSBandpassHybridVis`` and its ``Mask`` and
+   ``MaskKeepSource`` variants; ``ApplyDelayFilterHybridVis`` on the
+   signal-only copy.  Prints each task's seconds, each run's wall and peak
+   device memory, and the path's device programs timed alone beside their
+   bounds.  Checks: the DAYENU output of 64 products at 8 NS separations
+   within 1e-2 of host float64 numpy (epsilon 1e-12 makes the covariance's
+   condition 1e12, so two LAPACKs' float64 filters differ by ~3e-3), and
+   the card's pseudo-inverse at epsilon 1e-3 within 1e-10 of the host's;
+   the foreground-only copy's power through the filter under 1e-6 of its
+   power before; the power beyond each product's cut + 0.1 us kept within
+   5%; the inpainted channels within 0.1 (RMS) of the foreground there; the
+   DPSS solve on 256 rows within 1e-3 of host float64; the wavelet spectrum
+   of 8 baselines within 1e-2 of a host float64 in-fill and CWT (the in-fill
+   inverts F D F^H, and D spans ~1e15 after the DAYENU filter), and the
+   tone's baseline peaking within 10% of its delay; the m filter passing
+   its component within 0.1 on the channels without flagged cells (at 4096
+   samples and epsilon 1e-10 its float64 pass band is ~5% off: numpy's
+   pseudo-inverse of the same covariance too) and letting through under
+   1e-4 of the power of a rejected-only copy; both 20b tasks on rows of a
+   flagged channel within 1e-3 of host float64; the ripple recovered on every (pol, ew)
+   (correlation > 0.8, median residual < 0.3 of its peak); the three
+   pre-filtered estimators equal within 1e-6; ``ApplyDelayFilterHybridVis``'s
+   batched product bit-equal to one column at a time on 16 columns; the
+   saved covariance of 16 columns within 1e-10 of host float64; the ring
+   map's power below 0.05 us cut by 1e4; every output finite.  The phase
+   launches neither kernel.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -308,6 +362,8 @@ TOL_ZMEAN = 0.01
 PEAK_LIMIT_GIB = 64.0
 # phases 14 and 15: the foreground-filter paths on the 191-pair cylinder
 ANALYSIS_NFREQ = 4
+KL_FREQS = slice(2, 4)  # phase 15 takes the last two of phase 14's frequencies (the cut: the beam SVD and the KL eigh
+# grow with them; at the first two the top kperp band, l = 0.2-0.3 chi, lies above lmax)
 ANALYSIS_SEED = 14
 # the KL transform's covariance models, from which the sky is drawn too:
 # the defaults' signal and foreground, thermal noise 100 x below the default
@@ -436,6 +492,54 @@ FLAG_TOL_ROUNDTRIP = 1e-6
 FLAG_TOL_BEAM = 1e-5
 FLAG_MASKED_MAX = 0.05
 FLAG_PROBES: dict = {}  # what phase 19's probes keep for the host checks
+
+# phase 20: the DAYENU, DPSS, wavelet and HyFoReS filter path
+FILT_NRA = 64  # 20a's RA samples (the cut: phase 16 has 256, CHIME's grid 4096)
+FILT_TAUW = 0.2  # us: DayenuDelayFilter's tauw and DPSSFilterDelay's halfwidth (the foreground lies inside 0.8 x max(NS / c, 0.2 us))
+FILT_TONE = ((22.0, 0.5), 0.8, 1e3)  # (baseline (EW, NS) m, delay us, amplitude) of the wavelet check's tone
+FILT_NDELAY = 128
+FILT_SEED = 20
+N_FILT_CUTS = 8  # NS separations of the host checks' products
+N_FILT_PER_CUT = 8  # products of each
+N_FILT_DPSS = 4  # products (x every RA sample) of the DPSS host check
+N_FILT_WAVELET = 8  # Stokes-I baselines of the wavelet host check
+FILT_TOL_DAYENU = 1e-2  # card vs host float64 at epsilon 1e-12: the covariance's condition 1e12 leaves two LAPACKs ~3e-3 apart
+FILT_TOL_DAYENU_E3 = 1e-10  # the card's float64 pseudo-inverse at epsilon 1e-3 vs host float64
+FILT_FG_FALL = 1e-6
+FILT_KEEP = 0.05  # power beyond each product's cut + 0.1 us kept within this
+FILT_TOL_INPAINT = 0.1  # inpainted channels vs the foreground there, RMS over RMS (the white signal is not inpainted)
+FILT_TOL_DPSS = 1e-3
+FILT_TOL_WAVELET = 1e-2  # the in-fill inverts F D F^H, and D spans ~1e15 after the DAYENU filter (3.1e-3 between two CPU LAPACKs)
+FILT_TONE_TOL = 0.1
+MF_NFREQ = 16  # 20b's channels (the cut: CHIME's 1024 would be 64 x this)
+MF_NRA = 4096  # CHIME's sidereal grid
+MF_DEC = 40.0  # DayenuMFilter's default
+MF_AMP = 1e4  # over unit noise: the DPSS solve's default epsilon (1e-3) assumes weights of order 1
+MF_NOISE_VAR = 1.0  # the weights are its inverse
+MF_ENVELOPE = 20.0  # deg: the components' Gaussian envelope about RA 180
+MF_INTRA_M = (60.0, 5.0)  # (passed, rejected) m of the intracylinder rows (pass band 0.25-1 x the cylinder's m)
+MF_INTER_OFFSET = 150.0  # m of the intercylinder rows' rejected component above their fringe (pass band +-0.75 x it)
+MF_FLAGS = ((2, 1000), (5, 1001), (9, 2500), (13, 3800))  # flagged (channel, RA sample) cells
+MF_RFI = 1e7
+MF_HALFWIDTH = 0.3  # DPSSFilterMMode's halfwidth, cycles a degree: |m| < 108 holds the intracylinder pass band
+MF_TOL_PASS = 0.1  # at 4096 samples and epsilon 1e-10 the pass band's eigenvalues of 1 come from cancelling entries of 1/(a eps) ~ 1e12: float64 leaves them ~5% off (numpy's pinv too)
+MF_TOL_OOB = 1e-4
+MF_TOL_HOST = 1e-3
+N_MF_HOST = 4  # rows of each host check
+HV_NFREQ = 256  # 20c: 100 MHz of CHIME's channels
+HV_F0 = 400.0  # MHz: HyFoReS keeps the elevations inside the aliased horizon, c / (f d_NS) - 1, none above 600 MHz
+HV_NRA = 512
+HV_NPIX = 256
+HV_RIPPLE = (0.05, 0.8)  # amplitude and delay (us) of the bandpass ripple on the unfiltered copy
+HV_EDGE = 8  # band-edge channels the ripple check leaves out (the window is rank deficient there)
+HV_SEED = 22
+N_HV_COLS = 16  # (ew, ra) columns of the per-column checks
+HV_CORR = 0.8
+HV_RESID = 0.3
+HV_TOL_VARIANTS = 1e-6
+HV_TOL_COV = 1e-10
+HV_MAP_FALL = 1e-4
+FILT_PROBES: dict = {}  # what phase 20's source tasks keep for the host checks
 
 LSD = 8000
 CHAIN_SAMPLES_PER_DAY = 8640
@@ -1449,6 +1553,20 @@ def _mmodes_of(tel, sstream):
     return task.process(sstream)
 
 
+def _freq_subset(ss, fsel: slice):
+    """A copy of the sidereal stream ``ss`` at its frequencies ``fsel``."""
+    from draco_tpu_torch.core import containers
+
+    out = containers.empty_like(ss, freq=np.asarray(ss.index_map["freq"])[fsel])
+    for name in out.datasets:
+        ds = ss.datasets[name]
+        sel = [slice(None)] * len(ds.axes)
+        if "freq" in ds.axes:
+            sel[ds.axes.index("freq")] = fsel
+        out.datasets[name][:] = ds[:][tuple(sel)]
+    return out
+
+
 def _power(x) -> float:
     return float((x.abs().double() ** 2).sum())
 
@@ -1582,13 +1700,16 @@ def run_analyze(device):
 
 
 def kl_product_config(directory: str) -> dict:
-    """Phase 15's product config: the cylinder of phase 14, a KLTransform, a DoubleKL and a PS estimator."""
+    """Phase 15's product config: the cylinder of phase 14 at its frequencies ``KL_FREQS``, a KLTransform, a
+    DoubleKL and a PS estimator."""
     return {
         "config": {"output_directory": directory},
         "telescope": {
-            "type": "UnpolarisedCylinder", "num_cylinders": 2, "num_feeds": 64, "num_freq": ANALYSIS_NFREQ,
-            "auto_correlations": True, "force_lmax": 3 * NSIDE - 1, "force_mmax": 3 * NSIDE - 1,
-            "freq_lower": 400.0, "freq_upper": 500.0, **CHIME,
+            "type": "UnpolarisedCylinder", "num_cylinders": 2, "num_feeds": 64,
+            "num_freq": KL_FREQS.stop - KL_FREQS.start, "auto_correlations": True,
+            "force_lmax": 3 * NSIDE - 1, "force_mmax": 3 * NSIDE - 1,
+            "freq_lower": 400.0 + KL_FREQS.start * 100.0 / ANALYSIS_NFREQ,
+            "freq_upper": 400.0 + KL_FREQS.stop * 100.0 / ANALYSIS_NFREQ, **CHIME,
         },
         "beamtransfer": {"nside": NSIDE},
         "kltransform": [
@@ -1652,10 +1773,11 @@ def run_kl_path(device, bt) -> None:
         path.write_text(yaml.safe_dump(kl_product_config(directory)))
         pm = ProductManager.from_config(str(path))
     tel = pm.telescope
-    if not (np.array_equal(tel.uniquepairs, bt.telescope.uniquepairs) and np.array_equal(tel.frequencies, bt.telescope.frequencies)):
-        raise RuntimeError("the product config's telescope is not phase 14's")
+    if not (np.array_equal(tel.uniquepairs, bt.telescope.uniquepairs)
+            and np.array_equal(tel.frequencies, bt.telescope.frequencies[KL_FREQS])):
+        raise RuntimeError("the product config's telescope is not phase 14's at its frequencies KL_FREQS")
     # the beam transfer matrices phase 14 generated (the same telescope): not generated twice
-    pm.beamtransfer._bp, pm.beamtransfer._bm = bt._bp, bt._bm
+    pm.beamtransfer._bp, pm.beamtransfer._bm = bt._bp[KL_FREQS], bt._bm[KL_FREQS]
     pm.generate()
     M = tel.mmax + 1
     torch.cuda.reset_peak_memory_stats(device)
@@ -1669,7 +1791,7 @@ def run_kl_path(device, bt) -> None:
 
     timed("beam SVD", pm.beamtransfer._ensure_svd)
     n = tel.nfreq * pm.beamtransfer.svd_len()
-    mmodes = {name: _mmodes_of(tel, ANALYSIS[name]) for name in ("total", "foreground", "signal")}
+    mmodes = {name: _mmodes_of(tel, _freq_subset(ANALYSIS[name], KL_FREQS)) for name in ("total", "foreground", "signal")}
     svd = timed("SVDModeProject x3", lambda: {
         name: run(SVDModeProject(), {"mode": "forward"}, (pm,), mm) for name, mm in mmodes.items()})
     for name, c in svd.items():
@@ -1793,7 +1915,8 @@ def _seed(*key) -> int:
     return int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0])
 
 
-def delay_stream(tel, prods, nra: int, device, noise_seed: int = 0, parts=("fg", "signal", "noise")):
+def delay_stream(tel, prods, nra: int, device, noise_seed: int = 0, parts=("fg", "signal", "noise"),
+                 flag_ra=DELAY_FLAG_RA):
     """A ``SiderealStream`` of the telescope's products ``prods`` [nfreq, len(prods), nra].
 
     Each product is made from its own seeds alone (so any subset is the same
@@ -1801,8 +1924,8 @@ def delay_stream(tel, prods, nra: int, device, noise_seed: int = 0, parts=("fg",
     horizon cut, with amplitudes that vary smoothly over RA, at
     ``DELAY_FG_POWER`` x the signal's power; a white complex signal of
     variance ``DELAY_SIGNAL_VAR``; noise of variance ``DELAY_NOISE_VAR``
-    (draw ``noise_seed``).  Every product has the flagged channels and RA
-    samples at weight 0, with ``DELAY_RFI`` added to their data.
+    (draw ``noise_seed``).  Every product has the flagged channels and the
+    RA samples ``flag_ra`` at weight 0, with ``DELAY_RFI`` added to their data.
     """
     import torch
 
@@ -1815,31 +1938,44 @@ def delay_stream(tel, prods, nra: int, device, noise_seed: int = 0, parts=("fg",
     w = ss.weight[:]
     w.fill_(1.0 / DELAY_NOISE_VAR)
     w[list(DELAY_FLAG_CHANNELS)] = 0.0
-    w[:, :, list(DELAY_FLAG_RA)] = 0.0
+    w[:, :, list(flag_ra)] = 0.0
     nu = torch.as_tensor(tel.frequencies, dtype=torch.float64, device=device)
     turns = torch.arange(nra, dtype=torch.float64, device=device) / nra
     cuts = delay_cuts(tel, pairs)
     gen = torch.Generator(device=device)
     vis = ss.vis[:]
-    for j, p in enumerate(np.asarray(prods)):
-        v = torch.zeros((tel.nfreq, nra), dtype=torch.complex64, device=device)
-        if "fg" in parts:
+    prods = np.asarray(prods)
+    if "fg" in parts:
+        # each product's foreground parameters from its own seed, on the host
+        tau = np.empty((len(prods), DELAY_FG_MODES))
+        amp = np.empty((len(prods), DELAY_FG_MODES), np.complex128)
+        phi = np.empty((len(prods), DELAY_FG_MODES))
+        for j, p in enumerate(prods):
             rng = np.random.Generator(np.random.SFC64(_seed(DELAY_SEED, int(p), 0)))
-            tau = torch.as_tensor(rng.uniform(-0.8, 0.8, DELAY_FG_MODES) * cuts[j], device=device)
-            amp = (rng.standard_normal(DELAY_FG_MODES) + 1j * rng.standard_normal(DELAY_FG_MODES)) * np.sqrt(
+            tau[j] = rng.uniform(-0.8, 0.8, DELAY_FG_MODES) * cuts[j]
+            amp[j] = (rng.standard_normal(DELAY_FG_MODES) + 1j * rng.standard_normal(DELAY_FG_MODES)) * np.sqrt(
                 DELAY_FG_POWER * DELAY_SIGNAL_VAR / (2 * DELAY_FG_MODES))
-            phi = torch.as_tensor(rng.uniform(0, 2 * np.pi, DELAY_FG_MODES), device=device)
-            ramp = torch.as_tensor(amp, device=device)[:, None] * (1 + 0.5 * torch.cos(2 * np.pi * turns[None] + phi[:, None]))
-            v += (torch.exp(2j * np.pi * nu[:, None] * tau[None]) @ ramp).to(v.dtype)
-        for part, var, seed in (("signal", DELAY_SIGNAL_VAR, _seed(DELAY_SEED, int(p), 1)),
-                                ("noise", DELAY_NOISE_VAR, _seed(DELAY_SEED, int(p), 2, noise_seed))):
-            if part in parts:
-                gen.manual_seed(seed)
-                v += np.sqrt(var / 2) * torch.view_as_complex(
-                    torch.randn((tel.nfreq, nra, 2), generator=gen, device=device))
-        vis[:, j] = v
+            phi[j] = rng.uniform(0, 2 * np.pi, DELAY_FG_MODES)
+    step = max(1, (1 << 26) // (tel.nfreq * nra))
+    for b0 in range(0, len(prods), step):
+        b1 = min(b0 + step, len(prods))
+        if "fg" in parts:
+            ta, am, ph = (torch.as_tensor(x[b0:b1], device=device) for x in (tau, amp, phi))
+            ramp = am[:, :, None] * (1 + 0.5 * torch.cos(2 * np.pi * turns[None, None] + ph[:, :, None]))
+            vis[:, b0:b1] = torch.einsum("fbk,bkt->fbt", torch.exp(2j * np.pi * nu[:, None, None] * ta[None]),
+                                         ramp).to(vis.dtype)
+        blk = torch.zeros((b1 - b0, tel.nfreq, nra), dtype=vis.dtype, device=device)
+        for j, p in enumerate(prods[b0:b1]):
+            for part, var, seed in (("signal", DELAY_SIGNAL_VAR, _seed(DELAY_SEED, int(p), 1)),
+                                    ("noise", DELAY_NOISE_VAR, _seed(DELAY_SEED, int(p), 2, noise_seed))):
+                if part in parts:
+                    gen.manual_seed(seed)
+                    blk[j] += np.sqrt(var / 2) * torch.view_as_complex(
+                        torch.randn((tel.nfreq, nra, 2), generator=gen, device=device))
+        vis[:, b0:b1] += blk.transpose(0, 1)
+        del blk
     vis[list(DELAY_FLAG_CHANNELS)] += DELAY_RFI
-    vis[:, :, list(DELAY_FLAG_RA)] += DELAY_RFI
+    vis[:, :, list(flag_ra)] += DELAY_RFI
     return ss
 
 
@@ -2163,13 +2299,13 @@ def run_delay(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = DELAY_NFREQ,
         raise RuntimeError(f"phase 16 (delay path) failed: {', '.join(failures)}")
 
 
-def ring_telescope(ncyl: int = 4, nfeed: int = 256, nfreq: int = RING_NFREQ):
-    """Phase 17's telescope: phase 7's dual-pol CHIME cylinder at ``nfreq`` channels of 390.625 kHz from 600 MHz."""
+def ring_telescope(ncyl: int = 4, nfeed: int = 256, nfreq: int = RING_NFREQ, f0: float = RING_F0):
+    """Phase 17's telescope: phase 7's dual-pol CHIME cylinder at ``nfreq`` channels of 390.625 kHz from ``f0`` MHz."""
     from draco_tpu_torch.telescope import PolarisedCylinderTelescope
 
     return PolarisedCylinderTelescope(
-        num_cylinders=ncyl, num_feeds=nfeed, num_freq=nfreq, freq_lower=RING_F0,
-        freq_upper=RING_F0 + nfreq * RING_DF, auto_correlations=True, **CHIME,
+        num_cylinders=ncyl, num_feeds=nfeed, num_freq=nfreq, freq_lower=f0,
+        freq_upper=f0 + nfreq * RING_DF, auto_correlations=True, **CHIME,
     )
 
 
@@ -2231,21 +2367,26 @@ def ring_stream(tel, nra: int, npix: int, device, tone: bool = False):
     gen = torch.Generator(device=device)
     gen.manual_seed(RING_SEED)
     vis = ss.vis[:]
-    for fi, f in enumerate(tel.frequencies):
-        nu = f * 1e6 / C_LIGHT
-        acc = torch.zeros((len(pairs), nra), dtype=torch.complex128, device=device)
+    freqs = np.asarray(tel.frequencies)
+    step = max(1, (1 << 25) // (len(pairs) * nra))  # channels at a time
+    for f0 in range(0, len(freqs), step):
+        f = freqs[f0 : f0 + step]
+        nu = torch.as_tensor(f * 1e6 / C_LIGHT, device=device)[:, None, None]
+        acc = torch.zeros((len(f), len(pairs), nra), dtype=torch.complex128, device=device)
         for k, (r0, e0, _) in enumerate(ring_sources(nra, npix)):
             dec = np.arcsin(el[e0]) + np.radians(tel.latitude)
-            sa, sb = (prefactor[:, i] / (f * np.cos(dec)) for i in (0, 1))
-            sigma = sa * sb / np.hypot(sa, sb)  # [pol]
+            sa, sb = (prefactor[None, :, i] / (f[:, None] * np.cos(dec)) for i in (0, 1))
+            sigma = sa * sb / np.hypot(sa, sb)  # [freq, pol]
             dphi = phi - phi[r0]
-            env = np.exp(-0.5 * (2 * np.tan(dphi / 2)) ** 2 / sigma[:, None] ** 2)  # [pol, ra]
-            ew = torch.as_tensor(-2 * np.pi * nu * np.cos(dec) * np.sin(dphi), device=device)[None] * xpos
-            arg = ew + 2 * np.pi * nu * el[e0] * ypos
-            amp = ring_flux(k, tel.frequencies, tone)[fi]
-            acc += amp * torch.as_tensor(env, device=device)[pidx_t] * torch.polar(torch.ones_like(arg), arg)
-        noise = torch.randn((len(pairs), nra, 2), generator=gen, device=device, dtype=torch.float64)
-        vis[fi] = acc + np.sqrt(0.5) * torch.view_as_complex(noise)
+            env = np.exp(-0.5 * (2 * np.tan(dphi / 2)) ** 2 / sigma[:, :, None] ** 2)  # [freq, pol, ra]
+            ew = (-2 * np.pi * nu * np.cos(dec)) * torch.as_tensor(np.sin(dphi), device=device)[None, None] * xpos[None]
+            arg = ew + 2 * np.pi * nu * el[e0] * ypos[None]
+            amp = torch.as_tensor(ring_flux(k, freqs, tone)[f0 : f0 + step], device=device)[:, None, None]
+            acc += amp * torch.as_tensor(env, device=device)[:, pidx_t] * torch.polar(torch.ones_like(arg), arg)
+        for j in range(len(f)):
+            noise = torch.randn((len(pairs), nra, 2), generator=gen, device=device, dtype=torch.float64)
+            vis[f0 + j] = acc[j] + np.sqrt(0.5) * torch.view_as_complex(noise)
+        del acc
     w = ss.weight[:]
     w.fill_(1.0)
     for fi, ri in ring_flags(tel.nfreq, nra):
@@ -3969,6 +4110,796 @@ def flag_checks_a(products, tel, device, ntime: int, nfreq: int, ncheck: int, ns
     FLAG_PROBES["sens_progs"] = {"sensitivity.measured_noise (all channels)": _sync_clock(dev) - t0}
 
 
+def filt_flag_ra(nra: int):
+    """Phase 16's flagged RA samples, moved onto a grid of ``nra`` samples."""
+    return tuple(sorted({r * nra // DELAY_NRA for r in DELAY_FLAG_RA}))
+
+
+def filt_tone_products(tel):
+    """The stacks whose baseline vector is the Stokes-I baseline nearest ``FILT_TONE``'s, and that baseline's
+    index among ``stokes_I_index``'s unique baselines."""
+    from draco_tpu_torch.analysis.transform import stokes_I_index
+
+    _, _, ubase = stokes_I_index(tel)
+    b = int(np.argmin(np.abs(ubase - np.asarray(FILT_TONE[0])).sum(axis=1)))
+    bl = tel.baselines
+    return np.flatnonzero(np.abs(bl - ubase[b]).sum(axis=1) < 1e-4), b
+
+
+def filt_tone(tel, nra: int, device):
+    """The tone [nfreq, nra] added to the tone's stacks: ``FILT_TONE``'s delay with a complex Gaussian
+    amplitude that changes from one RA sample to the next (the wavelet spectrum is a variance over RA)."""
+    import torch
+
+    rng = np.random.Generator(np.random.SFC64(FILT_SEED))
+    amp = (rng.standard_normal(nra) + 1j * rng.standard_normal(nra)) * FILT_TONE[2] / np.sqrt(2)
+    nu = torch.as_tensor(tel.frequencies, dtype=torch.float64, device=device)
+    ph = torch.polar(torch.ones_like(nu), 2 * np.pi * FILT_TONE[1] * nu)
+    return (ph[:, None] * torch.as_tensor(amp, device=device)[None]).to(torch.complex64)
+
+
+def mf_flags(nfreq: int, nra: int):
+    return [(f * nfreq // 16, r * nra // MF_NRA) for f, r in MF_FLAGS]
+
+
+def mf_components(tel, prods, nra: int, device):
+    """20b's passed and rejected components [nfreq, len(prods), nra] (complex64, phases in float64) and each
+    row's EW separation.
+
+    Intracylinder rows: tones at ``MF_INTRA_M``; intercylinder rows: the
+    fringe of a source at ``MF_DEC`` at transit (``DayenuMFilter``'s mixing
+    frequency) and a tone ``MF_INTER_OFFSET`` above it.  Every component has
+    the Gaussian envelope of a source transiting at RA 180 (``MF_ENVELOPE``
+    degrees), so that it is band-limited within the RA span: the filter
+    does not wrap in RA, and a component cut off at the span's ends has a
+    spread of m that reaches the other band.
+    """
+    import torch
+
+    from draco_tpu_torch.analysis.dayenu import C_LIGHT
+    from draco_tpu_torch.ops.dayenu import instantaneous_m
+
+    pairs = np.asarray(tel.uniquepairs)[prods]
+    pos = tel.feedpositions
+    spacing = tel.cylinder_spacing
+    ub = np.round((pos[pairs[:, 0], 0] - pos[pairs[:, 1], 0]) / spacing) * spacing
+    intra = np.abs(ub) < 0.5 * spacing
+    phi = torch.as_tensor(np.radians(np.linspace(0.0, 360.0, nra, endpoint=False)), device=device)
+    env = torch.exp(-0.5 * ((phi - np.pi) / np.radians(MF_ENVELOPE)) ** 2)
+    P = torch.zeros((tel.nfreq, len(prods), nra), dtype=torch.complex64, device=device)
+    O = torch.zeros_like(P)
+    for f, nu in enumerate(tel.frequencies):
+        mc = instantaneous_m(0.0, np.radians(tel.latitude), np.radians(MF_DEC), ub / (C_LIGHT / (nu * 1e6)), 0.0)
+        mp = torch.as_tensor(np.where(intra, MF_INTRA_M[0], mc), device=device)[:, None]
+        mo = torch.as_tensor(np.where(intra, MF_INTRA_M[1], mc + MF_INTER_OFFSET), device=device)[:, None]
+        P[f] = MF_AMP * env * torch.polar(torch.ones_like(mp * phi), mp * phi)
+        O[f] = MF_AMP * env * torch.polar(torch.ones_like(mo * phi), mo * phi)
+    return P, O, ub
+
+
+def mf_stream(tel, nra: int, device, parts=("pass", "reject", "noise")):
+    """20b's stream of every unique pair [nfreq, npairs, nra]: the passed and rejected components of
+    :func:`mf_components` and unit noise (as ``parts`` names), weights of the noise, the ``MF_FLAGS`` cells at
+    weight 0 with ``MF_RFI`` added.  Returns (stream, passed component, each row's EW separation)."""
+    import torch
+
+    from draco_tpu_torch.core import containers
+
+    pairs = np.asarray(tel.uniquepairs)
+    prod = np.empty(len(pairs), dtype=[("input_a", int), ("input_b", int)])
+    prod["input_a"], prod["input_b"] = pairs.T
+    ss = containers.SiderealStream(freq=tel.frequencies, ra=nra, input=tel.nfeed, prod=prod, device=device)
+    P, O, ub = mf_components(tel, np.arange(len(pairs)), nra, device)
+    vis = ss.vis[:]
+    if "pass" in parts:
+        vis += P
+    if "reject" in parts:
+        vis += O
+    del O
+    if "noise" in parts:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(FILT_SEED + 1)
+        for f in range(vis.shape[0]):
+            vis[f] += np.sqrt(MF_NOISE_VAR / 2) * torch.view_as_complex(
+                torch.randn((*vis.shape[1:], 2), generator=gen, device=device))
+    w = ss.weight[:]
+    w.fill_(1.0 / MF_NOISE_VAR)
+    for f, r in mf_flags(tel.nfreq, nra):
+        w[f, :, r] = 0.0
+        vis[f, :, r] += MF_RFI
+    return ss, P, ub
+
+
+def filter_tasks() -> dict:
+    """Define phase 20's source and probe tasks in this module; return their paths."""
+    import torch
+
+    from draco_tpu_torch.core import config, containers, io
+    from draco_tpu_torch.core.task import ContainerTask, PipelineStopIteration
+    from draco_tpu_torch.device import resolve
+
+    class EmitFilterStream(ContainerTask):
+        """20a: phase 16's stream at ``nra`` samples, with the wavelet check's delay tone."""
+
+        nra = config.int_prop(FILT_NRA)
+
+        def setup(self, tel):
+            self.tel = io.get_telescope(tel)
+
+        def process(self):
+            if self._count:
+                raise PipelineStopIteration()
+            ss = delay_stream(self.tel, np.arange(self.tel.npairs), self.nra, resolve(),
+                              flag_ra=filt_flag_ra(self.nra))
+            prods, _ = filt_tone_products(self.tel)
+            tone = filt_tone(self.tel, self.nra, resolve())
+            ok = ss.weight[:][:, 0] > 0  # the flagged cells keep their interference only
+            for p in prods:
+                ss.vis[:][:, p] += torch.where(ok, tone, 0)
+            ss.attrs["tag"] = "filters"
+            return ss
+
+    class EmitMStream(ContainerTask):
+        """20b: every unique pair at ``nra`` RA samples (:func:`mf_stream`)."""
+
+        nra = config.int_prop(MF_NRA)
+
+        def setup(self, tel):
+            self.tel = io.get_telescope(tel)
+
+        def process(self):
+            if self._count:
+                raise PipelineStopIteration()
+            dev = resolve()
+            ss, P, ub = mf_stream(self.tel, self.nra, dev)
+            FILT_PROBES["mf_pass"] = P
+            intra = np.abs(ub) < 0.5 * self.tel.cylinder_spacing
+            rows = np.concatenate([np.flatnonzero(intra)[:N_MF_HOST], np.flatnonzero(~intra)[:N_MF_HOST]])
+            FILT_PROBES["mf_rows"] = rows
+            FILT_PROBES["mf_in_rows"] = ss.vis[:][:, torch.as_tensor(rows, device=dev)].clone()
+            ss.attrs["tag"] = "mfilter"
+            return ss
+
+    class ForkHybrid(ContainerTask):
+        """20c: from the hybrid stream, a copy with the bandpass ripple, a second one for the pre-filtered
+        estimators, a signal-only copy (unit complex noise, the same weights) and an empty pixel mask."""
+
+        def process(self, hv):
+            dev = hv.vis[:].device
+            f = np.asarray(hv.freq)
+            g = torch.as_tensor(1.0 + HV_RIPPLE[0] * np.cos(2 * np.pi * HV_RIPPLE[1] * f), device=dev)
+            rip = hv.copy()
+            rip.vis[:] *= g.to(torch.complex64)[None, :, None, None, None]
+            pre = rip.copy()
+            sig = hv.copy()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(HV_SEED)
+            for p in range(sig.vis.shape[0]):
+                sig.vis[:][p] = torch.view_as_complex(torch.randn((*sig.vis.shape[1:], 2), generator=gen, device=dev))
+            mask = containers.RingMapMask(freq=f, pol=np.asarray(hv.index_map["pol"]), ra=np.asarray(hv.ra),
+                                          el=np.asarray(hv.index_map["el"]), device=dev)
+            mask.mask[:] = np.zeros(mask.mask.shape, bool)
+            x, t = FILT_PROBES["hv_cols"]
+            FILT_PROBES["hv_w0"] = hv.weight[:][:, :, x, t].clone()  # [pol, freq, col]
+            FILT_PROBES["sig_in"] = torch.stack([sig.vis[:][:, :, xi, :, ti] for xi, ti in zip(x, t)], dim=1)
+            FILT_PROBES["g_true"] = g.cpu().numpy() - 1.0
+            return rip, pre, sig, mask
+
+    class FilterProbe(ContainerTask):
+        """Keep what the host checks need of the container under ``key``: ``keep`` the container itself (passed
+        on), ``copy`` a copy of it (the container passed on), or, as the last task of a branch (nothing passed
+        on), ``columns`` the vis of the 20c check's (ew, ra) columns [pol, col, freq, el] or ``finite`` whether
+        the vis is finite and its shape."""
+
+        key = config.str_prop("x")
+        mode = config.enum(["keep", "copy", "columns", "finite"], default="keep")
+
+        def process(self, data):
+            if self.mode in ("keep", "copy"):
+                FILT_PROBES[self.key] = data.copy() if self.mode == "copy" else data
+                return data
+            if self.mode == "columns":
+                x, t = FILT_PROBES["hv_cols"]
+                FILT_PROBES[self.key] = torch.stack([data.vis[:][:, :, xi, :, ti] for xi, ti in zip(x, t)], dim=1)
+            else:
+                FILT_PROBES[self.key] = (bool(torch.isfinite(torch.view_as_real(data.vis[:])).all()),
+                                         tuple(data.vis.shape))
+            return None
+
+    paths = {}
+    for cls in (EmitFilterStream, EmitMStream, ForkHybrid, FilterProbe):
+        globals()[cls.__name__] = cls
+        paths[cls.__name__] = f"{__name__}.{cls.__name__}"
+    return paths
+
+
+def filter_config_a(product_dir: str, paths: dict, nra: int) -> dict:
+    """20a: the DAYENU delay filter -> Stokes I -> delay and wavelet spectra, beside the DPSS inpainting and
+    the fixed-cutoff chi-squared; the non-destructive tasks come first (the DAYENU filter works in place)."""
+    an = "draco.analysis."
+    dpss = {"centres": [0.0], "halfwidths": [FILT_TAUW]}
+    return {"pipeline": {"retain_products": "all", "tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "bt"], "params": {"product_directory": product_dir}},
+        {"type": paths["EmitFilterStream"], "requires": "tel", "out": "sstream", "params": {"nra": nra}},
+        {"type": an + "dayenu.DayenuDelayFilterFixedCutoff", "in": "sstream", "out": "chi2",
+         "params": {"single_mask": False, "reduce_baseline": True}},
+        {"type": an + "interpolate.DPSSFilterDelay", "requires": "tel", "in": "sstream", "out": "inp", "params": dpss},
+        {"type": an + "transform.StokesIVis", "requires": "tel", "in": "inp", "out": "inpI"},
+        {"type": an + "interpolate.DPSSFilterDelayStokesI", "requires": "tel", "in": "inpI", "out": "inpI2",
+         "params": dpss},
+        {"type": an + "dayenu.DayenuDelayFilter", "requires": "tel", "in": "sstream", "out": "sfilt",
+         "params": {"tauw": FILT_TAUW, "single_mask": False}},
+        {"type": an + "transform.StokesIVis", "requires": "tel", "in": "sfilt", "out": "sI"},
+        {"type": an + "delay.DelaySpectrumFFT", "in": "sI", "out": "dtrans",
+         "params": {"complex_timedomain": True, "freq_frac": -1.0}},
+        {"type": an + "delay.DelaySpectrumToPowerSpectrum", "in": "dtrans", "out": "dspec"},
+        {"type": an + "wavelet.WaveletSpectrumEstimator", "in": ["sI", "dspec"], "out": "wspec",
+         "params": {"average_axis": "ra", "ndelay": FILT_NDELAY}},
+    ]}}
+
+
+def filter_config_b(product_dir: str, paths: dict, nra: int) -> dict:
+    """20b: the m-mode DAYENU filter -> DPSS inpainting over RA."""
+    an = "draco.analysis."
+    return {"pipeline": {"retain_products": "all", "tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "bt"], "params": {"product_directory": product_dir}},
+        {"type": paths["EmitMStream"], "requires": "tel", "out": "mstream", "params": {"nra": nra}},
+        {"type": an + "dayenu.DayenuMFilter", "requires": "tel", "in": "mstream", "out": "mfilt"},
+        {"type": an + "interpolate.DPSSFilterMMode", "requires": "tel", "in": "mfilt", "out": "minp",
+         "params": {"centres": [0.0], "halfwidths": [MF_HALFWIDTH]}},
+    ]}}
+
+
+def filter_config_c(product_dir: str, source: str, paths: dict, nra: int, npix: int) -> dict:
+    """20c: hybrid visibilities -> the DAYENU hybrid filter -> HyFoReS (all five estimators) -> Clean, the
+    saved filter applied to a signal-only copy, and the ring map's delay filter."""
+    rmm, an = "draco.analysis.ringmapmaker.", "draco.analysis."
+    hf = an + "hyforesbandpass."
+    probe = paths["FilterProbe"]
+    return {"pipeline": {"retain_products": "final", "tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "btm"], "params": {"product_directory": product_dir}},
+        {"type": source, "requires": "tel", "out": "sstream", "params": {"nra": nra, "npix": npix}},
+        {"type": rmm + "MakeVisGrid", "requires": "tel", "in": "sstream", "out": "grid"},
+        {"type": rmm + "BeamformNS", "in": "grid", "out": "hstream",
+         "params": {"npix": npix, "span": 1.0, "weight": "natural", "precision": 64}},
+        {"type": paths["ForkHybrid"], "in": "hstream", "out": ["hrip", "hpre", "hsig", "pmask"]},
+        {"type": rmm + "BeamformEW", "in": "hstream", "out": "rmap"},
+        {"type": probe, "in": "rmap", "out": "rmap_p", "params": {"key": "rmap_before", "mode": "copy"}},
+        {"type": an + "dayenu.DayenuDelayFilterMap", "in": "rmap_p", "out": "rmap_f"},
+        {"type": an + "dayenu.DayenuDelayFilterHybridVis", "in": "hstream", "out": "hfilt",
+         "params": {"save_filter": True, "calculate_cov": True}},
+        {"type": probe, "in": "hfilt", "out": "hfilt_p", "params": {"key": "hfilt"}},
+        {"type": an + "dayenu.DayenuDelayFilterHybridVis", "in": "hpre", "out": "hpf", "params": {"save_filter": True}},
+        {"type": hf + "DelayFilterHyFoReSBandpassHybridVis", "requires": "tel", "in": ["hrip", "hfilt_p"], "out": "bp"},
+        {"type": hf + "HyFoReSBandpassHybridVis", "requires": "tel", "in": ["hrip", "hpf"], "out": "bp_pre"},
+        {"type": hf + "HyFoReSBandpassHybridVisMask", "requires": "tel", "in": ["hrip", "hpf", "pmask"],
+         "out": "bp_mask"},
+        {"type": hf + "HyFoReSBandpassHybridVisMaskKeepSource", "requires": "tel",
+         "in": ["hrip", "hpf", "pmask", "pmask"], "out": "bp_keep"},
+        {"type": an + "dayenu.ApplyDelayFilterHybridVis", "in": ["hsig", "hfilt_p"], "out": "hsig_f"},
+        {"type": probe, "in": "hsig_f", "params": {"key": "hsig_cols", "mode": "columns"}},
+        {"type": hf + "DelayFilterHyFoReSBandpassHybridVisClean", "in": ["hrip", "hfilt_p", "bp"],
+         "out": ["hclean", "comp"], "params": {"cutoff": 1e-2}},
+        {"type": probe, "in": "hclean", "params": {"key": "hclean", "mode": "finite"}},
+    ]}}
+
+
+def _filter_run(label: str, cfg: dict, device):
+    """Run one of phase 20's configs through the Manager; print its per-task seconds, wall time and peak
+    device memory; return (products, wall seconds)."""
+    import gc
+
+    import torch
+
+    from draco_tpu_torch.core.pipeline import Manager
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    manager = Manager(cfg)
+    t0 = _sync_clock(device)
+    products = manager.run()
+    wall = _sync_clock(device) - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else float("nan")
+    timing = {}
+    for name, t in manager.task_timing.items():
+        key = name.split(".")[-1]
+        while key in timing:
+            key += "'"
+        timing[key] = round(t["wall"], 4)
+    log(f"phase {label} Manager run: {wall:.2f} s wall, peak device memory {peak:.2f} GiB")
+    log(f"phase {label} task_timing (s): " + json.dumps(timing))
+    return products, wall
+
+
+def _bound(flops: float, nbytes: float, kind: str):
+    """(least seconds, what bounds it) of work of ``flops`` in ``kind`` moving ``nbytes``."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[kind], nbytes / HBM_BYTES_PER_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _time_prog(progs: dict, device, name: str, fn, flops: float, nbytes: float, kind: str):
+    """Time ``fn`` once, synchronised, beside its bound; record it under ``name``."""
+    t0 = _sync_clock(device)
+    fn()
+    s = _sync_clock(device) - t0
+    b, by = _bound(flops, nbytes, kind)
+    progs[name] = {"s": round(s, 5), "bound_s": float(f"{b:.4g}"), "bound_by": by}
+
+
+def host_dayenu(freq, cut: float, mask, eps: float) -> np.ndarray:
+    """The DAYENU high-pass filter in float64 numpy: ``numpy.linalg.pinv`` of the masked covariance."""
+    df = freq[:, None] - freq[None, :]
+    m2 = np.outer(mask, mask).astype(np.float64)
+    cov = (np.eye(freq.size) + np.sinc(2.0 * cut * df) / eps) * m2
+    return np.linalg.pinv(cov, hermitian=True) * m2
+
+
+def host_dayenu_apply(freq, cut: float, x, w, eps: float, cache: dict) -> np.ndarray:
+    """DayenuDelayFilter (single_mask false) on one product's [nfreq, nra] data in float64: a filter for each
+    unique column mask (kept in ``cache`` by cut and mask)."""
+    out = np.zeros_like(x, dtype=np.complex128)
+    flag = w > 0
+    masks, inv = np.unique(flag.T, axis=0, return_inverse=True)
+    for k, m in enumerate(masks):
+        cols = np.flatnonzero(inv.reshape(-1) == k)
+        key = (round(float(cut), 6), m.tobytes())
+        if key not in cache:
+            cache[key] = host_dayenu(freq, cut, m, eps)
+        out[:, cols] = cache[key] @ x[:, cols]
+    return out
+
+
+def host_dpss_basis(samples, cut: float) -> np.ndarray:
+    """The DPSS basis in float64 numpy: the top-hat covariance's eigenvectors above 1e-12 of the largest."""
+    ds = samples[:, None] - samples[None, :]
+    w, v = np.linalg.eigh(np.sinc(2.0 * cut * ds))
+    keep = w > 1e-12 * w.max()
+    return v[:, keep]
+
+
+def host_dpss_filter(x, Ni, W, A, Si: float) -> np.ndarray:
+    """DPSSFilter's solve of one row in float64 (mean-subtract, Wiener solve in the basis, re-add)."""
+    xhat = (x * W).sum() / max(W.sum(), 1)
+    K = (A.T * Ni) @ A
+    b = np.linalg.solve(K + Si * np.eye(A.shape[1]), A.T @ (Ni * (x - xhat)))
+    return A @ b + xhat
+
+
+def host_wavelet(d, Ni, D, F, scales) -> np.ndarray:
+    """WaveletSpectrumEstimator of one baseline in float64 numpy: the Wiener in-fill, the analytic-Morlet CWT
+    and the variance over the averaging axis.  d [ntime, nfreq]; returns [nscale, nfreq]."""
+    Df = (F * D[None]) @ F.conj().T
+    Ci = np.linalg.inv(Df) + np.diag(Ni)
+    x = np.linalg.solve(Ci, Ni[:, None] * d.T).T
+    n = x.shape[-1]
+    w = 2.0 * np.pi * np.fft.fftfreq(n)
+    sw = scales[:, None] * w[None]
+    bank = np.sqrt(2.0 * np.pi * scales)[:, None] * (np.pi**-0.25) * np.exp(-0.5 * (sw - 5.0) ** 2) * (sw > 0)
+    W = np.fft.ifft(np.fft.fft(x, axis=-1)[None] * bank[:, None], axis=-1)
+    return np.mean(np.abs(W - W.mean(axis=1, keepdims=True)) ** 2, axis=1)
+
+
+def run_filters(device, ncyl: int = 4, nfeed: int = 256, nfreq_a: int = DELAY_NFREQ, nra_a: int = FILT_NRA,
+                nfreq_b: int = MF_NFREQ, nra_b: int = MF_NRA, nfreq_c: int = HV_NFREQ, nra_c: int = HV_NRA,
+                npix: int = HV_NPIX) -> None:
+    """Phase 20: the DAYENU, DPSS, wavelet and HyFoReS filter path through the Manager.
+
+    The sizes default to the phase's; smaller ones make it a rehearsal on
+    the CPU.
+    """
+    import gc
+    import logging
+    import pickle
+    import tempfile
+
+    import torch
+
+    from draco_tpu_torch.analysis import dayenu as tdayenu
+    from draco_tpu_torch.analysis import hyforesbandpass as thf
+    from draco_tpu_torch.analysis.dayenu import C_LIGHT
+    from draco_tpu_torch.analysis.wavelet import wiener_infill
+    from draco_tpu_torch.ops import dayenu as dops
+    from draco_tpu_torch.ops import dpss as dpss_ops
+    from draco_tpu_torch.ops import wavelet as wops
+    from draco_tpu_torch.ops.tools import invert_no_zero
+
+    failures = []
+    progs = {}
+    seconds = {}
+
+    def check(label, value, ok):
+        log(f"  {label}: {value}  [{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            failures.append(label)
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    paths = filter_tasks()
+    FILT_PROBES.clear()
+    GB = 1e9
+    with tempfile.TemporaryDirectory() as product_dir:
+
+        def save(tel):
+            # the unique-pair tables first (a Python loop over every feed pair: ~14 s at 2048 feeds), so that
+            # the Manager's unpickled copy and this function's checks share one computation
+            tel.uniquepairs
+            with open(Path(product_dir) / "telescope.pkl", "wb") as f:
+                pickle.dump(tel, f)
+
+        # ---- 20a: the delay axis -------------------------------------------------
+        t_sub = time.perf_counter()
+        tel = delay_telescope(ncyl, nfeed, nfreq_a)
+        save(tel)
+        nprod, freq = tel.npairs, tel.frequencies
+        log(f"20a: {ncyl} x {nfeed} dual-pol feeds, {nprod} products x {nfreq_a} channels x {nra_a} RA samples "
+            f"(stream {12 * nprod * nfreq_a * nra_a / GB:.2f} GB), DAYENU tauw {FILT_TAUW} us, single_mask false")
+        products, wall = _filter_run("20a", filter_config_a(product_dir, paths, nra_a), device)
+        sfilt = products["sfilt"][0]
+        pos = tel.feedpositions
+        pairs = np.asarray(tel.uniquepairs)
+        ns = np.abs(pos[pairs[:, 0], 1] - pos[pairs[:, 1], 1])
+        cuts = 1e6 * ns / C_LIGHT + FILT_TAUW
+        ucut = np.unique(np.round(cuts, 6))
+        log(f"20a: {len(ucut)} distinct delay cuts ({ucut.min():.4f}-{ucut.max():.4f} us): the DAYENU filter "
+            "factorised one [nfreq, nfreq] float64 eigh per (cut, mask) group")
+        # the host checks' products: N_FILT_PER_CUT products at each of N_FILT_CUTS NS separations
+        useps = np.unique(ns)
+        pick = useps[np.linspace(0, len(useps) - 1, min(N_FILT_CUTS, len(useps))).astype(int)]
+        prods = np.concatenate([np.flatnonzero(ns == s)[:N_FILT_PER_CUT] for s in pick])
+        ref = delay_stream(tel, prods, nra_a, device, flag_ra=filt_flag_ra(nra_a))
+        tone_prods, tone_b = filt_tone_products(tel)
+        tone = filt_tone(tel, nra_a, device)
+        w_in = host(ref.weight[:])
+        tone_in = np.zeros(w_in.shape, np.complex128)
+        for j, p in enumerate(prods):
+            if p in set(tone_prods.tolist()):
+                tone_in[:, j] = np.where(w_in[:, j] > 0, host(tone), 0)
+        x_in = host(ref.vis[:]).astype(np.complex128) + tone_in
+        out = host(sfilt.vis[:][:, torch.as_tensor(prods, device=device)]).astype(np.complex128)
+        # the signal and noise (with the tone) alone: what the filter should keep beyond each cut
+        sn = delay_stream(tel, prods, nra_a, device, parts=("signal", "noise"), flag_ra=filt_flag_ra(nra_a))
+        sn_in = host(sn.vis[:]).astype(np.complex128) + tone_in
+        del sn
+        t0 = time.perf_counter()
+        errs, keep, cache = [], [], {}
+        tau = np.fft.fftfreq(nfreq_a, freq[1] - freq[0])
+        for j, p in enumerate(prods):
+            want = host_dayenu_apply(freq, cuts[p], x_in[:, j], w_in[:, j], 1e-12, cache)
+            errs.append(np.abs(out[:, j] - want).max() / np.abs(want).max())
+            valid = (w_in[:, j] > 0).any(axis=0)
+            xin = np.where(w_in[:, j] > 0, sn_in[:, j], 0)[:, valid]
+            hi = np.abs(tau) > cuts[p] + 0.1
+            pin = (np.abs(np.fft.fft(xin, axis=0)[hi]) ** 2).sum()
+            pout = (np.abs(np.fft.fft(out[:, j][:, valid], axis=0)[hi]) ** 2).sum()
+            keep.append(pout / pin)
+        check(f"20a DAYENU output of {len(prods)} products at {len(pick)} NS separations vs host float64 numpy "
+              f"({time.perf_counter() - t0:.1f} s)", f"{max(errs):.3e} (limit {FILT_TOL_DAYENU}: epsilon 1e-12, "
+              "condition 1e12)", max(errs) <= FILT_TOL_DAYENU)
+        check("20a power at delays beyond each product's cut + 0.1 us, out / in (signal and noise)",
+              f"{min(keep):.4f}-{max(keep):.4f} "
+              f"(within {FILT_KEEP})", all(abs(k - 1) <= FILT_KEEP for k in keep))
+        mask0 = w_in[:, 0, 0] > 0
+        if not mask0.any():
+            mask0 = (w_in[:, 0] > 0).any(axis=1)
+        got = dops.highpass_delay_filter(freq, cuts[prods[0]], mask0[:, None], epsilon=1e-3, device=device)[0][0]
+        want = host_dayenu(freq, cuts[prods[0]], mask0, 1e-3)
+        xv = x_in[:, 0, :]
+        e3 = np.abs(host(got) @ xv - want @ xv).max() / np.abs(want @ xv).max()
+        check("20a the card's float64 pseudo-inverse at epsilon 1e-3 applied to a product vs host float64",
+              f"{e3:.3e} (limit {FILT_TOL_DAYENU_E3})", e3 <= FILT_TOL_DAYENU_E3)
+        # the foreground-only copy of the sampled products through the same task
+        fg = delay_stream(tel, prods, nra_a, device, parts=("fg",), flag_ra=filt_flag_ra(nra_a))
+        live = fg.weight[:] > 0
+        before = float((fg.vis[:].abs() ** 2 * live).sum())
+        task = tdayenu.DayenuDelayFilter()
+        task.read_config({"tauw": FILT_TAUW, "single_mask": False})
+        task.setup(tel)
+        task.process(fg)
+        after = float((fg.vis[:].abs() ** 2 * live).sum())
+        check("20a foreground-only copy: power through the filter / before", f"{after / before:.3e} "
+              f"(limit {FILT_FG_FALL})", after / before <= FILT_FG_FALL)
+        # the inpainted channels against the foreground there
+        inp = products["inp"][0]
+        fgv = host(delay_stream(tel, prods, nra_a, device, parts=("fg",), flag_ra=filt_flag_ra(nra_a)).vis[:])
+        gap = ~(w_in > 0) & (w_in > 0).any(axis=0, keepdims=True)  # flagged channels of live RA samples
+        ip = host(inp.vis[:][:, torch.as_tensor(prods, device=device)])
+        fgap = fgv[gap] - DELAY_RFI  # delay_stream adds the interference to the flagged cells of every copy
+        rel = np.sqrt(np.mean(np.abs(ip[gap] - fgap) ** 2) / np.mean(np.abs(fgap) ** 2))
+        check(f"20a DPSS-inpainted channels of {len(prods)} products vs their foreground, RMS / RMS",
+              f"{rel:.3e} (limit {FILT_TOL_INPAINT}; the white signal and noise are not inpainted)",
+              rel <= FILT_TOL_INPAINT)
+        # the DPSS solve against host float64 on N_FILT_DPSS products x every RA sample
+        t0 = time.perf_counter()
+        feedmap, baselines = tel.feedmap, tel.baselines
+        dcut = np.round(np.maximum(np.abs(baselines[feedmap[pairs[:, 0], pairs[:, 1]]][:, 1]) / C_LIGHT * 1e6,
+                                   FILT_TAUW), 3)
+        errs = []
+        for j in range(min(N_FILT_DPSS, len(prods))):
+            A = host_dpss_basis(freq, dcut[prods[j]])
+            for t in np.flatnonzero((w_in[:, j] > 0).any(axis=0)):
+                W = w_in[:, j, t] > 0
+                want = host_dpss_filter(x_in[:, j, t], w_in[:, j, t] * W, W, A, 1e-3)
+                errs.append(np.abs(ip[~W, j, t] - want[~W]).max() / np.abs(want[~W]).max())
+        check(f"20a DPSS solve on {len(errs)} rows vs host float64 ({time.perf_counter() - t0:.1f} s)",
+              f"{max(errs):.3e} (limit {FILT_TOL_DPSS})", max(errs) <= FILT_TOL_DPSS)
+        inpI2 = products["inpI2"][0]
+        chi2 = products["chi2"][0]
+        ok = (bool(torch.isfinite(torch.view_as_real(inpI2.vis[:])).all())
+              and bool(torch.isfinite(torch.view_as_real(chi2.vis[:])).all())
+              and tuple(chi2.vis.shape) == (nfreq_a, 1, nra_a))
+        check("20a DPSSFilterDelayStokesI and the fixed-cutoff chi^2 finite, chi^2 shape",
+              f"{tuple(inpI2.vis.shape)}, {tuple(chi2.vis.shape)}", ok)
+        # the wavelet spectrum against host float64 on N_FILT_WAVELET baselines, and the tone's peak
+        sI, dspec, wspec = products["sI"][0], products["dspec"][0], products["wspec"][0]
+        ws = host(wspec.spectrum[:])
+        delays = np.asarray(wspec.index_map["delay"])
+        fsl = slice(nfreq_a // 16, nfreq_a - nfreq_a // 16)
+        peak = delays[np.argmax(ws[tone_b][:, fsl].mean(axis=-1))]
+        check(f"20a wavelet spectrum of the tone's baseline peaks at its delay {FILT_TONE[1]} us", f"{peak:.3f} us",
+              abs(peak - FILT_TONE[1]) <= FILT_TONE_TOL * FILT_TONE[1])
+        t0 = time.perf_counter()
+        nbase = sI.vis.shape[1]
+        dlive = np.flatnonzero(host(dspec.spectrum[:]).max(axis=-1) > 0)  # baselines with data
+        bsel = np.unique(np.concatenate([[tone_b], dlive[np.linspace(0, len(dlive) - 1, N_FILT_WAVELET - 1)
+                                                         .astype(int)]]))
+        log(f"20a wavelet spectrum: {nbase} Stokes-I baselines, {wspec.attrs['infill_failed']} without delay "
+            "power (no data) given a zero spectrum")
+        df = abs(freq[1] - freq[0])
+        scales = wops.frequency2scale(np.arange(1, FILT_NDELAY + 1) / (2 * df * FILT_NDELAY) * df, wavelet="morl")
+        F = np.exp(-2.0j * np.pi * np.asarray(dspec.index_map["delay"])[None, :] * freq[:, None])
+        errs = []
+        for b in bsel:
+            d = host(sI.vis[:][:, b]).T.astype(np.complex128)
+            Ni = host(sI.weight[:][:, b]).mean(axis=-1).astype(np.float64)
+            want = host_wavelet(d, Ni, host(dspec.spectrum[:][b]), F, scales)
+            errs.append(np.abs(ws[b] - want).max() / np.abs(want).max())
+        check(f"20a wavelet spectrum of {len(bsel)} baselines vs a host float64 in-fill and CWT "
+              f"({time.perf_counter() - t0:.1f} s)", f"{max(errs):.3e} (limit {FILT_TOL_WAVELET})",
+              max(errs) <= FILT_TOL_WAVELET)
+
+        # 20a's device programs alone, on the phase's shapes
+        n = nfreq_a
+        nu = min(len(ucut), 64)
+        covs = torch.stack([torch.as_tensor(dops.delay_covariance(freq, c, 0.0, 1e-12)) for c in ucut[:nu]]).to(device)
+        _time_prog(progs, device, f"dayenu.hermitian_pinv_batched [{nu} of the {len(ucut)} cuts, {n}, {n}] float64",
+                   lambda: dops.hermitian_pinv_batched(covs), nu * 16 / 3 * n**3, 2 * covs.numel() * 8, "float64")
+        del covs
+        X = sfilt.vis[:].view(n, -1)
+        F32 = torch.eye(n, dtype=torch.complex64, device=device)
+        _time_prog(progs, device, f"filter apply [{n}, {n}] @ [{n}, {X.shape[1]}] complex64", lambda: F32 @ X,
+                   8.0 * n * n * X.shape[1], 2 * X.numel() * 8, "float32")
+        del F32
+        nbI = sI.vis.shape[1]
+        blk = min(nbI, 128)
+        dI, NiI = sI.vis[:].permute(1, 2, 0)[:blk].contiguous(), sI.weight[:].permute(1, 2, 0)[:blk].mean(dim=1)
+        Ft = torch.as_tensor(F, device=device)
+        Dt = dspec.spectrum[:][:blk]
+        _time_prog(progs, device, f"wavelet.wiener_infill [{blk} of {nbI} baselines, {n}, {n}] complex128",
+                   lambda: wiener_infill(dI, NiI, Dt, Ft), blk * 4 * (2 * n**3 + 2 * n**3 + 2 / 3 * n**3
+                                                                     + 2 * n * n * dI.shape[1]),
+                   blk * (2 * n * n * 16 + dI[0].numel() * 16), "float64")
+        nsc = FILT_NDELAY // 4
+        _time_prog(progs, device, f"wavelet.cwt + cwt_var [{nsc} scales x {blk} baselines x {dI.shape[1]} x {n}]",
+                   lambda: wops.cwt_var(wops.cwt(dI, scales[:nsc]), axis=2),
+                   5.0 * n * np.log2(n) * blk * dI.shape[1] * (nsc + 1), dI.numel() * 8 + nsc * blk * n * 4, "float32")
+        del dI, NiI, Ft, Dt
+        seconds["20a"] = time.perf_counter() - t_sub
+        del products, sfilt, inp, inpI2, chi2, sI, dspec, wspec, ref, fg, X
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- 20b: the m axis -------------------------------------------------
+        t_sub = time.perf_counter()
+        tel = ring_telescope(ncyl, nfeed, nfreq_b)
+        save(tel)
+        nprod = tel.npairs
+        log(f"20b: {nprod} products x {nfreq_b} channels x {nra_b} RA samples "
+            f"(stream {12 * nprod * nfreq_b * nra_b / GB:.2f} GB), DayenuMFilter defaults, DPSSFilterMMode "
+            f"halfwidth {MF_HALFWIDTH}")
+        products, wall = _filter_run("20b", filter_config_b(product_dir, paths, nra_b), device)
+        mfilt, minp = products["mfilt"][0], products["minp"][0]
+        P = FILT_PROBES.pop("mf_pass")
+        pairs_b = np.asarray(tel.uniquepairs)
+        posb = tel.feedpositions
+        ub = np.round((posb[pairs_b[:, 0], 0] - posb[pairs_b[:, 1], 0]) / tel.cylinder_spacing) * tel.cylinder_spacing
+        live = mfilt.weight[:] > 0
+        clean = sorted(set(range(nfreq_b)) - {f for f, _ in mf_flags(nfreq_b, nra_b)})
+        cl = torch.as_tensor(clean, device=device)
+        err = float(((mfilt.vis[:][cl] - P[cl]).abs() * live[cl]).max()) / float(P.abs().max())
+        check(f"20b passed component on the {len(clean)} channels without flagged cells, max|out - passed| / "
+              "max|passed|", f"{err:.3e} (limit {MF_TOL_PASS}: the filter's float64 pass band)", err <= MF_TOL_PASS)
+        del P
+        # the rejected component alone through the same task
+        rej, _, _ = mf_stream(tel, nra_b, device, parts=("reject",))
+        before = float(((rej.vis[:].abs() ** 2) * live).sum())
+        task = tdayenu.DayenuMFilter()
+        task.read_config({})
+        task.setup(tel)
+        task.process(rej)
+        leak = float(((rej.vis[:].abs() ** 2) * live).sum()) / before
+        check("20b rejected component alone: power through the filter / before", f"{leak:.3e} (limit {MF_TOL_OOB})",
+              leak <= MF_TOL_OOB)
+        del rej
+        # both tasks against host float64 on rows of one channel
+        t0 = time.perf_counter()
+        f0 = mf_flags(nfreq_b, nra_b)[0][0]  # a channel with a flagged cell
+        ra = np.radians(np.asarray(mfilt.ra, dtype=np.float64))
+        rows = FILT_PROBES.pop("mf_rows")
+        rows_t = torch.as_tensor(rows, device=device)
+        x_rows = host(FILT_PROBES.pop("mf_in_rows"))[f0].astype(np.complex128)
+        flag = host(live[f0].index_select(0, rows_t)).any(axis=0)
+        task = tdayenu.DayenuMFilter()
+        task.read_config({})
+        task.setup(tel)
+        db = 0.5 * tel.cylinder_spacing
+        nu = tel.frequencies[f0]
+        m_cut = abs(task._get_cut(nu, db))
+        dra = ra[:, None] - ra[None, :]
+        a_bp = np.median(np.abs(np.diff(ra))) * 0.375 * m_cut / np.pi
+        eps = 1e-10
+
+        def host_pinv(cov):
+            m2 = np.outer(flag, flag)
+            return np.linalg.pinv(cov * m2, hermitian=True) * m2
+
+        intra_f = host_pinv(np.eye(ra.size) / (a_bp * eps) + 2 * a_bp * (1.0 - 1.0 / (a_bp * eps))
+                            * np.sinc(0.375 * m_cut * dra / np.pi) * np.cos(0.625 * m_cut * dra))
+        a_lp = np.median(np.abs(np.diff(ra))) * 0.75 * m_cut / np.pi
+        inter_f = host_pinv(np.eye(ra.size) / (a_lp * eps) + a_lp * (1.0 - 1.0 / (a_lp * eps))
+                            * np.sinc(0.75 * m_cut * dra / np.pi))
+        got = host(mfilt.vis[:][f0].index_select(0, rows_t)).astype(np.complex128)
+        errs = []
+        for k, r in enumerate(rows):
+            if abs(ub[r]) < db:
+                want = intra_f @ x_rows[k]
+            else:
+                mix = np.exp(-1j * task._get_cut(nu, ub[r]) * ra)
+                want = (inter_f @ (x_rows[k] * mix)) * mix.conj()
+            errs.append(np.abs(got[k] - want).max() / np.abs(want).max())
+        check(f"20b DayenuMFilter on {len(rows)} rows of channel {f0} (intra and inter) vs host float64 "
+              f"({time.perf_counter() - t0:.1f} s)", f"{max(errs):.3e} (limit {MF_TOL_HOST})", max(errs) <= MF_TOL_HOST)
+        t0 = time.perf_counter()
+        samples = np.asarray(mfilt.ra, dtype=np.float64)
+        A = host_dpss_basis(samples, MF_HALFWIDTH)
+        errs = []
+        wm = host(mfilt.weight[:][f0].index_select(0, rows_t))
+        ipm = host(minp.vis[:][f0].index_select(0, rows_t))
+        for k, r in enumerate(rows):
+            W = wm[k] > 0
+            if abs(ub[r]) >= db or W.all():
+                continue
+            want = host_dpss_filter(got[k], wm[k] * W, W, A, 1e-3)
+            errs.append(np.abs(ipm[k, ~W] - want[~W]).max() / np.abs(want).max())
+        check(f"20b DPSSFilterMMode on {len(errs)} intracylinder rows vs host float64 "
+              f"({time.perf_counter() - t0:.1f} s)", f"{max(errs) if errs else float('nan'):.3e} (limit {MF_TOL_HOST})",
+              bool(errs) and max(errs) <= MF_TOL_HOST)
+        check("20b outputs finite", f"{tuple(minp.vis.shape)}",
+              bool(torch.isfinite(torch.view_as_real(minp.vis[:])).all())
+              and bool(torch.isfinite(torch.view_as_real(mfilt.vis[:])).all()))
+        # 20b's device programs alone
+        mask = live[f0].any(dim=0)[None]
+        _time_prog(progs, device, f"dayenu.bandpass + lowpass_mmode_filter [2, {nra_b}, {nra_b}] float64",
+                   lambda: (dops.bandpass_mmode_filter(ra, 0.625 * m_cut, 0.375 * m_cut, mask),
+                            dops.lowpass_mmode_filter(ra, 0.75 * m_cut, mask)),
+                   2 * 16 / 3 * nra_b**3, 2 * 2 * nra_b**2 * 8, "float64")
+        v0 = mfilt.vis[:][f0]
+        Fm = torch.eye(nra_b, dtype=torch.complex64, device=device)
+        _time_prog(progs, device, f"m filter apply [{nprod}, {nra_b}] @ [{nra_b}, {nra_b}] complex64",
+                   lambda: v0 @ Fm, 8.0 * nprod * nra_b**2, 2 * v0.numel() * 8, "float32")
+        del Fm
+        mcuts = [MF_HALFWIDTH] + [np.round((np.pi / 180) * tel.freq_start * 1e6 * k * tel.cylinder_spacing
+                                           / (C_LIGHT * np.cos(np.radians(tel.latitude))), 2) for k in (1, 2, 3)]
+        covm = [dpss_ops.make_covariance(samples, c, 0.0, device=device) for c in mcuts]
+        _time_prog(progs, device, f"dpss.get_bases [{len(mcuts)}, {nra_b}, {nra_b}] float64",
+                   lambda: dpss_ops.get_bases(covm), len(mcuts) * 16 / 3 * nra_b**3, 2 * len(mcuts) * nra_b**2 * 8,
+                   "float64")
+        Am = dpss_ops.get_bases(covm[-1:])[0]
+        del covm
+        nm = Am.shape[1]
+        rows_m = mfilt.vis[:][:, : min(64, nprod)].reshape(-1, nra_b)  # [nfreq x 64 rows, nra]
+        Ni_m = mfilt.weight[:][:, : min(64, nprod)].reshape(-1, nra_b)
+        _time_prog(progs, device, f"dpss.solve_batched [{rows_m.shape[0]} rows, {nra_b} samples, {nm} modes] complex64",
+                   lambda: dpss_ops.solve_batched(rows_m, Ni_m, Am), nfreq_b * 8.0 * (3 * nra_b * nm * nm + nm**3 / 3)
+                   + rows_m.shape[0] * 8.0 * 2 * nra_b * nm, 2 * rows_m.numel() * 8 + Am.numel() * 4, "float32")
+        del Am, rows_m, Ni_m, v0
+        seconds["20b"] = time.perf_counter() - t_sub
+        del products, mfilt, minp, live
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- 20c: hybrid visibilities and ring maps ----------------------------------
+        t_sub = time.perf_counter()
+        tel = ring_telescope(ncyl, nfeed, nfreq_c, HV_F0)
+        save(tel)
+        source, _ = ring_tasks()
+        rng = np.random.Generator(np.random.SFC64(HV_SEED))
+        FILT_PROBES["hv_cols"] = (rng.integers(0, ncyl, N_HV_COLS), rng.integers(0, nra_c, N_HV_COLS))
+        log(f"20c: the hybrid stream [4, {nfreq_c}, {ncyl}, {npix}, {nra_c}] "
+            f"({8 * 4 * nfreq_c * ncyl * npix * nra_c / GB:.2f} GB), ripple {HV_RIPPLE[0]} at {HV_RIPPLE[1]} us")
+        products, wall = _filter_run("20c", filter_config_c(product_dir, source, paths, nra_c, npix), device)
+        comp = products["comp"][0]
+        g_true = FILT_PROBES.pop("g_true")
+        g_est = host(comp.comp_bandpass[:]).real  # [pol, ew, freq]
+        sl = slice(HV_EDGE, nfreq_c - HV_EDGE)
+        corr = np.array([[np.corrcoef(g_est[p, x, sl], g_true[sl])[0, 1] for x in range(g_est.shape[1])]
+                         for p in range(g_est.shape[0])])
+        resid = np.array([[np.median(np.abs(g_est[p, x, sl] - g_true[sl])) for x in range(g_est.shape[1])]
+                          for p in range(g_est.shape[0])]) / np.abs(g_true).max()
+        check(f"20c ripple recovered on every (pol, ew): correlation, median residual / peak (channels "
+              f"{HV_EDGE}-{nfreq_c - HV_EDGE - 1})", f"corr >= {corr.min():.3f}, resid <= {resid.max():.3f} "
+              f"(limits {HV_CORR}, {HV_RESID})", corr.min() > HV_CORR and resid.max() < HV_RESID)
+        b_pre, b_mask, b_keep = (products[k][0].bandpass[:] for k in ("bp_pre", "bp_mask", "bp_keep"))
+        dv = max(float((b - b_pre).abs().max()) for b in (b_mask, b_keep)) / max(float(b_pre.abs().max()), 1e-300)
+        check("20c the three pre-filtered estimators with empty masks agree", f"{dv:.3e} (limit {HV_TOL_VARIANTS})",
+              dv <= HV_TOL_VARIANTS)
+        hfilt = FILT_PROBES.pop("hfilt")
+        xs, ts = (torch.as_tensor(i, device=device) for i in FILT_PROBES.pop("hv_cols"))
+        sig_in = FILT_PROBES.pop("sig_in")  # [pol, col, freq, el]
+        Fcol = hfilt.filter[:][:, :, :, xs, ts].permute(0, 3, 1, 2)  # [pol, col, f, g]
+        # the task's product form, [pol, t, f, g] @ [pol, t, g, el], with one column at a time
+        want = torch.cat([Fcol[:, c : c + 1].to(torch.complex64) @ sig_in[:, c : c + 1] for c in range(len(xs))], dim=1)
+        got = FILT_PROBES.pop("hsig_cols")
+        check(f"20c ApplyDelayFilterHybridVis: batched product bit-equal to one (ew, ra) column at a time on "
+              f"{len(xs)} columns", f"max |diff| {float((got - want).abs().max()):.3e}", bool(torch.equal(got, want)))
+        w0 = host(FILT_PROBES.pop("hv_w0")).astype(np.float32)  # [pol, freq, col]
+        Fh = host(Fcol)
+        var = host(invert_no_zero(torch.as_tensor(w0))).astype(np.float64)
+        want_cov = np.einsum("pcfg,pgc,pchg->pfhc", Fh, var, Fh)
+        got_cov = host(hfilt.freq_cov[:][:, :, :, xs, ts])
+        ecov = np.abs(got_cov - want_cov).max() / np.abs(want_cov).max()
+        check(f"20c freq_cov of {len(xs)} columns vs host float64 NF diag(var) NF^T", f"{ecov:.3e} (limit {HV_TOL_COV})",
+              ecov <= HV_TOL_COV)
+        rb, rf = FILT_PROBES.pop("rmap_before"), products["rmap_f"][0]
+        fr = np.asarray(rf.freq)
+        low = torch.as_tensor(np.abs(np.fft.fftfreq(fr.size, abs(fr[1] - fr[0]))) < 0.05, device=device)
+
+        def low_power(m):  # power at |delay| < 0.05 us, a pol at a time, on the card
+            return sum(float((torch.fft.fft(m[:, p], dim=1)[:, low].abs() ** 2).sum()) for p in range(m.shape[1]))
+
+        pb, pa = low_power(rb.map[:]), low_power(rf.map[:])
+        check(f"20c DayenuDelayFilterMap on the ring map {tuple(rf.map.shape)}: power at |delay| < 0.05 us, after / "
+              "before; finite", f"{pa / pb:.3e} (limit {HV_MAP_FALL})",
+              pa / pb <= HV_MAP_FALL and bool(torch.isfinite(rf.map[:]).all()))
+        finite, shape = FILT_PROBES.pop("hclean")
+        check("20c Clean output finite, of the stream's shape", f"{shape}",
+              finite and shape == tuple(hfilt.vis.shape))
+        del rb, rf, products, comp, b_pre, b_mask, b_keep, sig_in, Fcol, got, want
+        gc.collect()
+        # 20c's device programs alone, on the filter stream's shapes
+        hv = hfilt
+        filt, vis, wgt = hv.filter[:], hv.vis[:], hv.weight[:]
+        npol, nf, new, nel, nr = vis.shape
+        ncol = npol * new * nr
+        _time_prog(progs, device, f"hyfores._apply_filter_batch [{ncol} x ({nf}, {nf}) @ ({nf}, {nel})] complex64",
+                   lambda: thf._apply_filter_batch(vis, wgt, filt, 0.0, logging.getLogger("chip_smoke")),
+                   8.0 * ncol * nf * nf * nel, filt.numel() * 8 + 2 * vis.numel() * 8, "float32")
+        elm = np.ones(nel, bool)
+        _time_prog(progs, device, f"hyfores._estimate_gains_window [{ncol} x ({nf}, {nel}) Grams] complex128",
+                   lambda: thf._estimate_gains_window(vis, vis, wgt, filt, elm),
+                   8.0 * ncol * nf * nf * nel + 8.0 * ncol * nf * nf, filt.numel() * 8 + 2 * vis.numel() * 8, "float64")
+        cvar = invert_no_zero(wgt.double())
+        _time_prog(progs, device, f"hyfores._freq_cov [{ncol} x ({nf}, {nf})] float64",
+                   lambda: thf._freq_cov(filt, cvar), 2.0 * ncol * nf**3, 2 * filt.numel() * 8, "float64")
+        Wm = torch.randn(npol * new, nf, nf, dtype=torch.complex128, device=device)
+        _time_prog(progs, device, f"Clean's window SVD [{npol * new}, {nf}, {nf}] complex128",
+                   lambda: torch.linalg.svd(Wm, full_matrices=False), npol * new * 4 * 22.0 * nf**3,
+                   2 * Wm.numel() * 16, "float64")
+        del hv, hfilt, filt, vis, wgt, cvar, Wm
+        seconds["20c"] = time.perf_counter() - t_sub
+    FILT_PROBES.clear()
+    gc.collect()
+    log("phase 20 device programs alone (s, bound s, bound by): " + json.dumps(progs))
+    log("phase 20 sub-phase seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+    if failures:
+        raise RuntimeError(f"phase 20 (filter path) failed: {', '.join(failures)}")
+
+
+
 def _bl_max(tel) -> float:
     from draco_tpu_torch.analysis.powerspec import TransformJyPerBeamToKelvin
 
@@ -4163,6 +5094,17 @@ def main() -> int:
     flag_launches = dict(cuda_kernels.launches)
     log(f"phase 19 wall time {time.perf_counter() - t0:.1f} s; launches {flag_launches} (the path runs neither "
         "kernel)")
+
+    # phase 20: the DAYENU, DPSS, wavelet and HyFoReS filter path
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory allocated before phase 20: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    cuda_kernels.reset_launches()
+    run_filters(device)
+    filter_launches = dict(cuda_kernels.launches)
+    log(f"phase 20 wall time {time.perf_counter() - t0:.1f} s; launches {filter_launches} (the path runs neither "
+        "kernel)")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [{
@@ -4181,6 +5123,7 @@ def main() -> int:
         "ringmap_path": {"launches": ringmap_launches},
         "stacking_path": stack_kern,
         "flagging_path": {"launches": flag_launches["banded_covariance"]},
+        "filter_path": {"launches": filter_launches["banded_covariance"]},
     }, {
         "name": "beamform",
         "route": "cuda",
@@ -4189,6 +5132,7 @@ def main() -> int:
         "launches": stack_launches["beamform"],
         **beam_kern,
         "flagging_path": {"launches": flag_launches["beamform"]},
+        "filter_path": {"launches": filter_launches["beamform"]},
     }]}
     print(json.dumps(record))
     print(card)

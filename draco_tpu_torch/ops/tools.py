@@ -12,7 +12,9 @@ beamforming tasks (``broadcast_weights``, ``correct_phase_wrap``,
 ``find_contiguous_slices``) and the flagging library's baseline fits and
 mask helpers (``penalized_least_squares_1d``, ``arPLS_1d``, ``IarPLS_1d``
 and ``apply_hysteresis_threshold``: host scipy, as in the JAX package;
-``taper_mask``: a float64 ``conv1d`` on the device).
+``taper_mask``: a float64 ``conv1d`` on the device), and the stack-map
+helpers ``polarization_map`` and ``baseline_vector`` (host numpy, as in the
+JAX package).
 
 The exact-phase scheme rests on every high product being an exact
 float32 value and on no fused multiply-add changing a rounded product.
@@ -40,6 +42,7 @@ __all__ = [
     "calculate_redundancy", "stack_redundancy",
     "axis_blocks", "svd", "window_generalised", "broadcast_weights", "correct_phase_wrap", "find_contiguous_slices",
     "penalized_least_squares_1d", "arPLS_1d", "IarPLS_1d", "apply_hysteresis_threshold", "taper_mask",
+    "polarization_map", "baseline_vector",
 ]
 
 # elements of the largest temporary a blocked helper makes
@@ -654,3 +657,47 @@ def taper_mask(mask, nwidth: int, outer: bool = False, device=None) -> torch.Ten
     if outer:
         tapered = 1.0 - tapered
     return tapered[:, width:-width]
+
+
+def _stack_inputs(index_map):
+    """The correlator inputs (chan_id) of each stack entry's representative product."""
+    inp = np.asarray(index_map["input"])
+    input_map = inp["chan_id"] if inp.dtype.names else inp
+    stack = np.asarray(index_map["stack"])
+    prod = np.asarray(index_map["prod"])
+    pi = stack["prod"] if stack.dtype.names else stack[:, 0]
+    pa = prod[pi]["input_a"] if prod.dtype.names else prod[pi, 0]
+    pb = prod[pi]["input_b"] if prod.dtype.names else prod[pi, 1]
+    return input_map[pa].astype(int), input_map[pb].astype(int)
+
+
+def polarization_map(index_map, telescope, exclude_autos: bool = True) -> np.ndarray:
+    """Map each stack entry to pol = ['XX', 'XY', 'YX', 'YY'] (reference tools.py:417-500, vectorised; host).
+
+    Entries that are autos (when excluded) or use non-standard feeds map
+    to -1.
+    """
+    teltype = getattr(telescope, "stack_type", "redundant")
+    if teltype != "redundant":
+        raise RuntimeError(f"Telescope stack type needs to be 'redundant'. Is {teltype}")
+
+    ipt0, ipt1 = _stack_inputs(index_map)
+    beamclass = telescope.beamclass
+    bc0 = beamclass[ipt0]
+    bc1 = beamclass[ipt1]
+    good = (bc0 <= 1) & (bc1 <= 1)
+    if exclude_autos:
+        good &= ipt0 != ipt1
+
+    conj = telescope.feedconj[ipt0, ipt1]
+    b0 = np.where(conj, bc1, bc0)
+    b1 = np.where(conj, bc0, bc1)
+    # pol index in ['XX', 'XY', 'YX', 'YY'] = 2*b0 + b1
+    return np.where(good, 2 * b0 + b1, -1).astype(int)
+
+
+def baseline_vector(index_map, telescope) -> np.ndarray:
+    """Baseline vectors in metres, shape [2, nstack] (reference tools.py:503-543, vectorised; host)."""
+    ipt0, ipt1 = _stack_inputs(index_map)
+    unique_index = telescope.feedmap[ipt0, ipt1]
+    return telescope.baselines[unique_index].T.astype(np.float64)

@@ -59,6 +59,24 @@ complex64 against complex128:
 - the complex128 ``gesvd`` of the delay filter's [1024, k] Fourier designs
   (k = 160, 410, 680) and one complex128 likelihood core of the NRML
   estimator at [1016, 2048].
+
+    python3 scripts/torch_linalg_rates.py --filters     # on the card
+
+``--filters`` instead times the DAYENU, DPSS and wavelet path's
+factorisations at its widths (``--scale`` divides them):
+
+- ``torch.linalg.eigh`` in float64 of B DAYENU delay covariances [B, 1024,
+  1024] (B = 1, 8, 32; 1024 channels over 400-800 MHz, cut 0.2-0.42 us,
+  epsilon 1e-12) and :func:`draco_tpu_torch.ops.dayenu.hermitian_pinv_batched`
+  of 32 of them;
+- the float64 ``eigh`` of the m-mode filter's pair [2, 4096, 4096] (one
+  channel of ``DayenuMFilter`` on CHIME's 4096 RA samples);
+- the Wiener in-fill (:func:`draco_tpu_torch.analysis.wavelet.wiener_infill`,
+  complex128 ``inv`` and ``solve`` at [B, 1024, 1024], 64 right-hand sides)
+  for B = 1, 16 and 64;
+- the DPSS bases of four m-mode cuts (:func:`draco_tpu_torch.ops.dpss.get_bases`,
+  float64 [4, 4096, 4096]) and the complex64 ``cholesky_ex`` of 16 of the
+  largest basis's [2529, 2529] systems.
 """
 
 from __future__ import annotations
@@ -304,12 +322,73 @@ def delay_rates(device, on_card: bool, k: int, json_path) -> int:
     return finish(json_path, on_card, rows)
 
 
+def filter_rates(device, on_card: bool, k: int, json_path) -> int:
+    """The ``--filters`` mode (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from draco_tpu_torch.analysis.wavelet import wiener_infill
+    from draco_tpu_torch.ops import dayenu, dpss
+
+    rows = []
+
+    def report(**row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    nfreq = 1024 // k
+    freq = np.linspace(400.0, 800.0, nfreq, endpoint=False)
+    cuts = np.linspace(0.2, 0.42, 32)
+    covs = torch.stack([torch.as_tensor(dayenu.delay_covariance(freq, c, 0.0, 1e-12)) for c in cuts]).to(device)
+    for B in (1, 8, 32):
+        t = seconds(lambda: torch.linalg.eigh(covs[:B]), on_card)
+        report(op="eigh", shape=[B, nfreq, nfreq], dtype="float64", seconds=t, per_matrix=t / B)
+    t = seconds(lambda: dayenu.hermitian_pinv_batched(covs), on_card)
+    report(op="hermitian_pinv_batched", shape=list(covs.shape), dtype="float64", seconds=t, per_matrix=t / 32)
+    del covs
+
+    nra = 4096 // k
+    ra = np.linspace(0, 2 * np.pi, nra, endpoint=False)
+    dra = torch.as_tensor(ra[:, None] - ra[None, :], device=device)
+    pair = torch.stack([torch.eye(nra, dtype=torch.float64, device=device) * 1e10 + torch.sinc(80.0 * dra / np.pi)
+                        for _ in range(2)])
+    t = seconds(lambda: torch.linalg.eigh(pair), on_card)
+    report(op="eigh", shape=list(pair.shape), dtype="float64", seconds=t, per_matrix=t / 2)
+    del pair, dra
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    tau = torch.as_tensor(np.fft.fftshift(np.fft.fftfreq(nfreq, freq[1] - freq[0])), device=device)
+    arg = -2.0 * np.pi * torch.as_tensor(freq, device=device)[:, None] * tau[None, :]
+    F = torch.polar(torch.ones_like(arg), arg)
+    for B in (1, 16, 64):
+        d = torch.randn(B, 64, nfreq, dtype=torch.complex64, generator=gen, device=device)
+        Ni = torch.rand(B, nfreq, generator=gen, device=device) + 0.5
+        D = torch.rand(B, nfreq, dtype=torch.float64, generator=gen, device=device) + 1e-3
+        t = seconds(lambda: wiener_infill(d, Ni, D, F), on_card)
+        report(op="wiener_infill", shape=[B, nfreq, nfreq], dtype="complex128", seconds=t, per_baseline=t / B)
+
+    samples = np.linspace(0.0, 360.0, nra, endpoint=False)
+    mcuts = [0.3, 1.17, 2.34, 3.51]
+    mcovs = [dpss.make_covariance(samples, c, 0.0, device=device) for c in mcuts]
+    t = seconds(lambda: dpss.get_bases(mcovs), on_card)
+    bases = dpss.get_bases(mcovs)
+    report(op="dpss.get_bases", shape=[len(mcuts), nra, nra], dtype="float64", seconds=t,
+           nmodes=[int(b.shape[1]) for b in bases])
+    A = bases[-1].to(torch.complex64)
+    Ni = (torch.rand(16, nra, generator=gen, device=device) > 0.01).to(torch.complex64)
+    K = (A.conj().T[None] * Ni[:, None, :]) @ A + 1e-3 * torch.eye(A.shape[1], dtype=A.dtype, device=device)
+    t = seconds(lambda: torch.linalg.cholesky_ex(K), on_card)
+    report(op="cholesky_ex", shape=list(K.shape), dtype="complex64", seconds=t, per_matrix=t / 16)
+    return finish(json_path, on_card, rows)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--scale", type=int, default=1)
     parser.add_argument("--kl", action="store_true", help="the KL solve in complex64 against complex128")
     parser.add_argument("--delay", action="store_true", help="the delay-spectrum path's calls")
+    parser.add_argument("--filters", action="store_true", help="the DAYENU, DPSS and wavelet path's factorisations")
     parser.add_argument("--nside", type=int, default=256)
     parser.add_argument("--nfeed", type=int, default=64)
     parser.add_argument("--json", default=None, help="also write the rows to this file")
@@ -329,6 +408,8 @@ def main() -> int:
     k = args.scale
     if args.delay:
         return delay_rates(device, on_card, k, args.json)
+    if args.filters:
+        return filter_rates(device, on_card, k, args.json)
     gen = torch.Generator(device="cpu").manual_seed(0)
 
     def randc(*shape, dtype=torch.complex128):

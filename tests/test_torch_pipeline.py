@@ -194,6 +194,13 @@ pipeline:
         ("draco.analysis.ringmapmaker.ReconstructVisFreqCov", "draco_tpu_torch.analysis.ringmapmaker"),
         ("draco.analysis.powerspec.ConstructWienerDelayTransform", "draco_tpu_torch.analysis.powerspec"),
         ("draco_tpu.analysis.powerspec.SphericalPowerSpectrum3Dto1D", "draco_tpu_torch.analysis.powerspec"),
+        ("draco.analysis.dayenu.DayenuDelayFilter", "draco_tpu_torch.analysis.dayenu"),
+        ("draco_tpu.analysis.dayenu.DayenuMFilter", "draco_tpu_torch.analysis.dayenu"),
+        ("draco.analysis.interpolate.DPSSFilterDelay", "draco_tpu_torch.analysis.interpolate"),
+        ("draco_tpu.analysis.interpolate.DPSSFilterMModeStokesI", "draco_tpu_torch.analysis.interpolate"),
+        ("draco.analysis.wavelet.WaveletSpectrumEstimator", "draco_tpu_torch.analysis.wavelet"),
+        ("draco.analysis.hyforesbandpass.DelayFilterHyFoReSBandpassHybridVisClean",
+         "draco_tpu_torch.analysis.hyforesbandpass"),
     ],
 )
 def test_task_path_translation(path, module):
@@ -216,7 +223,26 @@ def test_every_task_of_the_simulation_examples_resolves(example):
 
 
 @pytest.mark.parametrize(
-    "path", ["draco.analysis.dayenu.DayenuDelayFilter", "draco_tpu.analysis.interpolate.DPSSFilter"]
+    "module", ["dayenu", "interpolate", "wavelet", "hyforesbandpass"]
+)
+def test_every_container_task_of_the_filter_modules_resolves(module):
+    """Every ``ContainerTask`` class of these JAX modules has a port of the same name."""
+    import importlib
+    import inspect
+
+    from draco_tpu.core.task import ContainerTask as JContainerTask
+
+    jmod = importlib.import_module(f"draco_tpu.analysis.{module}")
+    names = [n for n, c in inspect.getmembers(jmod, inspect.isclass)
+             if issubclass(c, JContainerTask) and c.__module__ == jmod.__name__]
+    assert names
+    for name in names:
+        cls = _resolve_task_class(f"draco_tpu.analysis.{module}.{name}")
+        assert cls.__module__ == f"draco_tpu_torch.analysis.{module}" and issubclass(cls, ContainerTask), name
+
+
+@pytest.mark.parametrize(
+    "path", ["draco_tpu.parallel.multihost.save_sharded", "draco_tpu.parallel.validate.assert_deterministic"]
 )
 def test_a_task_not_ported_yet_raises(path):
     with pytest.raises(PipelineRuntimeError, match="not ported to draco_tpu_torch yet") as e:
@@ -230,8 +256,12 @@ def test_resolving_reference_paths_imports_neither_jax_nor_draco_tpu():
     code = (
         "import sys\n"
         "from draco_tpu_torch.core.pipeline import _resolve_task_class\n"
-        "for path in ('draco.analysis.transform.MModeTransform', 'draco_tpu.telescope.roundtrip.SimulateAndMap'):\n"
+        "for path in ('draco.analysis.transform.MModeTransform', 'draco_tpu.telescope.roundtrip.SimulateAndMap',\n"
+        "             'draco.analysis.dayenu.DayenuDelayFilter', 'draco.analysis.interpolate.DPSSFilter',\n"
+        "             'draco.analysis.wavelet.WaveletSpectrumEstimator',\n"
+        "             'draco.analysis.hyforesbandpass.HyFoReSBandpassHybridVis'):\n"
         "    print(_resolve_task_class(path).__module__)\n"
+        "import draco_tpu_torch.ops.dayenu, draco_tpu_torch.ops.dpss, draco_tpu_torch.ops.wavelet\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'draco_tpu') or m.startswith(('jax.', 'draco_tpu.')))\n"
         "assert not bad, bad\n"
     )
@@ -240,7 +270,11 @@ def test_resolving_reference_paths_imports_neither_jax_nor_draco_tpu():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["draco_tpu_torch.analysis.transform", "draco_tpu_torch.telescope.roundtrip"]
+    assert out.stdout.split() == [
+        "draco_tpu_torch.analysis.transform", "draco_tpu_torch.telescope.roundtrip", "draco_tpu_torch.analysis.dayenu",
+        "draco_tpu_torch.analysis.interpolate", "draco_tpu_torch.analysis.wavelet",
+        "draco_tpu_torch.analysis.hyforesbandpass",
+    ]
 
 
 class _Doubler(ContainerTask):
