@@ -23,7 +23,12 @@ Phases, each of which raises on failure (exit code != 0):
    ``make_marray`` and ``mmode_weights`` (mmax 767) ->
    ``fused_simulate_to_map`` at nside 256 with those weights (chunk 520).
    The kernel launch counts are zeroed just before and read just after;
-   the kernel must have launched;
+   the kernel must have launched.  Then the Legendre kernel's two launches
+   on this path (the whole two-float table, every m over the 1023 rings
+   from l = 0, and the beam window's band rings) against the plain loop on
+   the same inputs, two-float and float64: hi + lo within 1e-9 and float64
+   within 1e-12 of max|Lambda| (the same shapes as phase 21a's nside-256
+   table build);
 4. accuracy: the same weighted round trip at nside 64 in float32 and
    float64 on the card, within 1e-5 relative error;
 5. the kernel on the cylinder path's operands (R [2098, 8640], Ni [1789,
@@ -306,6 +311,31 @@ Phases, each of which raises on failure (exit code != 0):
    saved covariance of 16 columns within 1e-10 of host float64; the ring
    map's power below 0.05 us cut by 1e4; every output finite.  The phase
    launches neither kernel.
+21. the spherical-harmonic transforms at CHIME's map resolution and the
+   determinism check.  21a: ``make_sky`` (foreground, nside 1024, lmax =
+   mmax = 3071, 16 channels) on the card, ``map2alm`` (iter 0) of the 16
+   maps in float32 and ``alm2map`` back, all three by the SHT's chunked
+   route (64 m at a time; its Legendre tables alone would take 232 GB), with the
+   launch counts zeroed just before and read just after: the Legendre
+   kernel ``csrc/legendre.cu`` must have launched once a chunk.  Prints the
+   route, each step's seconds, the peak device memory, and the kernel's ms
+   on the first chunk beside its bound and the plain loop's.  Checks: the
+   kernel against its plain version on the card on the first chunk (m 0-63)
+   and the last, over the rings in the order the route hands them (m 3008-3071, where Lambda_mm underflows near the poles):
+   float64 within 1e-12 of the chunk's max|Lambda|, two-float hi + lo
+   within 1e-9, float32 within 1e-5; float32 against float64 (the same
+   route) on 2 channels within 1e-5 for the alm and the maps;
+   ``smooth_gaussian`` of one nside-1024 map in float32 against float64
+   within 1e-5; at nside 256 (lmax 767, whose tables are kept) the chunked
+   route within 1e-6 of the tables on 4 maps; everything finite.  21b:
+   ``check_pipeline_determinism`` at rtol 0: phase 10's two runs of the
+   dish chain compared array by array (their fingerprints, which must hold
+   the same keys and at least one array), and a seeded
+   simulation of a 2 x 16 dual-pol cylinder at nside 64 and 16 channels
+   (``GenerateGaussianSky`` -> ``SimulateSidereal`` -> ``ExpandProducts`` ->
+   ``RandomSiderealGains`` -> ``ApplyGain`` -> ``CollateProducts`` ->
+   ``StokesIVis`` -> ``DelaySpectrumFFT``) run twice: every product
+   bit-identical.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -540,6 +570,19 @@ HV_TOL_VARIANTS = 1e-6
 HV_TOL_COV = 1e-10
 HV_MAP_FALL = 1e-4
 FILT_PROBES: dict = {}  # what phase 20's source tasks keep for the host checks
+
+SHT_NSIDE = 1024  # CHIME's map resolution: lmax = mmax = 3071, the SHT goes chunk by chunk
+SHT_NFREQ = 16
+SHT_SEED = 21
+SHT_NCHECK = 2  # channels transformed again in float64
+SHT_NSIDE_TABLES = 256  # the largest nside whose tables are kept: both routes there
+SHT_NMAPS_TABLES = 4
+TOL_SHT = 1e-5  # float32 against float64, maps and alm (the map-error contract)
+TOL_SHT_ROUTES = 1e-6  # the chunked route against the cached tables, both float32
+TOL_LEGENDRE = {"f64": 1e-12, "2f": 1e-9, "f32": 1e-5}  # the kernel against its plain version, of max|Lambda|
+VERIFY_NSIDE = 64  # 21b (ii): the small polarised cylinder's simulation
+VERIFY_NFREQ = 16
+VERIFY_SEED = 22
 
 LSD = 8000
 CHAIN_SAMPLES_PER_DAY = 8640
@@ -902,6 +945,31 @@ def profile_split(run, label_prefix: str) -> None:
         f"(busy share {kernels_ms / wall_ms:.3f})")
 
 
+def profile_top(run, label: str, top: int = 8) -> None:
+    """One call of ``run`` under ``torch.profiler``: the ``top`` kernels by
+    device time, and all kernels' device time against the call's wall time
+    (the device's busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_ms(ev):
+        return getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [(dev_ms(ev), ev.count, ev.key) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)]
+    total = sum(k[0] for k in kern)
+    log(f"profile {label} (torch.profiler, one call): all kernels {total:.1f} ms of device time in {wall_ms:.1f} ms "
+        f"wall (busy share {total / wall_ms:.3f}); top: " + "; ".join(
+            f"{name[:60]} x{count} {ms:.1f} ms" for ms, count, name in sorted(kern, reverse=True)[:top]))
+
+
 def run_dualpol(device):
     """Phase 7: the 2048-feed dual-pol cylinder, unweighted, chunk 96."""
     import torch
@@ -1096,9 +1164,10 @@ def check_chain_products(products, tel, device) -> None:
         raise RuntimeError(f"task chain time stream has {ntime} samples")
 
 
-def run_task_chain(tel, device) -> int:
+def run_task_chain(tel, device) -> tuple[int, tuple[dict, dict]]:
     """Phases 10 and 11: the chain through the Manager, twice; returns the
-    kernel launches of the first run."""
+    kernel launches of the first run and the fingerprints of both runs'
+    products (phase 21b compares them)."""
     import pickle
     import tempfile
 
@@ -1106,6 +1175,7 @@ def run_task_chain(tel, device) -> int:
 
     from draco_tpu_torch.core.pipeline import Manager
     from draco_tpu_torch.ops import cuda_kernels
+    from draco_tpu_torch.parallel import validate
     from draco_tpu_torch.telescope.roundtrip import fused_simulate_to_map
 
     with tempfile.TemporaryDirectory() as product_dir:
@@ -1128,6 +1198,7 @@ def run_task_chain(tel, device) -> int:
         if launches != nregrid:
             raise RuntimeError(f"the task chain launched banded_covariance {launches} times for {nregrid} regrids")
         check_chain_products(products, tel, device)
+        fp1 = validate.fingerprint(products)
 
         # phase 10: chain A's m-modes against chain B's (the Lanczos sample
         # and regrid error, no limit: the CPU tests hold each task to JAX)
@@ -1160,12 +1231,14 @@ def run_task_chain(tel, device) -> int:
 
         manager = Manager(config)
         t0 = time.perf_counter()
-        manager.run()
+        products = manager.run()
         torch.cuda.synchronize(device)
         log(f"task chain run 2: {time.perf_counter() - t0:.2f} s wall")
         log("task chain run 2 task_timing (s): " + json.dumps(
             {name: round(t["wall"], 4) for name, t in manager.task_timing.items()}))
-    return launches
+        fp2 = validate.fingerprint(products)
+        del products
+    return launches, (fp1, fp2)
 
 
 def check_map_makers(device) -> None:
@@ -4900,6 +4973,295 @@ def run_filters(device, ncyl: int = 4, nfeed: int = 256, nfreq_a: int = DELAY_NF
 
 
 
+def legendre_bound(L1: int, l0: int, m_vals, R: int, mode: str) -> tuple[float, str]:
+    """Least ms the card could take for one ``legendre_block`` call and what
+    sets it: its output written once (6 bytes a value two-float, else the
+    type's) and its inputs read once at the HBM rate, against 4 operations
+    (three multiplies and an add) for every value above the seed, l > m, in
+    the working type at the peak rate outside the tensor cores."""
+    C = len(m_vals)
+    esize = 8 if mode != "f32" else 4
+    nbytes = (L1 - l0) * C * R * (6 if mode == "2f" else esize) + (2 * R + 2 * C + 2 * L1 * C) * esize
+    flops = 4.0 * R * float(np.maximum(0, L1 - 1 - np.asarray(m_vals)).sum())
+    t, by = _bound(flops, nbytes, "float32" if mode == "f32" else "float64")
+    return t * 1e3, by
+
+
+def _legendre_err(got, ref, two_float: bool) -> tuple[float, float, bool]:
+    """(max|got - ref|, max|ref|, got finite) of two Legendre blocks, hi + lo
+    summed in float64 for the two-float mode; a slab of l rows at a time, so
+    a whole table's comparison holds little more than the two blocks."""
+    import torch
+
+    err, scale, finite = 0.0, 0.0, True
+    nl = (got[0] if two_float else got).shape[0]
+    for l0 in range(0, nl, 64):
+        if two_float:
+            g = got[0][l0:l0 + 64].double() + got[1][l0:l0 + 64].double()
+            r = ref[0][l0:l0 + 64].double() + ref[1][l0:l0 + 64].double()
+        else:
+            g, r = got[l0:l0 + 64].double(), ref[l0:l0 + 64].double()
+        err = max(err, (g - r).abs().max().item())
+        scale = max(scale, r.abs().max().item())
+        finite = finite and bool(torch.isfinite(g).all())
+    return err, scale, finite
+
+
+def check_legendre(device, s, rings, m_vals, l0: int, label: str, modes=("2f", "f64", "f32"),
+                   time_it: bool = False) -> dict:
+    """The Legendre kernel against its plain version on the card, on the
+    exact inputs a path hands it (``rings`` in its order, the m of
+    ``m_vals``, rows from ``l0``), in each of ``modes``; with ``time_it``
+    the two-float call is timed beside the plain one (plain, kernel,
+    kernel, plain; the first plain call is the check's own)."""
+    import torch
+
+    from draco_tpu_torch.ops import cuda_kernels, sht
+
+    rings, m_vals = np.asarray(rings), np.asarray(m_vals)
+    stats = {}
+    for mode in modes:
+        wdt = cuda_kernels.LEGENDRE_MODES[mode]
+
+        def t(a, wdt=wdt):
+            return torch.as_tensor(a, dtype=wdt, device=device)
+
+        args = (t(s._x[rings]), t(s._lnsin[rings]), t(s._cm[m_vals]), t(s._a_tab[:, m_vals]),
+                t(s._b_tab[:, m_vals]), torch.as_tensor(m_vals, device=device))
+        got = cuda_kernels.legendre_block(*args, mode, l0=l0)
+        t0 = _sync_clock(device)
+        ref = sht._legendre_block_core(*args, two_float=mode == "2f", l0=l0)
+        plain1 = (_sync_clock(device) - t0) * 1e3
+        err, scale, finite = _legendre_err(got, ref, mode == "2f")
+        log(f"legendre kernel [{label}, m {m_vals[0]}-{m_vals[-1]}, l {l0}-{s.lmax}, {len(rings)} rings] {mode}: "
+            f"max_abs_err {err:.3e} rel {err / scale:.3e} (tol {TOL_LEGENDRE[mode]}), max|Lambda| {scale:.3e}")
+        if not (finite and err <= TOL_LEGENDRE[mode] * scale):
+            raise RuntimeError(f"the legendre kernel ({label}, {mode}) disagrees with its plain version: "
+                               f"{err / scale:.3e}")
+        stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), err)
+        stats[f"max_abs_err_{mode}"] = err
+        del got, ref
+        if mode == "2f" and time_it:
+            kern1 = cuda_ms(lambda: cuda_kernels.legendre_block(*args, "2f", l0=l0), 5)
+            kern2 = cuda_ms(lambda: cuda_kernels.legendre_block(*args, "2f", l0=l0), 5)
+            t0 = _sync_clock(device)
+            sht._legendre_block_core(*args, two_float=True, l0=l0)
+            plain2 = (_sync_clock(device) - t0) * 1e3
+            bound, by = legendre_bound(s.lmax + 1, l0, m_vals, len(rings), "2f")
+            log(f"legendre kernel [{label}, m {m_vals[0]}-{m_vals[-1]}] two-float ms: kernel {kern1:.4f} {kern2:.4f}, "
+                f"plain loop {plain1:.2f} {plain2:.2f}, bound {bound:.4f} ({by}); "
+                f"{(s.lmax + 1 - l0) * len(m_vals) * len(rings) * 6 / 1e9:.3f} GB written")
+            stats.update({"ms": min(kern1, kern2), "plain_ms": min(plain1, plain2), "bound_ms": bound,
+                          "bound_by": by, "library_ms": None})
+        del args
+    return stats
+
+
+def check_legendre_tables(device, bt, label: str) -> dict:
+    """The Legendre kernel's launches on a round trip's path held against
+    the plain loop on their exact inputs: the whole-table build (every m,
+    every ring in section order, from l = 0) and, when the beam has a
+    window, the band rings' table, both two-float and float64."""
+    from draco_tpu_torch.ops import sht
+
+    tel = bt.telescope
+    s = sht.get_sht(bt.beam_nside, tel.lmax, tel.mmax)
+    stats = check_legendre(device, s, s._section_rings(), s._m, 0, f"{label} tables", ("2f", "f64"))
+    win = bt._beam_window()
+    if win is not None:
+        band = check_legendre(device, s, win.band, s._m, 0, f"{label} band rings", ("2f", "f64"))
+        stats = {k: max(v, band[k]) for k, v in stats.items()}
+    return stats
+
+
+def run_sht(device, nside: int = SHT_NSIDE, nfreq: int = SHT_NFREQ, ncheck: int = SHT_NCHECK,
+            nside_tables: int = SHT_NSIDE_TABLES, nmaps_tables: int = SHT_NMAPS_TABLES) -> tuple[int, dict]:
+    """Phase 21a: a foreground sky at nside 1024 made and transformed both ways
+    by the chunked route, with the Legendre kernel held against its plain
+    version; returns (the kernel's launches on the main path, its stats).
+    Smaller sizes make it a rehearsal on the CPU."""
+    import gc
+
+    import torch
+
+    from draco_tpu_torch.ops import cuda_kernels, healpix, sht
+    from draco_tpu_torch.synthesis.skymodel import make_sky
+
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    s = sht.get_sht(nside)
+    log(f"sht nside={nside} lmax=mmax={s.lmax}: tables would need {s.table_bytes(torch.float32) / 1e9:.1f} GB "
+        f"(float32), {s.table_bytes(torch.float64) / 1e9:.1f} GB (float64); budget "
+        f"{sht.TABLE_BUDGET_BYTES / 2**30:.0f} GiB; chunk_m {s.chunk_m}")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    # the main path: the counts are zeroed just before it and read just after
+    cuda_kernels.reset_launches()
+    t0 = _sync_clock(device)
+    sky = make_sky("foreground", nside=nside, nfreq=nfreq, seed=SHT_SEED, device=device)
+    t_sky = _sync_clock(device) - t0
+    route_sky = s.last_route
+    maps = sky.map[:][:, 0].float()  # [nfreq, npix]
+    t0 = _sync_clock(device)
+    alm = sht.map2alm(maps, iter=0)
+    t_ana = _sync_clock(device) - t0
+    route_ana = s.last_route
+    t0 = _sync_clock(device)
+    back = sht.alm2map(alm, nside)
+    t_syn = _sync_clock(device) - t0
+    route_syn = s.last_route
+    launches = dict(cuda_kernels.launches)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else float("nan")
+    nchunk = len(list(s._m_chunks()))
+    log(f"phase 21a main path: makesky {t_sky:.2f} s (route {route_sky}), map2alm of {nfreq} maps {t_ana:.2f} s "
+        f"(route {route_ana}), alm2map {t_syn:.2f} s (route {route_syn}); legendre launches {launches['legendre']} "
+        f"({nchunk} chunks a transform), peak device memory {peak:.2f} GiB")
+    if not route_sky == route_ana == route_syn == "chunked":
+        raise RuntimeError(f"the nside {nside} transforms took the routes {route_sky}, {route_ana}, {route_syn}")
+    if cuda and launches["legendre"] != 3 * nchunk:
+        raise RuntimeError(f"the legendre kernel launched {launches['legendre']} times for 3 x {nchunk} chunks")
+    if not (bool(torch.isfinite(maps).all()) and bool(torch.isfinite(alm).all()) and bool(torch.isfinite(back).all())):
+        raise RuntimeError("a phase 21a transform is not finite")
+    if alm.shape != (nfreq, s.lmax + 1, s.mmax + 1) or back.shape != maps.shape or alm.dtype != torch.complex64:
+        raise RuntimeError(f"phase 21a shapes: alm {tuple(alm.shape)} {alm.dtype}, maps {tuple(back.shape)}")
+
+    if cuda:
+        profile_top(lambda: sht.map2alm(maps, iter=0), f"map2alm of {nfreq} maps at nside {nside}")
+
+    # the kernel on the first chunk and the last (the polar-underflow regime)
+    chunks, rings = list(s._m_chunks()), s._section_rings()
+    stats = check_legendre(device, s, rings, chunks[0], int(chunks[0][0]), f"nside {nside}", time_it=True)
+    stats_last = check_legendre(device, s, rings, chunks[-1], int(chunks[-1][0]), f"nside {nside}")
+    stats.update({k: max(v, stats_last[k]) for k, v in stats.items() if k.startswith("max_abs_err")})
+    bound_all = sum(legendre_bound(s.lmax + 1, int(c[0]), c, s.info.nring, "2f")[0] for c in chunks)
+    log(f"legendre kernel: a float32 transform's {nchunk} chunks need >= {bound_all:.2f} ms of writes "
+        f"({sum((s.lmax + 1 - int(c[0])) * len(c) for c in chunks) * s.info.nring * 6 / 1e9:.2f} GB)")
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # float32 against float64, the same chunked route on the card
+    m64 = maps[:ncheck].double()
+    t0 = _sync_clock(device)
+    alm64 = sht.map2alm(m64, iter=0)
+    back64 = sht.alm2map(alm64, nside)
+    t64 = _sync_clock(device) - t0
+    rel_alm, rel_map = _rel(alm[:ncheck], alm64), _rel(back[:ncheck], back64)
+    log(f"phase 21a float32 vs float64 on {ncheck} channels ({t64:.2f} s in float64): alm {rel_alm:.3e}, "
+        f"maps {rel_map:.3e} (tol {TOL_SHT})")
+    if not (rel_alm <= TOL_SHT and rel_map <= TOL_SHT and bool(torch.isfinite(back64).all())):
+        raise RuntimeError(f"the float32 transforms are {rel_alm:.3e} / {rel_map:.3e} from float64")
+    del sky, maps, alm, back, m64, alm64, back64
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the smoothing at nside 1024 (lmax 2 nside: chunked) against float64
+    one = np.random.Generator(np.random.SFC64(SHT_SEED)).standard_normal(healpix.npix_of(nside))
+    fwhm = healpix.nside2resol(nside) * 4
+    t0 = _sync_clock(device)
+    sm32 = healpix.smooth_gaussian(one.astype(np.float32), fwhm, device=device)
+    t_sm = _sync_clock(device) - t0
+    sm64 = healpix.smooth_gaussian(one, fwhm, device=device)
+    rel_sm = float(np.abs(sm32 - sm64).max() / np.abs(sm64).max())
+    route_sm = sht.get_sht(nside, 2 * nside, 2 * nside).last_route
+    log(f"phase 21a smooth_gaussian at nside {nside} (route {route_sm}, {t_sm:.2f} s in float32): float32 vs float64 "
+        f"{rel_sm:.3e} (tol {TOL_SHT})")
+    if not (rel_sm <= TOL_SHT and np.isfinite(sm32).all() and route_sm == "chunked"):
+        raise RuntimeError(f"smooth_gaussian at nside {nside}: {rel_sm:.3e} from float64, route {route_sm}")
+
+    # both routes at the largest nside that keeps its tables
+    st = sht.SHT(nside_tables)
+    m4 = torch.from_numpy(np.random.Generator(np.random.SFC64(SHT_SEED + 1)).standard_normal(
+        (nmaps_tables, healpix.npix_of(nside_tables))).astype(np.float32)).to(device)
+    lam, lam_lo, plan = st.tables(device, torch.float32)
+    a_t = st._analysis_impl(m4, lam, plan, lam_lo)
+    a_c = st._analysis_impl(m4, None)
+    b_t = st._synthesis_impl(a_t, lam, plan, lam_lo)
+    b_c = st._synthesis_impl(a_t, None)
+    rel_a, rel_b = _rel(a_c, a_t), _rel(b_c, b_t)
+    log(f"phase 21a nside {nside_tables} (route {st.route(torch.float32)}): chunked vs tables alm {rel_a:.3e}, "
+        f"maps {rel_b:.3e} (tol {TOL_SHT_ROUTES})")
+    if st.route(torch.float32) != "tables" or not (rel_a <= TOL_SHT_ROUTES and rel_b <= TOL_SHT_ROUTES):
+        raise RuntimeError(f"at nside {nside_tables} the chunked route is {rel_a:.3e} / {rel_b:.3e} from the tables")
+    del st, lam, lam_lo, plan, m4, a_t, a_c, b_t, b_c
+    sht._sht_cache.clear()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"phase 21a wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches["legendre"], stats
+
+
+def verify_config(product_dir: str, tel, nside: int) -> dict:
+    """21b (ii): a seeded simulation of a small polarised cylinder's full
+    triangle, gains applied, collated (``CollateProducts``), Stokes I
+    (``StokesIVis``) and its delay spectrum."""
+    f = np.asarray(tel.frequencies)
+    sky = {"model": "foreground", "nside": nside, "freq_start": float(f[0]),
+           "freq_end": float(f[-1] + (f[1] - f[0])), "nfreq": len(f), "polarisation": True, "seed": VERIFY_SEED}
+    return {"pipeline": {"retain_products": "all", "tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "bt"],
+         "params": {"product_directory": product_dir, "nside": nside}},
+        {"type": "draco.synthesis.skymodel.GenerateGaussianSky", "out": "sky", "params": sky},
+        {"type": "draco.synthesis.stream.SimulateSidereal", "requires": "bt", "in": "sky", "out": "sstream",
+         "params": {"streaming": True}},
+        {"type": "draco.synthesis.stream.ExpandProducts", "requires": "tel", "in": "sstream", "out": "sfull"},
+        {"type": "draco.synthesis.gain.RandomSiderealGains", "requires": ["tel", "sfull"], "out": "gain",
+         "params": {"seed": VERIFY_SEED, "start_time": "2015-10-05 12:15:00", "end_time": "2015-10-06 12:15:00",
+                    "sigma_amp": 0.01, "sigma_phase": 0.01}},
+        {"type": "draco.analysis.calibration.ApplyGain", "in": ["sfull", "gain"], "out": "sgain",
+         "params": {"inverse": False}},
+        {"type": "draco.analysis.transform.CollateProducts", "requires": "bt", "in": "sgain", "out": "scoll"},
+        {"type": "draco.analysis.transform.StokesIVis", "requires": "tel", "in": "scoll", "out": "sI"},
+        {"type": "draco.analysis.delay.DelaySpectrumFFT", "in": "sI", "out": "dspec",
+         "params": {"complex_timedomain": True, "freq_frac": -1.0}},
+    ]}}
+
+
+def _fingerprint_count(fp: dict) -> tuple[int, int]:
+    """(labels, arrays) that a fingerprint of a Manager's products digests."""
+    labels = {k.split("]")[0] for k in fp}
+    return len(labels), sum(v != "<unchecked>" for v in fp.values())
+
+
+def run_verify(device, chain_fps, nside: int = VERIFY_NSIDE, nfreq: int = VERIFY_NFREQ, ncyl: int = 2,
+               nfeed: int = 16) -> None:
+    """Phase 21b: the determinism check on the card, bitwise (rtol 0): (i) phase
+    10's two runs of the dish chain, (ii) a small config through
+    ``CollateProducts`` and ``StokesIVis``, run twice by
+    ``check_pipeline_determinism``."""
+    import pickle
+    import tempfile
+
+    from draco_tpu_torch.parallel import validate
+
+    t_phase = time.perf_counter()
+    fp1, fp2 = chain_fps
+    nlab, narr = _fingerprint_count(fp1)
+    differ = sorted(k for k in set(fp1) | set(fp2) if fp1.get(k) != fp2.get(k))
+    log(f"phase 21b (i) phase 10's two runs: {nlab} labels, {narr} arrays compared bitwise; "
+        f"{len(differ)} differ{': ' + ', '.join(differ[:20]) if differ else ''}")
+    if narr == 0 or set(fp1) != set(fp2):
+        raise RuntimeError(f"phase 10's fingerprints hold {narr} arrays, and {len(set(fp1) ^ set(fp2))} keys "
+                           "are in one run only: nothing to compare")
+    if differ:
+        raise RuntimeError(f"phase 10's two runs differ in {len(differ)} arrays: {differ[:20]}")
+    tel, _ = cylinder(nside, ncyl, nfeed, pol=True, nfreq=nfreq)
+    with tempfile.TemporaryDirectory() as product_dir:
+        with open(Path(product_dir) / "telescope.pkl", "wb") as f:
+            pickle.dump(tel, f)
+        cfg = verify_config(product_dir, tel, nside)
+        t0 = _sync_clock(device)
+        summary = validate.check_pipeline_determinism(cfg, runs=2, rtol=0.0)
+        wall = _sync_clock(device) - t0
+    labels = [t["out"] for t in cfg["pipeline"]["tasks"]]
+    log(f"phase 21b (ii) {len(tel.uniquepairs)} pairs of a {ncyl} x {nfeed} dual-pol cylinder, {nfreq} channels, "
+        f"nside {nside}: two runs in {wall:.2f} s bit-identical: {summary['products']} product labels "
+        f"({labels}), {summary['arrays']} arrays")
+    log(f"phase 21b wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def _bl_max(tel) -> float:
     from draco_tpu_torch.analysis.powerspec import TransformJyPerBeamToKelvin
 
@@ -4922,7 +5284,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     repo = Path(__file__).resolve().parent
-    if not all((repo / "draco_tpu_torch" / "csrc" / f"{n}.cu").is_file() for n in ("banded_covariance", "beamform")):
+    if not all((repo / "draco_tpu_torch" / "csrc" / f"{n}.cu").is_file()
+               for n in ("banded_covariance", "beamform", "legendre")):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(repo))
 
@@ -4959,6 +5322,7 @@ def main() -> int:
         f"ntime={NTIME} -> {SAMPLES} RA bins, chunk={CHUNK}")
     launches, w, _ = drive_slice("slice", bt, tel, sky, stream, device, CHUNK)
     del stream
+    leg_tables = check_legendre_tables(device, bt, f"dish slice nside {NSIDE}")
 
     # phase 4: accuracy at nside 64, float32 against float64
     tel64, bt64 = telescope(NSIDE_ACC)
@@ -5008,7 +5372,7 @@ def main() -> int:
     # phases 10 and 11: the task chain through the pipeline Manager
     t0 = time.perf_counter()
     tel = telescope(NSIDE)[0]
-    chain_launches = run_task_chain(tel, device)
+    chain_launches, chain_fps = run_task_chain(tel, device)
     log(f"phases 10-11 wall time {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
@@ -5105,6 +5469,17 @@ def main() -> int:
     filter_launches = dict(cuda_kernels.launches)
     log(f"phase 20 wall time {time.perf_counter() - t0:.1f} s; launches {filter_launches} (the path runs neither "
         "kernel)")
+
+    # phase 21: the SHT at nside 1024 chunk by chunk, then the determinism check
+    sht_mod._sht_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory allocated before phase 21: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    sht_launches, leg_kern = run_sht(device)
+    log(f"phase 21a done; launches {sht_launches} of legendre on the main path")
+    run_verify(device, chain_fps)
+    log(f"phase 21 wall time {time.perf_counter() - t0:.1f} s")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [{
@@ -5133,6 +5508,17 @@ def main() -> int:
         **beam_kern,
         "flagging_path": {"launches": flag_launches["beamform"]},
         "filter_path": {"launches": filter_launches["beamform"]},
+    }, {
+        "name": "legendre",
+        "route": "cuda",
+        "source": "draco_tpu_torch/csrc/legendre.cu",
+        "replaces": "draco_tpu/ops/sht.py:124",
+        "launches": sht_launches,
+        **leg_kern,
+        "dish_slice": {"launches": launches["legendre"], **leg_tables},
+        "cylinder_path": {"launches": launches_c["legendre"]},
+        "flagging_path": {"launches": flag_launches["legendre"]},
+        "filter_path": {"launches": filter_launches["legendre"]},
     }]}
     print(json.dumps(record))
     print(card)

@@ -4,7 +4,9 @@ The JAX package ``draco_tpu`` is the reference this port is held
 against.  Modules mirror its layout.  Plain tensor code is PyTorch; the
 one TPU kernel of the JAX package (the banded-covariance build of the
 sidereal regridder) is a CUDA kernel written for ``sm_90a``
-(``csrc/banded_covariance.cu``, built on first use by ``_build``).
+(``csrc/banded_covariance.cu``), and so are two XLA programs of its hot
+paths (``csrc/beamform.cu``, ``csrc/legendre.cu``), each built on first
+use by ``_build``.
 
 Functions follow the device of their input tensors or take ``device=``;
 nothing picks a device implicitly.  Randomness is passed in explicitly.

@@ -497,9 +497,10 @@ class CollateProducts(TelescopeStreamMixIn, ContainerTask):
 
     (reference transform.py:142-330).  Each incoming product is mapped
     onto a telescope stack on the host; the device accumulates the
-    weighted products of each stack with ``index_add_`` in float64, block
-    by block along the time axis, so that a full-triangle stream is never
-    copied whole.
+    weighted products of each stack in float64, in a fixed order
+    (:func:`~draco_tpu_torch.ops.tools.segment_sum`: the same bits on every
+    run), block by block along the time axis, so that a full-triangle
+    stream is never copied whole.
 
     Attributes
     ----------
@@ -557,11 +558,11 @@ class CollateProducts(TelescopeStreamMixIn, ContainerTask):
         conj = tel.feedconj[bi[src], bj[src]] != ss_conj[src]
 
         src_t = torch.as_tensor(src, device=dev)
-        dst_t = torch.as_tensor(stack_of[src], device=dev)
         conj_t = torch.as_tensor(conj, device=dev)[None, :, None]
         fidx = torch.as_tensor(freq_ind, device=dev)
         vis, weight = ss.vis[:], ss.weight[:]
         nfreq_out, nstack_out, ntime = sp.vis.shape
+        plan = tools.segment_plan(stack_of[src], nstack_out, dev)
 
         if self.weight != "inverse_variance":
             red_index = tools.redundancy_index(
@@ -582,12 +583,9 @@ class CollateProducts(TelescopeStreamMixIn, ContainerTask):
                     red = (red > 0).to(red.dtype)
                 wss = (w > 0.0) * red.index_select(0, src_t)[None].to(torch.float64)
             v = torch.where(conj_t, v.conj(), v)
-            shape = (nfreq_out, nstack_out, t1 - t0)
-            acc_vis = torch.zeros(shape, dtype=torch.complex128, device=dev).index_add_(1, dst_t, wss * v)
-            acc_var = torch.zeros(shape, dtype=torch.float64, device=dev).index_add_(
-                1, dst_t, wss**2 * invert_no_zero(w)
-            )
-            counter = torch.zeros(shape, dtype=torch.float64, device=dev).index_add_(1, dst_t, wss)
+            acc_vis = tools.segment_sum(wss * v, plan)
+            acc_var = tools.segment_sum(wss**2 * invert_no_zero(w), plan)
+            counter = tools.segment_sum(wss, plan)
             del v, w, wss
             sp.vis[:, :, t0:t1] = acc_vis * invert_no_zero(counter)
             sp.weight[:, :, t0:t1] = counter**2 * invert_no_zero(acc_var)
@@ -636,24 +634,23 @@ def stokes_I_index(tel):
 
 def stokes_I_sum(x: torch.Tensor, src, dst, nbase: int | None = None, out: torch.Tensor | None = None):
     """Sum the stacks ``src`` of ``x`` [freq, stack, time] into baselines ``dst``
-    with ``index_add_`` on x's device, block by block along frequency; into
-    ``out`` [freq, nbase, time] (zeroed first) if given."""
+    on x's device, block by block along frequency, each baseline's stacks in
+    their order (:func:`~draco_tpu_torch.ops.tools.segment_sum`: the same
+    bits on every run); into ``out`` [freq, nbase, time] if given."""
     if out is None:
-        out = torch.zeros((x.shape[0], nbase, x.shape[2]), dtype=x.dtype, device=x.device)
-    else:
-        out.zero_()
+        out = torch.empty((x.shape[0], nbase, x.shape[2]), dtype=x.dtype, device=x.device)
+    plan = tools.segment_plan(dst, out.shape[1], x.device)
     src_t = torch.as_tensor(src, device=x.device)
-    dst_t = torch.as_tensor(dst, device=x.device)
     for f0, f1 in tools.axis_blocks(x.shape[0], len(src) * x.shape[2]):
-        out[f0:f1].index_add_(1, dst_t, x[f0:f1].index_select(1, src_t).to(out.dtype))
+        out[f0:f1] = tools.segment_sum(x[f0:f1].index_select(1, src_t).to(out.dtype), plan)
     return out
 
 
 def stokes_I(sstream, tel):
     """Extract instrumental Stokes I from a time/sidereal stream (reference transform.py:1382-1448).
 
-    The per-product accumulation is ``index_add_`` over the unique baseline
-    vectors on the stream's device.  Returns (vis_I [freq, nbase, time],
+    The per-product accumulation is a segment sum over the unique baseline
+    vectors on the stream's device, in a fixed order.  Returns (vis_I [freq, nbase, time],
     weight_I, ubase [nbase, 2]).
     """
     src, dst, ubase = stokes_I_index(tel)

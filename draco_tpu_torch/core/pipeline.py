@@ -560,15 +560,16 @@ def lint(config_path: str) -> list[str]:
 
 # CLI commands of the JAX package that wait for later slices of the port
 _NOT_PORTED_COMMANDS = {
-    "queue": "the multi-process launch (parallel/multihost.py)",
-    "verify": "the determinism check (parallel/validate.py)",
+    "queue": "the multi-process launch (parallel/multihost.py, ROADMAP.md queue 1 item 23)",
 }
 
 
 def main(argv=None) -> int:
-    """Command line interface: ``python -m draco_tpu_torch {run,lint,makeproducts,makesky} ...``.
+    """Command line interface: ``python -m draco_tpu_torch {run,lint,verify,makeproducts,makesky} ...``.
 
     ``run`` and ``lint`` mirror the reference's ``caput-pipeline``;
+    ``verify`` runs a config several times and demands identical products
+    (exit 1 and ``VERIFY FAILED`` otherwise);
     ``makeproducts`` and ``makesky`` re-provide ``drift-makeproducts`` and
     ``cora-makesky`` (reference doc/tutorial.rst:78-119).  ``--platform
     cpu`` makes the CPU the process default device (the card otherwise).
@@ -590,6 +591,14 @@ def main(argv=None) -> int:
     p_run.add_argument("configfile")
     p_lint = sub.add_parser("lint", help="validate a pipeline config")
     p_lint.add_argument("configfile", nargs="+")
+    p_verify = sub.add_parser(
+        "verify", help="run a pipeline config several times and check that its products are reproducible"
+    )
+    p_verify.add_argument("configfile")
+    p_verify.add_argument("--runs", type=int, default=2)
+    p_verify.add_argument(
+        "--rtol", type=float, default=0.0, help="relative tolerance (0 = bitwise reproducibility)"
+    )
     p_prod = sub.add_parser(
         "makeproducts",
         help="generate beam-transfer products from a product config (drift-makeproducts equivalent)",
@@ -628,6 +637,21 @@ def main(argv=None) -> int:
     with default_device(args.platform):
         if args.command == "run":
             run(args.configfile)
+            return 0
+        if args.command == "verify":
+            from ..parallel.validate import DeterminismError, check_pipeline_determinism
+
+            with open(args.configfile) as f:
+                cfg_text = f.read()
+            try:
+                summary = check_pipeline_determinism(cfg_text, runs=args.runs, rtol=args.rtol)
+            except DeterminismError as e:
+                print(f"VERIFY FAILED: {e}")
+                return 1
+            print(
+                f"verify ok: {summary['products']} product labels, "
+                f"{summary['arrays']} arrays reproducible over {args.runs} runs"
+            )
             return 0
         if args.command == "makeproducts":
             from ..telescope.manager import ProductManager

@@ -35,6 +35,7 @@ __all__ = [
     "banded_covariance_batched",
     "beamform_plan",
     "beamform_sums",
+    "legendre_block",
     "tile_rows",
     "tile_windows",
     "launches",
@@ -43,7 +44,7 @@ __all__ = [
 
 # kernel name -> launches since the last reset (incremented only where a
 # kernel is actually launched)
-launches: dict[str, int] = {"banded_covariance": 0, "beamform": 0}
+launches: dict[str, int] = {"banded_covariance": 0, "beamform": 0, "legendre": 0}
 
 
 def reset_launches() -> None:
@@ -247,3 +248,84 @@ def beamform_sums(vis, sw, vw, ra_idx, a, b, u, v, natural: bool):
         raise RuntimeError(f"beamform kernel launch failed: CUDA error {err}")
     launches["beamform"] += 1
     return F, W, Q
+
+
+def _legendre_lib() -> ctypes.CDLL:
+    lib = _build.load("legendre")
+    if lib.legendre_f64.argtypes is None:
+        for fn in (lib.legendre_f64, lib.legendre_f32, lib.legendre_2f):
+            fn.argtypes = [ctypes.c_void_p] * (8 if fn is lib.legendre_2f else 7) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+# the working type of each mode of legendre_block
+LEGENDRE_MODES = {"f64": torch.float64, "f32": torch.float32, "2f": torch.float64}
+# rings a row of the kernel's output is padded to: a warp's 32 stores then
+# fill whole 32-byte sectors (rows of 4095 rings, unpadded, took the kernel
+# 2.2-2.4x as long on chip_smoke.py phase 21's chunk on an H100)
+LEGENDRE_ROW_ALIGN = 32
+
+
+def legendre_block(x, lnsin, cm_c, a_tab, b_tab, mv, mode: str, l0: int = 0):
+    """Lambda[l - l0, c, r] for l = l0..L by the upward l-recurrence.
+
+    x, lnsin [R]; cm_c [C] seed log coefficients; a_tab, b_tab [L+1, C]; mv
+    [C] the m values, none below ``l0``.  ``mode`` "f64" and "f32" run the
+    recurrence in that type and return [L+1-l0, C, R] of it; "2f" runs it in
+    float64 and returns the pair (hi float32, lo bfloat16).  Every argument
+    is in the mode's working type (``LEGENDRE_MODES``) but ``mv`` (integer).
+    On CPU tensors this is :func:`draco_tpu_torch.ops.sht._legendre_block_core`;
+    on the card one launch of ``csrc/legendre.cu``, whose output rows are
+    padded to a multiple of ``LEGENDRE_ROW_ALIGN`` rings (the result is a
+    view of the first R of each).
+    """
+    if mode not in LEGENDRE_MODES:
+        raise ValueError(f"mode must be one of {sorted(LEGENDRE_MODES)}, got {mode!r}")
+    inputs = (x, lnsin, cm_c, a_tab, b_tab)
+    (R,), (C,) = x.shape, mv.shape
+    L1 = a_tab.shape[0]
+    if lnsin.shape != (R,) or cm_c.shape != (C,) or a_tab.shape != (L1, C) or b_tab.shape != (L1, C):
+        raise ValueError(
+            f"expected x, lnsin [R], cm_c, mv [C], a_tab, b_tab [L+1, C]; got "
+            + ", ".join(str(tuple(t.shape)) for t in (*inputs, mv))
+        )
+    if not 0 <= l0 <= L1:
+        raise ValueError(f"l0 must lie in [0, {L1}], got {l0}")
+    if all(t.device.type == "cpu" for t in (*inputs, mv)):
+        # sht imports this module for the wrapper: its plain version is
+        # reached at call time
+        from .sht import _legendre_block_core
+
+        return _legendre_block_core(x, lnsin, cm_c, a_tab, b_tab, mv, two_float=mode == "2f", l0=l0)
+    dev = x.device
+    if not all(t.is_cuda and t.device == dev for t in (*inputs, mv)):
+        raise ValueError("the legendre inputs must share one CUDA device")
+    wdt = LEGENDRE_MODES[mode]
+    if any(t.dtype != wdt for t in inputs) or mv.dtype not in (torch.int32, torch.int64):
+        raise TypeError(
+            f"the CUDA legendre kernel's mode {mode!r} takes {wdt} and an integer mv, got "
+            + ", ".join(str(t.dtype) for t in (*inputs, mv))
+        )
+    inputs = [t.contiguous() for t in inputs]
+    mv32 = mv.to(torch.int32).contiguous()
+    lib = _legendre_lib()
+    rs = -(-R // LEGENDRE_ROW_ALIGN) * LEGENDRE_ROW_ALIGN
+    shape = (L1 - l0, C, rs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = [t.data_ptr() for t in inputs] + [mv32.data_ptr()]
+        if mode == "2f":
+            hi = torch.empty(shape, dtype=torch.float32, device=dev)
+            lo = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+            err = lib.legendre_2f(*ptrs, hi.data_ptr(), lo.data_ptr(), L1, l0, C, R, rs, stream)
+            result = (hi[..., :R], lo[..., :R])
+        else:
+            result = torch.empty(shape, dtype=wdt, device=dev)
+            fn = lib.legendre_f64 if mode == "f64" else lib.legendre_f32
+            err = fn(*ptrs, result.data_ptr(), L1, l0, C, R, rs, stream)
+            result = result[..., :R]
+    if err != 0:
+        raise RuntimeError(f"legendre kernel launch failed: CUDA error {err}")
+    launches["legendre"] += 1
+    return result

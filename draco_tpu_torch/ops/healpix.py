@@ -347,15 +347,19 @@ def ud_grade(map_in, nside_out: int):
     return out
 
 
-def smooth_gaussian(map_in, fwhm: float, lmax: int | None = None):
+def smooth_gaussian(map_in, fwhm: float, lmax: int | None = None, device=None):
     """Smooth a RING map with a Gaussian beam of the given FWHM (radians).
 
     Equivalent of ``healpy.smoothing``: the map is transformed with the
     native SHT, the alm are multiplied by ``exp(-l(l+1) sigma^2 / 2)``, and
-    synthesised back.  Batched over any leading axes; runs on the CPU.
+    synthesised back.  Batched over any leading axes.  The transforms run
+    on ``device`` (:func:`draco_tpu_torch.device.resolve`:
+    the first CUDA card unless the CPU is asked for); the result is a host
+    numpy array.
     """
     import torch
 
+    from ..device import resolve
     from . import sht as sht_mod
 
     map_in = np.asarray(map_in)
@@ -369,8 +373,9 @@ def smooth_gaussian(map_in, fwhm: float, lmax: int | None = None):
     ell = np.arange(lmax + 1)
     bl = np.exp(-0.5 * ell * (ell + 1) * sigma**2)
 
+    dev = resolve(device)
     t = sht_mod.get_sht(nside, lmax, lmax)
-    alm = t.analysis(torch.as_tensor(np.atleast_2d(map_in)), iter=3)
-    alm = alm * torch.as_tensor(bl[np.newaxis, :, np.newaxis])
-    out = t.synthesis(alm).numpy()
+    alm = t.analysis(torch.as_tensor(np.atleast_2d(map_in), device=dev), iter=3)
+    alm = alm * torch.as_tensor(bl[np.newaxis, :, np.newaxis], device=dev)
+    out = t.synthesis(alm).cpu().numpy()
     return out.reshape(map_in.shape)

@@ -4,23 +4,37 @@ Conventions match healpy: fully normalised spherical harmonics with the
 Condon-Shortley phase; real fields store only m >= 0 coefficients as a
 dense ``alm[..., l, m]`` array of shape [lmax+1, mmax+1].
 
-The transform runs from precomputed tables, built once per (device,
-dtype) by :meth:`SHT.tables`:
+The Legendre tensor Lambda[l, m, ring] comes from an upward l-recurrence
+with power-of-two rescaling (libsharp style): on the card one launch of
+the hand-written kernel ``csrc/legendre.cu``
+(:func:`draco_tpu_torch.ops.cuda_kernels.legendre_block`), on the CPU its
+plain version :func:`_legendre_block_core`.  The float32 tensors are
+two-float: the recurrence runs in float64 and each value is kept as a
+float32 ``hi`` plus a bfloat16 ``lo`` residual.  The ring-DFT factors
+reduce their phases exactly in integers (every HEALPix azimuth is
+pi(2j+s)/n) before any floating-point trig.  Both keep the round trip
+inside the 1e-5 map-error contract in float32; float64 (exact trig,
+single float64 Legendre) is the reference.
 
-* the Legendre tensor Lambda[l, m, ring], split into the equatorial belt
-  and the width-split polar-cap row groups, from an upward l-recurrence
-  with power-of-two rescaling (libsharp style).  The float32 tables are
-  two-float: the recurrence runs in float64 and each value is stored as a
-  float32 ``hi`` plus a bfloat16 ``lo`` residual;
-* the ring-DFT factors, whose phases are reduced exactly in integers
-  (every HEALPix azimuth is pi(2j+s)/n) before any floating-point trig.
+:meth:`SHT.analysis` and :meth:`SHT.synthesis` take one of two routes:
 
-Both keep the round trip inside the 1e-5 map-error contract in float32.
-The float64 tables (exact trig, single float64 Legendre) are the
-reference runs.  Only real maps are transformed directly; complex maps go
-through :meth:`SHT.analysis_complex`.  The table builders put their
-tables on ``device``, the first CUDA card when none is named
-(:func:`draco_tpu_torch.device.resolve`).
+* ``"tables"``: the whole Legendre tensor, split into the equatorial belt
+  and the width-split polar-cap row groups, and the ring-DFT plan, built
+  once per (device, dtype) by :meth:`SHT.tables` and cached on the
+  instance;
+* ``"chunked"``: nothing cached; the Legendre rows of ``chunk_m`` m at a
+  time (and the cap DFT factors of those m) are made on the fly and
+  contracted at once, as the JAX package's public transforms always do.
+
+The tables are taken when their bytes (:meth:`SHT.table_bytes`) fit
+:data:`TABLE_BUDGET_BYTES`: every transform up to nside 256 at full lmax,
+where they are at most a few GB; at nside 512 and full lmax they are
+~42 GB, and at nside 1024 hundreds.  The round trips and the beam-transfer
+generator call :meth:`SHT.tables` themselves.  Complex maps are analysed
+directly (as the sum of their real and imaginary parts' transforms);
+:meth:`SHT.analysis_complex` gives both the m >= 0 and the m < 0
+coefficients.  Table builders put their tables on ``device``, the first
+CUDA card when none is named (:func:`draco_tpu_torch.device.resolve`).
 """
 
 from __future__ import annotations
@@ -31,16 +45,24 @@ import numpy as np
 import torch
 
 from ..device import as_tensor, resolve
-from . import healpix
+from . import cuda_kernels, healpix
 from .tools import sincos_turns
 
-__all__ = ["SHT", "get_sht", "alm2map", "map2alm", "sphtrans_sky", "sphtrans_inv_sky"]
+__all__ = [
+    "SHT", "TABLE_BUDGET_BYTES", "get_sht", "alm2map", "map2alm", "sphtrans_sky", "sphtrans_inv_sky",
+]
 
 # Power-of-two block for the dynamic rescaling of the Legendre recurrence.
 _SCALE_BITS = 60
 _LN2 = float(np.log(2.0))
 # width-split buckets of the polar-cap rows (see SHT._build_groups)
 _CAP_WSPLIT = 16
+# Most bytes of cached tables (Legendre tensor and ring plan, see
+# SHT.table_bytes) that SHT.analysis/synthesis build and keep on a device:
+# nside 256 at lmax = mmax = 767 needs 5.3 GB in float32 and 8.2 GB in
+# float64; nside 512 at lmax 1535 needs 43 GB in float32 and goes chunk by
+# chunk, as does nside 1024 (341 GB at lmax 3071, 113 GB at lmax 1535).
+TABLE_BUDGET_BYTES = 16 * 2**30
 
 
 def _seed_log_coeff(mmax: int) -> np.ndarray:
@@ -73,11 +95,13 @@ def _recurrence_tables(lmax: int, mmax: int):
     return a, b
 
 
-def _legendre_block_core(x, lnsin, cm_c, a_tab, b_tab, mv, two_float=False):
-    """Lambda[l, c, r] by upward recurrence over l (one step per l).
+def _legendre_block_core(x, lnsin, cm_c, a_tab, b_tab, mv, two_float=False, l0=0):
+    """Lambda[l - l0, c, r] for l = l0..L by upward recurrence over l (one
+    step per l): the plain version of ``csrc/legendre.cu``.
 
     x [R] cos(theta); lnsin [R]; cm_c [C] seed log coefficients; a_tab,
-    b_tab [L+1, C]; mv [C] the m values.  The working dtype follows
+    b_tab [L+1, C]; mv [C] the m values, none below ``l0`` (the rows l < l0
+    are then all zeros and are left out).  The working dtype follows
     ``a_tab``.  With ``two_float`` (float64 working dtype) the result is
     the pair (hi float32, lo bfloat16), written as the recurrence runs so
     the float64 tensor is never materialised.
@@ -94,15 +118,16 @@ def _legendre_block_core(x, lnsin, cm_c, a_tab, b_tab, mv, two_float=False):
 
     two_B = 2.0**_SCALE_BITS
     inv_two_B = 2.0**-_SCALE_BITS
+    nl = lmax1 - l0
     if two_float:
-        hi = torch.empty(lmax1, C, R, dtype=torch.float32, device=dev)
-        lo = torch.empty(lmax1, C, R, dtype=torch.bfloat16, device=dev)
+        hi = torch.empty(nl, C, R, dtype=torch.float32, device=dev)
+        lo = torch.empty(nl, C, R, dtype=torch.bfloat16, device=dev)
     else:
-        out = torch.empty(lmax1, C, R, dtype=dtype, device=dev)
+        out = torch.empty(nl, C, R, dtype=dtype, device=dev)
     zeros = torch.zeros(C, R, dtype=dtype, device=dev)
     p_prev, p_curr = zeros, zeros
     e = torch.zeros(C, R, dtype=torch.int32, device=dev)
-    for l in range(lmax1):
+    for l in range(l0, lmax1):
         is_seed = (mv == l)[:, None]
         a_l = a_tab[l][:, None]
         b_l = b_tab[l][:, None]
@@ -121,10 +146,10 @@ def _legendre_block_core(x, lnsin, cm_c, a_tab, b_tab, mv, two_float=False):
         lam = torch.where(l >= mv[:, None], lam, zeros)
         if two_float:
             h = lam.to(torch.float32)
-            hi[l] = h
-            lo[l] = (lam - h.to(lam.dtype)).to(torch.bfloat16)
+            hi[l - l0] = h
+            lo[l - l0] = (lam - h.to(lam.dtype)).to(torch.bfloat16)
         else:
-            out[l] = lam
+            out[l - l0] = lam
         p_prev, p_curr, e = p_base, p_new, e_new
     return (hi, lo) if two_float else out
 
@@ -137,15 +162,23 @@ class SHT:
     """Spherical harmonic transform operator for one (nside, lmax, mmax).
 
     Host geometry is built here; device tables come from :meth:`tables`
-    (cached on the instance per device and dtype).
+    (cached on the instance per device and dtype).  ``chunk_m`` is the
+    number of m values whose Legendre rows the chunked route makes and
+    contracts at a time.  ``last_route`` names the route the last
+    :meth:`analysis` or :meth:`synthesis` took (``"tables"`` or
+    ``"chunked"``; None before the first).
     """
 
-    def __init__(self, nside: int, lmax: int | None = None, mmax: int | None = None):
+    def __init__(self, nside: int, lmax: int | None = None, mmax: int | None = None, chunk_m: int = 64):
         self.nside = nside
         self.lmax = int(lmax) if lmax is not None else 3 * nside - 1
         self.mmax = int(mmax) if mmax is not None else self.lmax
         if self.mmax > self.lmax:
             raise ValueError("mmax cannot exceed lmax")
+        if chunk_m < 1:
+            raise ValueError(f"chunk_m must be at least 1, got {chunk_m}")
+        self.chunk_m = int(min(chunk_m, self.mmax + 1))
+        self.last_route = None
         # analysis needs mmax < 4*nside (the belt's azimuthal sampling);
         # synthesis is exact point sampling at any mmax
         self._analysis_band_limited = self.mmax < 4 * nside
@@ -272,6 +305,36 @@ class SHT:
         c, sn = self._phase_turns(two_ps[:, :, None] * m_d[None, None, :], den, rdt)
         return c * mask, -sn * mask
 
+    def _cap_dft_chunks(self, group, rdt, device, row_scale=None):
+        """(m0, m1, Pr, Pi) for each chunk of m of one cap row group: the
+        factors P[r, j, m] = mask * row_scale[r] * exp(-i m phi_rj), m0 <= m < m1.
+
+        Every phase of row r is a multiple of 2 pi / (2 n_r), so its 2 n_r
+        values are tabulated once (by :meth:`_phase_turns`, as :meth:`_cap_dft`
+        makes them, times row_scale[r]) and a chunk gathers them by the exact
+        integer phase; padding gathers a zero.  The same bits as the whole
+        plan, without the trig of every (r, j, m).
+        """
+        rows_arr, w = group
+        nrow = len(rows_arr)
+        two_ps_h = self._cap_2ps[rows_arr][:, :w]
+        # the phase numerators fit int32 (as in the JAX package) unless nside is huge
+        idt = torch.int32 if int(two_ps_h.max(initial=0)) * max(self.mmax, 1) < 2**31 else torch.int64
+        two_ps = torch.as_tensor(two_ps_h, dtype=idt, device=device)[..., None]
+        den = torch.as_tensor(2 * self._cap_n[rows_arr], dtype=idt, device=device)[:, None]
+        q = torch.arange(2 * w, dtype=idt, device=device).expand(nrow, -1)
+        tc, ts = self._phase_turns(q, den, rdt)  # [rows, 2w]: row r's values at q < 2 n_r
+        if row_scale is not None:
+            tc, ts = tc * row_scale[:, None], ts * row_scale[:, None]
+        zero = torch.zeros(1, dtype=rdt, device=device)
+        tc, ts = torch.cat([tc.reshape(-1), zero]), torch.cat([-ts.reshape(-1), zero])
+        mask = torch.as_tensor(self._cap_mask[rows_arr][:, :w] > 0, device=device)
+        # where each pixel's row starts in the flat tables; padding reads the zero at the end
+        base = torch.where(mask, torch.arange(nrow, dtype=idt, device=device)[:, None] * (2 * w), nrow * 2 * w)[..., None]
+        for m_vals in self._m_chunks():
+            idx = (two_ps * torch.as_tensor(m_vals, dtype=idt, device=device)) % den[..., None] + base
+            yield int(m_vals[0]), int(m_vals[-1]) + 1, tc[idx], ts[idx]
+
     def belt_phase_weight(self, rdt=torch.float32, device=None):
         """(re, im) of exp(-i m phi0_r) * w_r for the belt rings: [nbelt, M+1]."""
         device = resolve(device)
@@ -306,34 +369,69 @@ class SHT:
 
     def _split_sections(self, lam):
         """Slice a [L+1, M+1, R] tensor in section order into the belt/caps dict."""
-        nb = len(self._belt_rings)
-        out = {"belt": lam[:, :, :nb].contiguous(), "caps": []}
-        off = nb
-        for rows_arr, _ in self._cap_wgroups:
-            out["caps"].append(lam[:, :, off : off + len(rows_arr)].contiguous())
-            off += len(rows_arr)
-        return out
+        views = self._section_views(lam)
+        return {"belt": views["belt"].contiguous(), "caps": [c.contiguous() for c in views["caps"]]}
+
+    def _legendre_run(self, rings, m_vals, rdt, device, two_float, l0=0):
+        """Lambda[l - l0, c, r] over ``rings`` for the m of ``m_vals``: one
+        call of :func:`~draco_tpu_torch.ops.cuda_kernels.legendre_block`
+        (the kernel on the card, the plain loop on the CPU)."""
+        mode = "2f" if two_float else ("f64" if rdt == torch.float64 else "f32")
+        wdt = cuda_kernels.LEGENDRE_MODES[mode]
+        rings = np.asarray(rings)
+        m_vals = np.asarray(m_vals)
+        if l0 > int(m_vals.min(initial=l0)):
+            raise ValueError(f"l0 = {l0} lies above the smallest m of the block")
+
+        def t(a):
+            return torch.as_tensor(a, dtype=wdt, device=device)
+
+        return cuda_kernels.legendre_block(
+            t(self._x[rings]), t(self._lnsin[rings]), t(self._cm[m_vals]), t(self._a_tab[:, m_vals]),
+            t(self._b_tab[:, m_vals]), torch.as_tensor(m_vals, device=device), mode, l0=l0,
+        )
 
     def legendre(self, rings, rdt=torch.float32, device=None, two_float=False):
-        """Lambda[l, m, r] over the given rings for all m <= mmax.
+        """Lambda[l, m, r] over the given rings for all m <= mmax, in one
+        kernel launch on the card; contiguous.
 
         ``two_float`` returns the (hi float32, lo bfloat16) pair from a
         float64 recurrence; otherwise the recurrence runs in ``rdt``.
         """
-        device = resolve(device)
-        wdt = torch.float64 if two_float else rdt
-        sdt = torch.float64 if wdt == torch.float64 else torch.float32
-        rings = np.asarray(rings)
-        m_all = np.arange(self.mmax + 1)
-        return _legendre_block_core(
-            torch.as_tensor(self._x[rings], dtype=wdt, device=device),
-            torch.as_tensor(self._lnsin[rings], dtype=sdt, device=device),
-            torch.as_tensor(self._cm[m_all], dtype=sdt, device=device),
-            torch.as_tensor(self._a_tab, dtype=wdt, device=device),
-            torch.as_tensor(self._b_tab, dtype=wdt, device=device),
-            torch.as_tensor(m_all, device=device),
-            two_float=two_float,
-        )
+        lam = self._legendre_run(rings, self._m, rdt, resolve(device), two_float)
+        return tuple(t.contiguous() for t in lam) if two_float else lam.contiguous()
+
+    def _m_chunks(self):
+        for m0 in range(0, self.mmax + 1, self.chunk_m):
+            yield np.arange(m0, min(m0 + self.chunk_m, self.mmax + 1))
+
+    def _legendre_block(self, m_vals, rdt=torch.float32, device=None, two_float=False, l0=0):
+        """Lambda[l - l0, c, r] for the m of this chunk over every ring in
+        ring order (l0 at most the chunk's smallest m: the rows l < m are
+        zeros)."""
+        return self._legendre_run(np.arange(self.info.nring), m_vals, rdt, resolve(device), two_float, l0)
+
+    def precompute_legendre(self, rdt=torch.float32, device=None):
+        """The whole Legendre tensor Lambda[L+1, M+1, R] in ring order, for
+        ``lam=`` of :meth:`_analysis_impl`/:meth:`_synthesis_impl`; the
+        recurrence runs in ``rdt``."""
+        return self.legendre(np.arange(self.info.nring), rdt, device)
+
+    def table_bytes(self, rdt=torch.float32) -> int:
+        """Device bytes of :meth:`tables` for ``rdt``: the Legendre tensor
+        (two-float, 6 bytes a value, for float32; 8 for float64) and the
+        ring plan (complex factors of every belt column and cap pixel)."""
+        esize = 4 if rdt == torch.float32 else 8
+        nlam = (self.lmax + 1) * (self.mmax + 1) * self.info.nring
+        npix_plan = self._belt_nphi + sum(len(rows_arr) * w for rows_arr, w in self._cap_wgroups)
+        return nlam * (esize + 2 if rdt == torch.float32 else esize) + npix_plan * (self.mmax + 1) * 2 * esize
+
+    def route(self, rdt=torch.float32) -> str:
+        """``"tables"`` when :meth:`table_bytes` fit :data:`TABLE_BUDGET_BYTES`,
+        else ``"chunked"``.  It depends on the sizes alone, never on what is
+        cached: two routes round differently, and a transform must give the
+        same bits whatever ran before it."""
+        return "tables" if self.table_bytes(rdt) <= TABLE_BUDGET_BYTES else "chunked"
 
     def precompute_legendre_split(self, rdt=torch.float32, device=None):
         """Per-section Legendre tensors {"belt": [L+1, M+1, nbelt], "caps": [...]}."""
@@ -415,25 +513,34 @@ class SHT:
 
     def _analysis_sections(self, belt, caps, plan, raw_belt=False, mcut=None):
         """Ring DFTs of the belt [..., nbelt, nphi] and the cap groups
-        [..., rows, w]: dense GEMMs against the plan's factors."""
+        [..., rows, w]: dense GEMMs against the plan's factors, or, with
+        ``plan`` None, against factors made on the fly (the cap factors
+        ``chunk_m`` m at a time)."""
         self._require_analysis_band_limit()
+        rdt, dev = belt.dtype, belt.device
         ms = slice(None, mcut)
-        Wr, Wi = (w[:, ms] for w in plan["W"])
+        Wr, Wi = (w[:, ms] for w in (plan["W"] if plan is not None else self._belt_dft(rdt, dev)))
         Fr = belt @ Wr
         Fi = belt @ Wi
         if raw_belt:
             F_belt = torch.complex(Fr, Fi)
         else:
-            pr, pi = (p[:, ms] for p in self.belt_phase_weight(belt.dtype, belt.device))
+            pr, pi = (p[:, ms] for p in self.belt_phase_weight(rdt, dev))
             F_belt = torch.complex(Fr * pr - Fi * pi, Fr * pi + Fi * pr)
+
+        def dft(cap, Pr, Pi):
+            return torch.complex(torch.einsum("...rj,rjm->...rm", cap, Pr), torch.einsum("...rj,rjm->...rm", cap, Pi))
+
         group_F = []
-        for cap, (Pr, Pi) in zip(caps, plan["P"]):
-            group_F.append(
-                torch.complex(
-                    torch.einsum("...rj,rjm->...rm", cap, Pr[..., ms]),
-                    torch.einsum("...rj,rjm->...rm", cap, Pi[..., ms]),
-                )
-            )
+        ring_ids = np.asarray(self._cap_rings)
+        for gi, (cap, grp) in enumerate(zip(caps, self._cap_wgroups)):
+            if plan is not None:
+                Pr, Pi = plan["P"][gi]
+                group_F.append(dft(cap, Pr[..., ms], Pi[..., ms]))
+                continue
+            w_rows = torch.as_tensor(self._w[ring_ids[grp[0]]], dtype=rdt, device=dev)
+            parts = [dft(cap, Pr, Pi) for _, _, Pr, Pi in self._cap_dft_chunks(grp, rdt, dev, w_rows)]
+            group_F.append(torch.cat(parts, dim=-1)[..., ms])
         return F_belt, group_F
 
     def _contract_alm(self, F_belt, group_F, lam, lam_lo=None):
@@ -459,13 +566,15 @@ class SHT:
                 alm = alm + contract(F_g, lam_g)
         return alm
 
-    def _ring_synthesis_parts(self, G_belt, G_caps, plan):
+    def _ring_synthesis_parts(self, G_belt, G_caps, plan=None):
         """Real maps [..., npix] from per-section ring coefficients.
 
         f(r, j) = Re sum_m c_m G_m(r) e^{i m phi_rj} with c_0 = 1, c_m>0 = 2
-        (real-field Hermitian doubling), as dense inverse DFTs.  The plan's
-        cap factors carry the analysis quadrature weight, divided back out
-        through the per-row coefficient.
+        (real-field Hermitian doubling), as dense inverse DFTs, exact at any
+        mmax (also mmax >= 4 nside, where the belt's azimuths alias).  The
+        plan's cap factors carry the analysis quadrature weight, divided back
+        out through the per-row coefficient; with ``plan`` None the cap
+        factors are made ``chunk_m`` m at a time and summed.
         """
         rdt = G_belt.real.dtype
         dev = G_belt.device
@@ -480,15 +589,19 @@ class SHT:
         if not self._ncap:
             return f_belt
 
+        def idft(gc, Pr, Pi):
+            # Re(gc * conj(P)) = Re(gc) Re(P) + Im(gc) Im(P)
+            return torch.einsum("...rm,rjm->...rj", gc.real, Pr) + torch.einsum("...rm,rjm->...rj", gc.imag, Pi)
+
         ring_ids = np.asarray(self._cap_rings)
         f_groups = []
-        for (rows_arr, _), g_cap, (Pr, Pi) in zip(self._cap_wgroups, G_caps, plan["P"]):
-            inv_w = torch.as_tensor(1.0 / self._w[ring_ids[rows_arr]], dtype=rdt, device=dev)
-            gc = g_cap * (cm[None, :] * inv_w[:, None])
-            # Re(gc * conj(P)) = Re(gc) Re(P) + Im(gc) Im(P)
-            f = torch.einsum("...rm,rjm->...rj", gc.real, Pr) + torch.einsum(
-                "...rm,rjm->...rj", gc.imag, Pi
-            )
+        for gi, (grp, g_cap) in enumerate(zip(self._cap_wgroups, G_caps)):
+            if plan is not None:
+                inv_w = torch.as_tensor(1.0 / self._w[ring_ids[grp[0]]], dtype=rdt, device=dev)
+                f = idft(g_cap * (cm[None, :] * inv_w[:, None]), *plan["P"][gi])
+            else:
+                gc = g_cap * cm
+                f = sum(idft(gc[..., m0:m1], Pr, Pi) for m0, m1, Pr, Pi in self._cap_dft_chunks(grp, rdt, dev))
             f_groups.append(f.reshape(*f.shape[:-2], -1))
         flat = torch.cat(f_groups, dim=-1)
         north = flat[..., torch.as_tensor(self._cap_src_north, device=dev)]
@@ -498,10 +611,85 @@ class SHT:
     # ------------------------------------------------------------------
     # transforms
     # ------------------------------------------------------------------
-    def _analysis_impl(self, maps, lam, plan, lam_lo=None):
-        """alm[..., lmax+1, mmax+1] (complex) of real maps [..., npix]."""
+    def _chunk_legendre(self, m_vals, rdt, device):
+        """(Lambda, Lambda_lo) [L+1-m0, C, R] of one chunk of m over the rings
+        in section order (:meth:`_section_rings`), from row m0 = its smallest
+        m: two-float for float32, float64 with lo None."""
+        rings = self._section_rings()
+        m0 = int(m_vals[0])
+        if rdt == torch.float64:
+            return self._legendre_run(rings, m_vals, rdt, device, False, m0), None
+        return self._legendre_run(rings, m_vals, rdt, device, True, m0)
+
+    def _section_slices(self):
+        """(start, stop) of each section (belt, then the cap groups) in
+        :meth:`_section_rings` order."""
+        bounds = np.cumsum([0, len(self._belt_rings)] + [len(rows_arr) for rows_arr, _ in self._cap_wgroups])
+        return list(zip(bounds[:-1].tolist(), bounds[1:].tolist()))
+
+    def _dense_sections(self, lam):
+        """A whole Legendre tensor [L+1, M+1, R] in ring order, or None, as the
+        per-section dict of :meth:`precompute_legendre_split`."""
+        if lam is None or isinstance(lam, dict):
+            return lam
+        return self._section_views(lam[:, :, torch.as_tensor(self._section_rings(), device=lam.device)])
+
+    def _section_views(self, lam):
+        """Views of a [.., .., R] tensor in :meth:`_section_rings` order as the
+        per-section dict of :meth:`precompute_legendre_split` (None stays None)."""
+        if lam is None:
+            return None
+        secs = [lam[:, :, r0:r1] for r0, r1 in self._section_slices()]
+        return {"belt": secs[0], "caps": secs[1:]}
+
+    def _contract_alm_chunked(self, F_belt, group_F):
+        """:meth:`_contract_alm` with the Legendre rows made ``chunk_m`` m at a
+        time: each chunk contracted as the tables are, section by section."""
+        alm = torch.zeros(*F_belt.shape[:-2], self.lmax + 1, self.mmax + 1, dtype=F_belt.dtype, device=F_belt.device)
+        for m_vals in self._m_chunks():
+            m0, m1 = int(m_vals[0]), int(m_vals[-1]) + 1
+            lam_c, lo_c = (self._section_views(p) for p in self._chunk_legendre(m_vals, F_belt.real.dtype, F_belt.device))
+            alm[..., m0:, m0:m1] = self._contract_alm(F_belt[..., m0:m1], [F[..., m0:m1] for F in group_F], lam_c, lo_c)
+            del lam_c, lo_c
+        return alm
+
+    def _legendre_sections_chunked(self, alm):
+        """:meth:`_legendre_sections` with the Legendre rows made ``chunk_m`` m
+        at a time."""
+        lead = alm.shape[:-2]
+        G = [
+            torch.zeros(*lead, r1 - r0, self.mmax + 1, dtype=alm.dtype, device=alm.device)
+            for r0, r1 in self._section_slices()
+        ]
+        for m_vals in self._m_chunks():
+            m0, m1 = int(m_vals[0]), int(m_vals[-1]) + 1
+            lam_c, lo_c = (self._section_views(p) for p in self._chunk_legendre(m_vals, alm.real.dtype, alm.device))
+            G_belt, G_caps = self._legendre_sections(alm[..., m0:, m0:m1], lam_c, lo_c)
+            for G_s, g in zip(G, [G_belt, *G_caps]):
+                G_s[..., m0:m1] = g
+            del lam_c, lo_c
+        return G[0], G[1:]
+
+    def _analysis_impl(self, maps, lam=None, plan=None, lam_lo=None):
+        """alm[..., lmax+1, mmax+1] (complex) of real or complex maps [..., npix].
+
+        ``lam``: the split tables of :meth:`tables` (with their ``plan`` and,
+        for float32, ``lam_lo``); a whole Legendre tensor [L+1, M+1, R] of
+        :meth:`precompute_legendre` (optionally with a whole ``lam_lo``); or
+        None, for the chunked route: the Legendre rows of ``chunk_m`` m at a
+        time, from row min(m) of the chunk (the rows above are zeros),
+        contracted against the ring coefficients as they are made.  Without
+        a ``plan`` the ring-DFT factors are made on the fly, the cap ones a
+        chunk of m at a time.  A complex map's alm are those of its real
+        part plus i those of its imaginary part.
+        """
+        if maps.is_complex():
+            ri = self._analysis_impl(torch.stack([maps.real, maps.imag]), lam, plan, lam_lo)
+            return ri[0] + 1j * ri[1]
         F_belt, group_F = self._ring_analysis_parts(maps, plan)
-        return self._contract_alm(F_belt, group_F, lam, lam_lo)
+        if lam is None:
+            return self._contract_alm_chunked(F_belt, group_F)
+        return self._contract_alm(F_belt, group_F, self._dense_sections(lam), self._dense_sections(lam_lo))
 
     @staticmethod
     def _legendre_sections(alm, lam, lam_lo=None):
@@ -523,14 +711,38 @@ class SHT:
             G_caps = [g + contract(c) for g, c in zip(G_caps, lam_lo["caps"])]
         return G_belt, G_caps
 
-    def _synthesis_impl(self, alm, lam, plan, lam_lo=None):
-        """Real maps [..., npix] from alm[..., lmax+1, mmax+1]."""
-        G_belt, G_caps = self._legendre_sections(alm, lam, lam_lo)
+    def _synthesis_impl(self, alm, lam=None, plan=None, lam_lo=None):
+        """Real maps [..., npix] from alm[..., lmax+1, mmax+1].
+
+        ``lam`` and ``plan`` as for :meth:`_analysis_impl`: the split tables,
+        a whole Legendre tensor, or None for the chunked route.
+        """
+        if lam is None:
+            G_belt, G_caps = self._legendre_sections_chunked(alm)
+        else:
+            G_belt, G_caps = self._legendre_sections(alm, self._dense_sections(lam), self._dense_sections(lam_lo))
         return self._ring_synthesis_parts(G_belt, G_caps, plan)
 
+    def _route_tables(self, device, rdt):
+        """(lam, lam_lo, plan) of the route :meth:`route` picks: the cached
+        tables, or Nones for the chunked route; records it in ``last_route``."""
+        self.last_route = self.route(rdt)
+        if self.last_route == "tables":
+            return self.tables(device, rdt)
+        return None, None, None
+
     def analysis(self, maps: torch.Tensor, iter: int = 0) -> torch.Tensor:
-        """map2alm of real maps with optional Jacobi iterations (healpy-style)."""
-        lam, lam_lo, plan = self.tables(maps.device, maps.dtype)
+        """map2alm of real or complex maps with optional Jacobi iterations
+        (healpy-style).
+
+        Complex maps iterate on their real and imaginary parts, stacked into
+        one batch (the real-field synthesis of the residual assumes a
+        Hermitian spectrum); with ``iter=0`` they are analysed directly.
+        """
+        if iter > 0 and maps.is_complex():
+            ri = self.analysis(torch.stack([maps.real, maps.imag]), iter=iter)
+            return ri[0] + 1j * ri[1]
+        lam, lam_lo, plan = self._route_tables(maps.device, maps.real.dtype)
         alm = self._analysis_impl(maps, lam, plan, lam_lo)
         for _ in range(iter):
             resid = maps - self._synthesis_impl(alm, lam, plan, lam_lo)
@@ -539,7 +751,7 @@ class SHT:
 
     def synthesis(self, alm: torch.Tensor) -> torch.Tensor:
         """alm2map for a real field (m >= 0 coefficients)."""
-        lam, lam_lo, plan = self.tables(alm.device, alm.real.dtype)
+        lam, lam_lo, plan = self._route_tables(alm.device, alm.real.dtype)
         return self._synthesis_impl(alm, lam, plan, lam_lo)
 
     def analysis_complex(self, maps: torch.Tensor):

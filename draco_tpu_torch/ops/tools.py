@@ -31,6 +31,7 @@ temporary of the stream's size.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,7 +40,7 @@ __all__ = [
     "invert_no_zero", "twofloat_split", "phase_frac", "threefloat_split", "phase_frac3", "sincos_turns",
     "find_key", "find_keys", "find_inputs", "redefine_stack_index_map", "cmap", "icmap",
     "unique_pair_indices", "apply_gain", "extract_diagonal", "unpack_product_array", "redundancy_index",
-    "calculate_redundancy", "stack_redundancy",
+    "calculate_redundancy", "stack_redundancy", "segment_plan", "segment_sum",
     "axis_blocks", "svd", "window_generalised", "broadcast_weights", "correct_phase_wrap", "find_contiguous_slices",
     "penalized_least_squares_1d", "arPLS_1d", "IarPLS_1d", "apply_hysteresis_threshold", "taper_mask",
     "polarization_map", "baseline_vector",
@@ -365,6 +366,63 @@ def axis_blocks(n: int, elements_per_index: int, max_elements: int = BLOCK_ELEME
     step = max(1, max_elements // max(1, elements_per_index))
     for start in range(0, n, step):
         yield start, min(start + step, n)
+
+
+class SegmentPlan(NamedTuple):
+    """The fixed-order sum of a segment sum (:func:`segment_plan`).
+
+    ``order`` sorts the items by output (stably).  In that order each
+    output's items are summed as a pairwise tree: level s adds the item s
+    places on into every item whose rank in its output is a multiple of
+    2 s, ``levels[k] = (into, from)`` for s = 2^k, until each output's
+    first item (at ``heads``, for the outputs ``outs`` that have items)
+    holds its sum.
+    """
+
+    nout: int
+    order: torch.Tensor
+    levels: list
+    heads: torch.Tensor
+    outs: torch.Tensor
+
+
+def segment_plan(dst, nout: int, device) -> SegmentPlan:
+    """Plan of the sum of items i into outputs ``dst[i]`` (host ints in [0, nout))."""
+    dst = np.asarray(dst, dtype=np.int64)
+    order = np.argsort(dst, kind="stable")
+    sd = dst[order]
+    first = np.searchsorted(sd, sd)
+    rank = np.arange(len(sd)) - first
+    count = np.bincount(sd, minlength=nout)[sd]
+    levels = []
+    step = 1
+    while step < int(count.max(initial=0)):
+        into = np.flatnonzero((rank % (2 * step) == 0) & (rank + step < count))
+        levels.append((torch.as_tensor(into, device=device), torch.as_tensor(into + step, device=device)))
+        step *= 2
+    outs = np.unique(sd)
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return SegmentPlan(nout, t(order), levels, t(np.searchsorted(sd, outs)), t(outs))
+
+
+def segment_sum(x: torch.Tensor, plan: SegmentPlan, dim: int = 1) -> torch.Tensor:
+    """Sum the items along ``dim`` of ``x`` into the outputs of ``plan``, in a
+    fixed order: the same bits on every run and on either device.
+
+    ``index_add_`` on a CUDA tensor adds repeated indices with atomics, in
+    an order that changes from run to run; here each level of the pairwise
+    tree writes every item at most once.
+    """
+    y = x.index_select(dim, plan.order)
+    for into, src in plan.levels:
+        y.index_copy_(dim, into, y.index_select(dim, into) + y.index_select(dim, src))
+    shape = list(x.shape)
+    shape[dim] = plan.nout
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    return out.index_copy_(dim, plan.outs, y.index_select(dim, plan.heads))
 
 
 def apply_gain(vis: torch.Tensor, gain, axis: int = 1, out: torch.Tensor | None = None, prod_map=None):

@@ -137,7 +137,7 @@ class ResizeSelectionFunctionMap(ContainerTask):
 
         if self.smooth:
             fwhm = hpx.nside2resol(selfunc.nside)
-            resized = np.array(hpx.smooth_gaussian(resized, fwhm=fwhm))
+            resized = np.array(hpx.smooth_gaussian(resized, fwhm=fwhm, device=new_selfunc.device))
 
         resized = np.where(resized < 0, 0.0, resized)
 

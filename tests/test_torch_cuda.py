@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from draco_tpu_torch.ops import banded, cuda_kernels, regrid
+from draco_tpu_torch.ops import banded, cuda_kernels, regrid, tools
 
 pytestmark = pytest.mark.cuda
 
@@ -792,3 +792,85 @@ def test_dpss_solve_on_the_card_matches_the_cpu(cuda, dtype):
     # the kept modes reach down to 1e-12 of the largest eigenvalue, where the eigenvectors are known only to
     # eps / 1e-12: the span agrees to ~1e-5 (2.0e-5 measured), the same modes kept
     assert Ag.shape == A.shape and _crel((Ag @ Ag.T).cpu(), A @ A.T) <= 1e-4
+
+
+# -- the Legendre recurrence kernel and the chunked SHT -------------------------
+
+
+def _legendre_case(s, m_vals, mode, device):
+    wdt = cuda_kernels.LEGENDRE_MODES[mode]
+
+    def t(a):
+        return torch.as_tensor(a, dtype=wdt, device=device)
+
+    r = np.arange(s.info.nring)
+    return (t(s._x[r]), t(s._lnsin[r]), t(s._cm[m_vals]), t(s._a_tab[:, m_vals]), t(s._b_tab[:, m_vals]),
+            torch.as_tensor(m_vals, device=device))
+
+
+@pytest.mark.parametrize("mode", ["f64", "f32", "2f"])
+@pytest.mark.parametrize("nside,lmax,m0,chunk,l0", [(64, 191, 0, 64, 0), (64, 191, 128, 64, 128), (8, 383, 320, 64, 0),
+                                                     (128, 383, 0, 384, 0)])
+def test_legendre_kernel_matches_plain(cuda, mode, nside, lmax, m0, chunk, l0):
+    """The kernel against its plain version on the same card inputs: float64
+    within 1e-12 of the block's largest value, two-float hi + lo within 1e-9,
+    float32 within 1e-5.  (8, 383, m 320-383) is the polar-underflow regime."""
+    from draco_tpu_torch.ops import sht
+
+    s = sht.SHT(nside, lmax, lmax)
+    m_vals = np.arange(m0, m0 + chunk)
+    args = _legendre_case(s, m_vals, mode, cuda)
+    before = cuda_kernels.launches["legendre"]
+    got = cuda_kernels.legendre_block(*args, mode, l0=l0)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["legendre"] == before + 1
+    ref = sht._legendre_block_core(*args, two_float=mode == "2f", l0=l0)
+    if mode == "2f":
+        assert got[0].dtype == torch.float32 and got[1].dtype == torch.bfloat16
+        got, ref = (got[0].double() + got[1].double()), (ref[0].double() + ref[1].double())
+    scale = ref.double().abs().max()
+    tol = {"f64": 1e-12, "2f": 1e-9, "f32": 1e-5}[mode]
+    assert got.shape == (lmax + 1 - l0, chunk, s.info.nring)
+    assert ((got.double() - ref.double()).abs().max() / scale).item() <= tol
+    assert bool(torch.isfinite(got).all())
+
+
+def test_legendre_kernel_refuses_what_it_does_not_take(cuda):
+    from draco_tpu_torch.ops import sht
+
+    s = sht.SHT(8)
+    args = _legendre_case(s, np.arange(8), "f64", cuda)
+    with pytest.raises(TypeError):
+        cuda_kernels.legendre_block(*args, "f32")
+    with pytest.raises(ValueError):
+        cuda_kernels.legendre_block(*args[:-1], args[-1].cpu(), "f64")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chunked_sht_on_the_card_matches_the_cpu(cuda, dtype, monkeypatch):
+    """The chunked route on the card launches the kernel once a chunk and
+    agrees with the CPU's: 1e-5 in float32, 1e-10 in float64."""
+    from draco_tpu_torch.ops import sht
+
+    monkeypatch.setattr(sht, "TABLE_BUDGET_BYTES", 0)
+    s = sht.SHT(32, 95, 95, chunk_m=16)
+    maps = torch.from_numpy(np.random.Generator(np.random.SFC64(5)).standard_normal((2, 12 * 32**2))).to(dtype)
+    before = cuda_kernels.launches["legendre"]
+    alm = s.analysis(maps.to(cuda))
+    back = s.synthesis(alm)
+    torch.cuda.synchronize()
+    assert s.last_route == "chunked" and cuda_kernels.launches["legendre"] == before + 12
+    tol = 1e-5 if dtype == torch.float32 else 1e-10
+    assert _crel(alm.cpu(), s.analysis(maps)) <= tol
+    assert _rel(back.cpu(), s.synthesis(alm.cpu())) <= tol
+
+
+def test_segment_sum_on_the_card_is_bitwise_the_cpus(cuda):
+    """The fixed-order segment sum on the card: the CPU's bits, run after run."""
+    rng = np.random.Generator(np.random.SFC64(31))
+    dst = rng.integers(0, 50, 5000)
+    x = torch.from_numpy(rng.standard_normal((4, 5000, 16)) + 1j * rng.standard_normal((4, 5000, 16)))
+    ref = tools.segment_sum(x, tools.segment_plan(dst, 50, "cpu"), 1)
+    plan = tools.segment_plan(dst, 50, cuda)
+    outs = [tools.segment_sum(x.to(cuda), plan, 1).cpu() for _ in range(3)]
+    assert all(torch.equal(o, ref) for o in outs)
