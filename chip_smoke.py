@@ -2,6 +2,7 @@
 """Smoke run of the draco_tpu_torch slices on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --spine-stages tasks,sht [--repo DIR]   # not the smoke: a timing (spine_stages)
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -186,7 +187,9 @@ Phases, each of which raises on failure (exit code != 0):
    transit (``_deconvolve_core``'s normalisation), every pol and channel;
    the tone's delay bin above 10 x every other nonzero
    delay bin of its pixel; every output finite, of its container type and
-   shape (every factorisation's ``info`` 0, or the task raises).
+   shape (every factorisation's ``info`` 0, or the task raises); 17b's
+   config run twice more by ``check_pipeline_determinism`` (rtol 0), keeping
+   the products no task consumes (the 2D and 1D spectra): bit-identical.
 18. the day-stacking and source-beamforming path on phase 17's cylinder and
    band, through the pipeline ``Manager`` (``retain_products: final``):
    this script's ``EmitDayStream`` (three sidereal days of 8640 samples,
@@ -335,7 +338,29 @@ Phases, each of which raises on failure (exit code != 0):
    (``GenerateGaussianSky`` -> ``SimulateSidereal`` -> ``ExpandProducts`` ->
    ``RandomSiderealGains`` -> ``ApplyGain`` -> ``CollateProducts`` ->
    ``StokesIVis`` -> ``DelaySpectrumFFT``) run twice: every product
-   bit-identical.
+   bit-identical;
+22. the multi-device layer (``draco_tpu_torch/parallel``).  22a: the dish
+   array of phases 3 and 10 over 8 channels (bench.py's multi-frequency
+   extra, nside 256, lmax = mmax = 767): a foreground sky ->
+   ``SimulateSidereal`` -> ``MModeTransform`` -> ``DirtyMapMaker`` (both
+   streaming), with ``FrequencyRebin`` (pairs) beside them, through ``python
+   -m draco_tpu_torch run`` under ``pipeline.mesh: {freq: -1}``: launched at
+   world size 1 (``nccl``), as two ranks sharing the card (``gloo``) and,
+   where the machine has two cards or more, one rank per card on 2 or 4
+   cards (``nccl``),
+   the launches at once (each through a file store of its own), beside
+   this process's run of the config with no mesh.  Every product of every
+   rank must be bit-equal to that run (the chain sums nothing across
+   ranks); each rank must run on the backend its launch calls for and
+   launch ``legendre``; prints each rank's peak memory and launches and
+   each launch's wall time.  The Legendre kernel's two launches a rank
+   (the whole table and the band rings of the beam window, which spans
+   all 8 channels) are held against the plain loop on the same inputs, as
+   in phase 3.  22b, while 22a's launches run:
+   ``parallel.dryrun_multichip(2)`` on the card: the explicit spine split
+   over (freq, m), the fused round trip of a sky split over a 1-D ``freq``
+   mesh and the composite chain under a mesh, each against its unsharded
+   run.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -348,6 +373,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -583,6 +609,10 @@ TOL_LEGENDRE = {"f64": 1e-12, "2f": 1e-9, "f32": 1e-5}  # the kernel against its
 VERIFY_NSIDE = 64  # 21b (ii): the small polarised cylinder's simulation
 VERIFY_NFREQ = 16
 VERIFY_SEED = 22
+MESH_NFREQ = 8  # phase 22: bench.py's BENCH_NFREQ extra (bench.py:814), 8 channels over the dish slice's band
+MESH_SEED = 23
+MESH_LABELS = ("sky", "sstream", "srebin", "mmodes", "dmap")
+MESH_TIMEOUT_S = 300  # a launch of phase 22 that takes longer has hung
 
 LSD = 8000
 CHAIN_SAMPLES_PER_DAY = 8640
@@ -2680,6 +2710,7 @@ def run_ringmap(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = RING_NFREQ
     from draco_tpu_torch.analysis.powerspec import jy_per_beam_to_kelvin
     from draco_tpu_torch.analysis.ringmapmaker import WienerRingMapMakerAnalytical, find_grid_indices
     from draco_tpu_torch.core import containers
+    from draco_tpu_torch.parallel import validate
 
     failures = []
 
@@ -2753,7 +2784,18 @@ def run_ringmap(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = RING_NFREQ
             torch.cuda.empty_cache()
 
         # 17b: the deconvolving and power-spectrum chain
-        products, timing_b, peak_b = _run_twice("17b", ring_config(product_dir, source, attach, "b", nra, npix), device)
+        cfg_b = ring_config(product_dir, source, attach, "b", nra, npix)
+        # the determinism check of `verify` on 17b's spectra (the products no
+        # task consumes), whose binned sums must not change from run to run
+        t0 = time.perf_counter()
+        summary = validate.check_pipeline_determinism(
+            {"pipeline": {**cfg_b["pipeline"], "retain_products": "final"}}, runs=2, rtol=0.0)
+        log(f"phase 17b check_pipeline_determinism: two runs in {time.perf_counter() - t0:.2f} s bit-identical: "
+            f"{summary['products']} product labels, {summary['arrays']} arrays")
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        products, timing_b, peak_b = _run_twice("17b", cfg_b, device)
 
     want = {
         "sstream": (containers.SiderealStream, "vis", (nfreq, nstack, nra)),
@@ -5262,6 +5304,399 @@ def run_verify(device, chain_fps, nside: int = VERIFY_NSIDE, nfreq: int = VERIFY
     log(f"phase 21b wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+def mesh_telescope(nside: int, nfreq: int):
+    """Phase 22: the dish slice's array (8 x 8 jittered dishes, 2017 unique
+    baselines) over ``nfreq`` channels centred on lambda = 0.6 m, as
+    bench.py's multi-frequency extra (``bench.py:291-306``)."""
+    from draco_tpu_torch.telescope import UnpolarisedDishArray
+
+    f0 = 299.792458 / 0.6
+    half_bw = 0.05 * f0 * (nfreq - 1) / nfreq
+    return UnpolarisedDishArray(
+        grid_ew=NFEED_SIDE, grid_ns=NFEED_SIDE, spacing_ew=7.0, spacing_ns=7.0,
+        jitter=1.0, jitter_seed=1, latitude=45.0, dish_width=5.0, fwhm_factor=1.0,
+        freq_lower=f0 - half_bw, freq_upper=f0 + half_bw, num_freq=nfreq, auto_correlations=True,
+        force_lmax=3 * nside - 1, force_mmax=3 * nside - 1,
+    )
+
+
+def mesh_config(product_dir: str, tel, nside: int, chunk: int, fp_path: str, mesh: bool) -> dict:
+    """Phase 22a: sky -> ``SimulateSidereal`` -> ``MModeTransform`` ->
+    ``DirtyMapMaker`` (both streaming), with ``FrequencyRebin`` (pairs of
+    channels) beside them, every product's fingerprint written by
+    ``WriteFingerprints``; under ``pipeline.mesh: {freq: -1}`` if ``mesh``."""
+    streaming = {"streaming": True, "baseline_chunk": chunk}
+    sky = {"model": "foreground", "nside": nside, "freq_start": float(tel.freq_lower),
+           "freq_end": float(tel.freq_upper), "nfreq": tel.nfreq, "seed": MESH_SEED}
+    pipeline = {"retain_products": "none", "tasks": [
+        {"type": "draco.core.io.LoadBeamTransfer", "out": ["tel", "bt"],
+         "params": {"product_directory": product_dir, "nside": nside}},
+        {"type": "draco.synthesis.skymodel.GenerateGaussianSky", "out": "sky", "params": sky},
+        {"type": "draco.synthesis.stream.SimulateSidereal", "requires": "bt", "in": "sky", "out": "sstream",
+         "params": streaming},
+        {"type": "draco.analysis.transform.FrequencyRebin", "in": "sstream", "out": "srebin",
+         "params": {"channel_bin": 2}},
+        {"type": "draco.analysis.transform.MModeTransform", "requires": "tel", "in": "sstream", "out": "mmodes"},
+        {"type": "draco.analysis.mapmaker.DirtyMapMaker", "requires": "bt", "in": "mmodes", "out": "dmap",
+         "params": {"nside": nside, **streaming}},
+        {"type": f"{Path(__file__).stem}.WriteFingerprints", "in": list(MESH_LABELS),
+         "params": {"path": fp_path, "names": list(MESH_LABELS)}},
+    ]}
+    if mesh:
+        pipeline["mesh"] = {"freq": -1}
+    return {"pipeline": pipeline}
+
+
+def _fingerprint_task():
+    """``WriteFingerprints``: a sink task that writes what a run produced to
+    JSON, one file a process (``path`` formatted with ``rank``): the
+    fingerprints (``parallel.validate.fingerprint``) of each input under
+    its name in ``names``, the card's peak memory, the backend and the
+    kernels' launch counts.  The card machine has no ``h5py``: this is how
+    phase 22 holds runs in other processes against each other."""
+    import torch
+    import torch.distributed
+
+    from draco_tpu_torch.core import config
+    from draco_tpu_torch.core.task import ContainerTask
+    from draco_tpu_torch.ops import cuda_kernels
+    from draco_tpu_torch.parallel import multihost, validate
+
+    class WriteFingerprints(ContainerTask):
+        path = config.str_prop()
+        names = config.list_prop([])
+
+        def process(self, *inputs):
+            names = list(self.names) or [str(i) for i in range(len(inputs))]
+            if len(names) != len(inputs):
+                raise ValueError(f"{len(names)} names for {len(inputs)} inputs")
+            record = {
+                "rank": multihost.process_index(),
+                "processes": multihost.process_count(),
+                "backend": torch.distributed.get_backend() if torch.distributed.is_initialized() else None,
+                "fingerprints": {n: validate.fingerprint(x) for n, x in zip(names, inputs)},
+                "launches": dict(cuda_kernels.launches),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else None,
+            }
+            with open(self.path.format(rank=record["rank"]), "w") as f:
+                json.dump(record, f)
+
+    return WriteFingerprints
+
+
+def __getattr__(name: str):
+    # phase 22's configs name ``chip_smoke.WriteFingerprints``; the class is
+    # made on first use, as this module imports the port only inside functions
+    if name != "WriteFingerprints":
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    cls = globals()[name] = _fingerprint_task()
+    return cls
+
+
+def _gib(nbytes) -> str:
+    return "n/a (no card)" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
+
+
+class Launch:
+    """``python -m draco_tpu_torch run cfg_path`` in ``world`` processes, the
+    launch variables set for each (world None: one plain process)."""
+
+    def __init__(self, label: str, cfg_path: str, fp_path: str, world: int | None, device, per_rank_env=None):
+        repo = Path(__file__).resolve().parent
+        cmd = [sys.executable, "-m", "draco_tpu_torch"] + (["--platform", "cpu"] if device.type == "cpu" else [])
+        cmd += ["run", cfg_path]
+        self.label, self.fp_path, self.world = label, fp_path, world
+        store = Path(fp_path).parent / f"store-{Path(cfg_path).stem}"  # a file store: no port to race for
+        self.procs, self.logs = [], []
+        self.t0 = time.perf_counter()
+        for rank in range(world or 1):
+            env = dict(os.environ)
+            if world is not None:
+                env.update(DRACO_TPU_COORDINATOR=f"file://{store}", DRACO_TPU_NUM_PROCESSES=str(world),
+                           DRACO_TPU_PROCESS_ID=str(rank))
+            env.update((per_rank_env or {}).get(rank, {}))
+            self.logs.append(fp_path.format(rank=rank) + ".log")
+            with open(self.logs[-1], "w") as out:
+                self.procs.append(subprocess.Popen(cmd, cwd=repo, env=env, stdout=out, stderr=subprocess.STDOUT))
+        # each process's end, seen as it happens (wait() is called later)
+        self.ended = [None] * len(self.procs)
+        self.watchers = [threading.Thread(target=self._watch, args=(r, p), daemon=True) for r, p in enumerate(self.procs)]
+        for w in self.watchers:
+            w.start()
+
+    def _watch(self, rank: int, proc) -> None:
+        proc.wait()
+        self.ended[rank] = time.perf_counter()
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def output(self, rank: int) -> str:
+        with open(self.logs[rank]) as f:
+            return f.read()[-3000:]
+
+    def wait(self):
+        """(wall seconds, each rank's ``WriteFingerprints`` record); a process
+        that fails, or a launch that outlasts ``MESH_TIMEOUT_S``, stops the
+        others and raises with the output."""
+        deadline = self.t0 + MESH_TIMEOUT_S
+        try:
+            while any(p.poll() is None for p in self.procs):
+                failed = [r for r, p in enumerate(self.procs) if p.poll() not in (None, 0)]
+                if failed or time.perf_counter() > deadline:
+                    self.kill()
+                    outs = {r: self.output(r) for r in (failed or range(len(self.procs)))}
+                    why = f"ranks {failed} failed" if failed else f"did not finish in {MESH_TIMEOUT_S} s"
+                    raise RuntimeError(f"phase 22a {self.label}: {why}:\n"
+                                       + "\n".join(f"[rank {r}] {o}" for r, o in outs.items()))
+                time.sleep(0.2)
+            for w in self.watchers:
+                w.join()
+            wall = max(self.ended) - self.t0
+            bad = {r: p.returncode for r, p in enumerate(self.procs) if p.returncode != 0}
+            if bad:
+                raise RuntimeError(f"phase 22a {self.label}: exit codes {bad}:\n" + self.output(min(bad)))
+        finally:
+            self.kill()
+        records = []
+        for rank in range(self.world or 1):
+            with open(self.fp_path.format(rank=rank)) as f:
+                records.append(json.load(f))
+        return wall, records
+
+
+def run_multidevice(device, nside: int = NSIDE, nfreq: int = MESH_NFREQ, chunk: int = CHUNK,
+                    dryrun_ranks: int = 2) -> dict:
+    """Phase 22: the multi-device layer.
+
+    22a: the spine through ``python -m draco_tpu_torch run`` under
+    ``pipeline.mesh: {freq: -1}``: at world size 1 (``nccl`` on the card), as
+    two ranks sharing the card (``gloo``: ``nccl`` refuses two ranks on one
+    card) and, with two or more cards, one rank per card (``nccl``), the
+    launches at once on the card beside this process's own run of the config
+    with no mesh; every product of every rank bit-equal to that run (the
+    chain has no sum across ranks: every stage is frequency-local or
+    gathered); each rank's peak memory, launch wall time and Legendre
+    launches printed; on the card, the Legendre kernel held against its
+    plain loop at the shapes of the ranks' launches.  22b, while the
+    launches run: ``dryrun_multichip(2)`` on the card.  Returns (the
+    kernels' launches in 22a's runs, by launch and rank; the Legendre
+    check's max errors, empty on the CPU).
+    """
+    import pickle
+    import tempfile
+
+    import torch
+
+    from draco_tpu_torch.core.pipeline import Manager, dump_config
+    from draco_tpu_torch.ops import cuda_kernels
+    from draco_tpu_torch.parallel import dryrun_multichip
+    from draco_tpu_torch.telescope import BeamTransfer
+
+    t_phase = time.perf_counter()
+    tel = mesh_telescope(nside, nfreq)
+    ncard = torch.cuda.device_count() if device.type == "cuda" else 0
+    runs = [("world size 1", 1, None), ("two ranks on one card", 2, None)]
+    if ncard >= 2:
+        nper = 4 if ncard >= 4 else 2  # ranks that divide the 8 channels
+        runs.append((f"one rank per card on {nper} cards", nper,
+                     {r: {"CUDA_VISIBLE_DEVICES": str(r)} for r in range(nper)}))
+    launches, started = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(Path(tmp) / "telescope.pkl", "wb") as f:
+            pickle.dump(tel, f)
+
+        def cfg_for(name: str, mesh: bool) -> tuple[dict, str]:
+            fp = str(Path(tmp) / f"fp.{name}.{{rank}}.json")  # WriteFingerprints formats the rank
+            return mesh_config(tmp, tel, nside, chunk, fp, mesh), fp
+
+        try:
+            for label, world, env in runs:
+                cfg, fp = cfg_for(label.replace(" ", "_"), True)
+                path = Path(tmp) / f"{label.replace(' ', '_')}.yaml"
+                path.write_text(dump_config(cfg))
+                started.append((label, world, env, Launch(label, str(path), fp, world, device, env)))
+            # the kernel at the ranks' shapes: the whole table (phase 3's
+            # inputs) and the band rings of a window over all 8 channels
+            leg = (check_legendre_tables(device, BeamTransfer(tel, nside=nside), f"phase 22 nside {nside}")
+                   if device.type == "cuda" else {})
+            # the reference: this process, no mesh, beside the launches
+            cfg, fp = cfg_for("ref", False)
+            cuda_kernels.reset_launches()
+            t0 = _sync_clock(device)
+            Manager(cfg).run()
+            wall = _sync_clock(device) - t0
+            with open(fp.format(rank=0)) as f:
+                ref_fp = json.load(f)["fingerprints"]
+            narr = sum(len(v) for v in ref_fp.values())
+            log(f"phase 22a this process, no mesh: {wall:.2f} s wall, {len(tel.uniquepairs)} baselines, {nfreq} "
+                f"channels, nside {nside}; {narr} arrays of {len(ref_fp)} products fingerprinted; launches "
+                f"{dict(cuda_kernels.launches)} (the tables may be cached here)")
+            # 22b, while the launches run
+            t0 = time.perf_counter()
+            summary = dryrun_multichip(dryrun_ranks, device=None if device.type == "cuda" else "cpu")
+            log(f"phase 22b dryrun_multichip({dryrun_ranks}) on {summary['device']}: {time.perf_counter() - t0:.2f} s "
+                "(beside 22a's launches), " + json.dumps(summary))
+            for label, world, env, run in started:
+                key = label.replace(" ", "_")
+                wall, recs = run.wait()
+                launches[key] = [r["launches"] for r in recs]
+                for r in recs:
+                    log(f"phase 22a {label}: rank {r['rank']} of {r['processes']} on {r['backend']}: peak "
+                        f"{_gib(r['peak_memory_bytes'])}, launches {r['launches']}")
+                differ = sorted(f"rank {r['rank']} {lab}{k}" for r in recs for lab in ref_fp
+                                for k in set(ref_fp[lab]) | set(r["fingerprints"].get(lab, {}))
+                                if ref_fp[lab].get(k) != r["fingerprints"].get(lab, {}).get(k))
+                backends = {r["backend"] for r in recs}
+                log(f"phase 22a {label}: {wall:.2f} s from the launch to its last process's end (beside the other "
+                    f"launches), backend "
+                    f"{sorted(backends)}; {narr} arrays on each of {world} ranks against the run with no mesh: "
+                    f"{len(differ)} differ{': ' + ', '.join(differ[:20]) if differ else ' (bit-equal)'}")
+                if differ:
+                    raise RuntimeError(f"phase 22a {label}: {len(differ)} arrays differ from the run with no mesh")
+                want = "nccl" if (world == 1 or env) and device.type == "cuda" else "gloo"
+                if backends != {want}:
+                    raise RuntimeError(f"phase 22a {label} ran on {backends}, not {want}")
+                if device.type == "cuda" and not all(n["legendre"] >= 1 for n in launches[key]):
+                    raise RuntimeError(f"phase 22a {label}: a rank launched legendre no time: {launches[key]}")
+        finally:
+            for *_, run in started:
+                run.kill()
+    if ncard < 2:
+        log(f"phase 22a: {ncard} card(s) here: nccl across cards did not run (unverified)")
+    log(f"phase 22 wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches, leg
+
+
+def time_spine_tasks(device, nside: int, nfreq: int, chunk: int) -> list[dict]:
+    """``--spine-stages tasks``: phase 22's chain in this process with no mesh,
+    run twice (the first run builds the Legendre tables); each task's
+    ``process`` timed, with its Legendre launches."""
+    from draco_tpu_torch.analysis.mapmaker import DirtyMapMaker
+    from draco_tpu_torch.analysis.transform import MModeTransform
+    from draco_tpu_torch.ops import cuda_kernels
+    from draco_tpu_torch.synthesis.skymodel import GenerateGaussianSky
+    from draco_tpu_torch.synthesis.stream import SimulateSidereal
+    from draco_tpu_torch.telescope import BeamTransfer
+
+    tel = mesh_telescope(nside, nfreq)
+    bt = BeamTransfer(tel, nside=nside)
+    sky_task = GenerateGaussianSky()
+    sky_task.read_config({"model": "foreground", "nside": nside, "freq_start": float(tel.freq_lower),
+                          "freq_end": float(tel.freq_upper), "nfreq": nfreq, "seed": MESH_SEED})
+    sky_task.setup()
+    sky = sky_task.process()
+    streaming = {"streaming": True, "baseline_chunk": chunk}
+    stages = [("SimulateSidereal", SimulateSidereal(), streaming, bt), ("MModeTransform", MModeTransform(), {}, tel),
+              ("DirtyMapMaker", DirtyMapMaker(), {"nside": nside, **streaming}, bt)]
+    for _, task, params, req in stages:
+        task.read_config(params)
+        task.setup(req)
+    rows = []
+    for run in ("first", "second"):
+        data = sky
+        for name, task, _, _ in stages:
+            cuda_kernels.reset_launches()
+            t0 = _sync_clock(device)
+            data = task.process(data)
+            seconds = _sync_clock(device) - t0
+            rows.append({"case": "tasks", "run": run, "stage": name, "seconds": seconds, "nside": nside,
+                         "nfreq": nfreq, "legendre_launches": cuda_kernels.launches["legendre"]})
+        m = data.map[:]
+        rows[-1]["map_sum_abs"] = float(m.abs().double().sum())
+    return rows
+
+
+def time_spine_sht(device, nside: int, nfreq: int, reps: int) -> list[dict]:
+    """``--spine-stages sht``: ``nfreq`` maps at ``nside`` through
+    ``sphtrans_sky`` and ``sphtrans_inv_sky`` batched, one whole transform a
+    channel, and (where the package has it) ``per_channel=True``; each timed
+    ``reps`` times after a warm call, with its Legendre launches and its
+    largest difference from the batched call over the largest value."""
+    import inspect
+
+    import torch
+
+    from draco_tpu_torch.ops import cuda_kernels, sht
+
+    rng = np.random.Generator(np.random.SFC64(5))
+    maps = torch.as_tensor(rng.standard_normal((nfreq, 1, 12 * nside**2)), dtype=torch.float32, device=device)
+    has_flag = "per_channel" in inspect.signature(sht.sphtrans_sky).parameters
+    route = sht.get_sht(nside).route(torch.float32)
+    ways = {
+        "analysis": {
+            "batched": lambda x: sht.sphtrans_sky(x),
+            "whole_per_channel": lambda x: torch.cat([sht.sphtrans_sky(x[i : i + 1]) for i in range(x.shape[0])]),
+        },
+        "synthesis": {
+            "batched": lambda a: sht.sphtrans_inv_sky(a, nside),
+            "whole_per_channel": lambda a: torch.cat([sht.sphtrans_inv_sky(a[i : i + 1], nside)
+                                                      for i in range(a.shape[0])]),
+        },
+    }
+    if has_flag:
+        ways["analysis"]["per_channel"] = lambda x: sht.sphtrans_sky(x, per_channel=True)
+        ways["synthesis"]["per_channel"] = lambda a: sht.sphtrans_inv_sky(a, nside, per_channel=True)
+    rows = []
+    alm = None
+    for direction, fns in ways.items():
+        x = maps if direction == "analysis" else alm
+        ref = fns["batched"](x)  # the warm call
+        scale = float(ref.abs().max())
+        for way, fn in fns.items():
+            seconds, out = [], None
+            for _ in range(reps):
+                del out
+                out = None
+                cuda_kernels.reset_launches()
+                t0 = _sync_clock(device)
+                out = fn(x)
+                seconds.append(_sync_clock(device) - t0)
+            rows.append({"case": "sht", "direction": direction, "way": way, "route": route, "nside": nside,
+                         "nfreq": nfreq, "seconds": seconds, "legendre_launches": cuda_kernels.launches["legendre"],
+                         "rel_from_batched": float((out - ref).abs().max()) / scale})
+        del out
+        if direction == "analysis":
+            alm = ref
+    return rows
+
+
+def spine_stages(args) -> int:
+    """``python3 chip_smoke.py --spine-stages tasks,sht [--repo DIR]``: not the
+    smoke but a timing of the spine's SHT stages, one JSON line a row, with
+    the package of the checkout at ``--repo`` (this one by default), so that
+    two checkouts run in one call can be compared.
+
+    - ``tasks``: phase 22's chain (``mesh_telescope``: 2017 baselines,
+      ``--nfreq`` channels, nside ``--nside``, the SHT's table route at
+      256) with no mesh, twice;
+    - ``sht``: ``--nfreq`` maps at ``--nside-chunked`` (1024: the chunked
+      route, whose Legendre rows are made anew in every call).
+
+    The last line printed is the card's ``nvidia-smi`` name and power limit.
+    """
+    import torch
+
+    sys.path.insert(0, str(Path(args.repo).resolve()))
+    import draco_tpu_torch  # noqa: F401  (sets the float32 matmul policy)
+    from draco_tpu_torch.device import default_device
+
+    device = torch.device(args.device)
+    log(json.dumps({"repo": str(Path(args.repo).resolve()), "torch": torch.__version__}))
+    cases = args.spine_stages.split(",")
+    with default_device(device):
+        rows = time_spine_tasks(device, args.nside, args.nfreq, CHUNK) if "tasks" in cases else []
+        rows += time_spine_sht(device, args.nside_chunked, args.nfreq, 2) if "sht" in cases else []
+    for row in rows:
+        log(json.dumps(row))
+    if device.type == "cuda":
+        log(gpu_name_and_power())
+    return 0
+
+
 def _bl_max(tel) -> float:
     from draco_tpu_torch.analysis.powerspec import TransformJyPerBeamToKelvin
 
@@ -5274,7 +5709,17 @@ def _bl_max(tel) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=2, help="seed of the time streams and kernel inputs")
+    parser.add_argument("--spine-stages", metavar="CASES",
+                        help="instead of the smoke, time the spine's SHT stages (tasks, sht; see spine_stages)")
+    parser.add_argument("--repo", default=str(Path(__file__).resolve().parent),
+                        help="with --spine-stages: the checkout whose draco_tpu_torch is timed")
+    parser.add_argument("--device", default="cuda", help="with --spine-stages: the device")
+    parser.add_argument("--nside", type=int, default=NSIDE, help="with --spine-stages: the task chain's nside")
+    parser.add_argument("--nside-chunked", type=int, default=SHT_NSIDE, help="with --spine-stages: the maps' nside")
+    parser.add_argument("--nfreq", type=int, default=MESH_NFREQ, help="with --spine-stages: channels")
     args = parser.parse_args()
+    if args.spine_stages:
+        return spine_stages(args)
     # the later phases hold tens of GB in blocks of changing sizes: let the
     # caching allocator grow its segments rather than split them (set before
     # torch first touches the card)
@@ -5480,7 +5925,16 @@ def main() -> int:
     log(f"phase 21a done; launches {sht_launches} of legendre on the main path")
     run_verify(device, chain_fps)
     log(f"phase 21 wall time {time.perf_counter() - t0:.1f} s")
+
+    # phase 22: the multi-device layer: the spine under a process mesh, the dry run
+    sht_mod._sht_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_leg = run_multidevice(device)
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
+
+    def on_mesh(name):
+        return {"launches": {run: [r[name] for r in ranks] for run, ranks in mesh_launches.items()}}
 
     record = {"kernels": [{
         "name": "banded_covariance",
@@ -5499,6 +5953,7 @@ def main() -> int:
         "stacking_path": stack_kern,
         "flagging_path": {"launches": flag_launches["banded_covariance"]},
         "filter_path": {"launches": filter_launches["banded_covariance"]},
+        "multidevice_path": on_mesh("banded_covariance"),
     }, {
         "name": "beamform",
         "route": "cuda",
@@ -5508,6 +5963,7 @@ def main() -> int:
         **beam_kern,
         "flagging_path": {"launches": flag_launches["beamform"]},
         "filter_path": {"launches": filter_launches["beamform"]},
+        "multidevice_path": on_mesh("beamform"),
     }, {
         "name": "legendre",
         "route": "cuda",
@@ -5519,6 +5975,7 @@ def main() -> int:
         "cylinder_path": {"launches": launches_c["legendre"]},
         "flagging_path": {"launches": flag_launches["legendre"]},
         "filter_path": {"launches": filter_launches["legendre"]},
+        "multidevice_path": {**on_mesh("legendre"), **mesh_leg},
     }]}
     print(json.dumps(record))
     print(card)

@@ -84,7 +84,8 @@ class BaseMapMaker(ContainerTask):
         # pad the m axis to the full lmax+1 and synthesise maps
         if alm.shape[-1] < lmax + 1:
             alm = torch.nn.functional.pad(alm, (0, lmax + 1 - alm.shape[-1]))
-        maps = sht.sphtrans_inv_sky(alm, self.nside)
+        # channel by channel: a channel's bits do not depend on the slab
+        maps = sht.sphtrans_inv_sky(alm, self.nside, per_channel=True)
 
         m = containers.Map(nside=self.nside, polarisation=npol == 4, axes_from=mmodes, attrs_from=mmodes)
         m.map[:] = maps
@@ -114,20 +115,19 @@ class DirtyMapMaker(BaseMapMaker):
     """
 
     _supports_streaming = True
+    # the dirty map of every channel is its own: under a mesh each rank maps
+    # its own channels
+    freq_local = True
 
     def _solve_all_m(self, vis, weight, freq_ind, mmax):
         if self.streaming:
             tel = self.beamtransfer.telescope
-            if list(np.asarray(freq_ind)) != list(range(tel.nfreq)):
-                raise ValueError(
-                    "streaming map-making requires the m-mode frequencies to match the telescope channels exactly"
-                )
             pad_m = tel.mmax - mmax
             if pad_m > 0:
                 vis = torch.nn.functional.pad(vis, (0, 0, 0, 0, 0, 0, 0, pad_m))
                 weight = torch.nn.functional.pad(weight, (0, 0, 0, 0, 0, 0, 0, pad_m))
             alm = self.beamtransfer.project_telescope_to_sky_dirty_streaming(
-                vis, weight, chunk=self.baseline_chunk
+                vis, weight, chunk=self.baseline_chunk, freqs=freq_ind
             )
             return alm[..., : mmax + 1]
         bp, bm = self._bt_tensors(freq_ind)

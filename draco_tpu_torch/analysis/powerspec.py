@@ -18,8 +18,10 @@ stay on their device:
   rows/cols padded to the identity, by one batched ``inv_ex`` a block
   whose ``info`` is checked;
 * the operator is applied by one einsum a polarisation;
-* the spatial FFT is one batched ``fft2``; the binnings are flat
-  ``bincount``s.
+* the spatial FFT is one batched ``fft2``; the binnings are fixed-order
+  sums (``ops/tools.py::binned_sum``): the same bits on every run and for
+  any order of the cells, where ``bincount``'s weighted sums on the card
+  add with atomics in no fixed order.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ..core import config, containers, io
 from ..core.task import ContainerTask
 from ..ops.cosmology import Cosmology
 from ..ops.delay import flatten_axes
-from ..ops.tools import axis_blocks, invert_no_zero, window_generalised
+from ..ops.tools import axis_blocks, binned_sum, invert_no_zero, window_generalised
 from .ringmapmaker import find_grid_indices
 from .transform import ReduceChisq
 
@@ -485,7 +487,7 @@ class CylindricalPowerSpectrum2D(ContainerTask):
         self.noise_ps = noise_ps
 
     def process(self, ps):
-        """Bin |k_perp| cylindrically for every (pol, delay): one bincount."""
+        """Bin |k_perp| cylindrically for every (pol, delay): one fixed-order binned sum."""
         if not isinstance(ps, containers.PowerSpectrum3D):
             raise ValueError(f"Input container must be instance of PowerSpectrum3D (received {ps.__class__})")
 
@@ -526,17 +528,14 @@ class CylindricalPowerSpectrum2D(ContainerTask):
         raw_bin = np.digitize(radius, bins=edges)
         nbins = len(edges) - 1
         keep = flat.astype(bool) & (raw_bin >= 1) & (raw_bin <= nbins)
-        bidx = torch.as_tensor(raw_bin[keep] - 1, device=dev)
         sel = torch.as_tensor(_uv_selection(u, v, u_lo, u_hi, keep), device=dev)
 
-        # One flat bincount over every (pol, delay) plane via offset bins
+        # one fixed-order binned sum over every (pol, delay) plane
         npol, ndelay = ps_3D.shape[:2]
-        planes = (torch.arange(npol * ndelay, device=dev)[:, None] * nbins + bidx[None, :]).ravel()
+        bidx = torch.as_tensor(raw_bin[keep] - 1, device=dev)
 
         def binned(rows):
-            return torch.bincount(planes, weights=rows.ravel(), minlength=npol * ndelay * nbins).reshape(
-                npol, ndelay, nbins
-            )
+            return binned_sum(rows, bidx, nbins)
 
         d = ps_3D.reshape(npol, ndelay, -1)[:, :, sel]
         w = weight.reshape(npol, ndelay, -1)[:, :, sel]
@@ -868,8 +867,9 @@ def _bin_select(values: torch.Tensor, edges):
 
 
 def _bin_sums(b, nbins, columns):
-    """bincount each column of weights onto nbins bins."""
-    return [torch.bincount(b, weights=c, minlength=nbins) for c in columns]
+    """Each column summed onto ``nbins`` bins (``b`` the bin of each item), in
+    a fixed order (:func:`~draco_tpu_torch.ops.tools.binned_sum`)."""
+    return [binned_sum(c, b, nbins) for c in columns]
 
 
 def _k_edges(lo, hi, n, log):
@@ -885,7 +885,7 @@ def _as_float64(x, device) -> torch.Tensor:
 def get_2d_ps(ps_cube, weight, kperp_bins, uu, vv, redshift, cosmo=None):
     """Cylindrically bin a flattened spectrum (reference :1836), on ``ps_cube``'s device.
 
-    One flat bincount instead of a per-bin scan.
+    One fixed-order binned sum instead of a per-bin scan.
     """
     cosmo = cosmo or get_cosmo()
     ps_cube = torch.as_tensor(ps_cube)

@@ -168,6 +168,13 @@ class FrequencyRebin(ContainerTask):
 
     channel_bin = config.int_prop(1)
 
+    # bins of neighbouring channels: under a mesh each rank rebins its own
+    # channels where the bin divides its slab
+    freq_local = True
+
+    def _freq_slab_ok(self, nlocal: int) -> bool:
+        return nlocal % self.channel_bin == 0
+
     def process(self, ss):
         if "freq" not in ss.index_map:
             raise RuntimeError("A freq axis is required for rebinning.")
@@ -272,6 +279,10 @@ class MModeTransform(ContainerTask):
     # accepted for reference-config compatibility (transform.py:555): the
     # transform is always torch's batched FFT
     use_fftw = config.bool_prop(True)
+
+    # an FFT over RA for every channel on its own: under a mesh each rank
+    # transforms its own channels
+    freq_local = True
 
     def setup(self, manager=None):
         """Optionally set the telescope to define mmax."""

@@ -17,8 +17,12 @@ A container made with ``axes_from=`` takes that container's device unless
 CUDA card, or a raise without one).  ``np.asarray(ds)`` copies a dataset to
 the host; ``ds[:]`` returns the tensor itself.
 
-There is one device and no mesh (:mod:`draco_tpu_torch.parallel.mesh`), so
-``redistribute`` only records the nominally distributed axis.
+Under an installed mesh (:mod:`draco_tpu_torch.parallel.mesh`) ``to_device``
+and ``redistribute`` place a container's numeric datasets over it as
+DTensors (each rank holds its block); with no mesh ``redistribute`` only
+records the nominally distributed axis.  Tasks never see a placed dataset:
+:meth:`ContainerBase.gathered` gives them the whole, and
+:meth:`ContainerBase.freq_slab` a frequency-local task its rank's channels.
 
 HDF5 ``save``/``from_file`` keep the JAX package's layout: datasets at the
 root with an ``axis`` attribute, ``index_map/`` and ``reverse_map/`` groups,
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..parallel import mesh as pmesh
 
 logger = logging.getLogger(__name__)
 
@@ -78,9 +83,10 @@ def torch_dtype(dtype) -> torch.dtype | None:
 
 
 def _to_numpy(arr) -> np.ndarray:
-    """Host copy of a tensor (numpy arrays pass through)."""
+    """Host copy of a tensor (numpy arrays pass through); a placed tensor is
+    gathered first, a collective over its mesh."""
     if isinstance(arr, torch.Tensor):
-        return arr.detach().cpu().numpy()
+        return pmesh.unshard(arr).detach().cpu().numpy()
     return np.asarray(arr)
 
 
@@ -205,20 +211,34 @@ class Dataset:
 
     # -- distribution -------------------------------------------------------
     def to_device(self) -> "Dataset":
-        """Placement over the mesh: with one device, nothing moves."""
+        """Place the tensor over the installed mesh (no mesh, or host data:
+        nothing moves).
+
+        Under a named mesh (``parallel.make_mesh2d``) every axis that
+        matches a mesh dimension's name is split; under the 1-D mesh only
+        the ``distributed_axis``.
+        """
+        if pmesh.get_mesh() is not None and isinstance(self._data, torch.Tensor):
+            primary = self.distributed_axis if self.distributed else None
+            self._data = pmesh.shard_array_named(self._data, self.axes, primary)
         return self
 
     def redistribute(self, axis_name: str | None) -> "Dataset":
-        """Record ``axis_name`` as the distributed axis.
+        """Make ``axis_name`` the distributed axis, re-placing a placed tensor.
 
-        With one device there is nothing to reshard: this is the JAX
-        package's no-mesh path, metadata only.
+        On a 1-D mesh this moves the split axis (the reference's MPI
+        parallel transpose); on a named mesh the axis names already fix
+        the placement, and this only records the axis.  A tensor that is
+        not placed (no mesh, or the whole tensor a task works on) keeps
+        its storage: metadata only.
         """
         if not self.distributed:
             return self
         if axis_name is not None and axis_name not in self.axes:
             return self
         self.distributed_axis = axis_name
+        if pmesh.is_placed(self._data):
+            self.to_device()
         return self
 
 
@@ -457,7 +477,115 @@ class ContainerBase:
         return self
 
     def to_device(self) -> "ContainerBase":
-        """Placement over the mesh: with one device, nothing moves."""
+        """Place every numeric dataset over the installed mesh
+        (:meth:`Dataset.to_device`)."""
+        for ds in self.datasets.values():
+            ds.to_device()
+        return self
+
+    def is_placed(self) -> bool:
+        """True when a dataset is placed over a mesh."""
+        return any(pmesh.is_placed(ds._data) for ds in self.datasets.values())
+
+    def ensure_host(self) -> "ContainerBase":
+        """Replace every placed dataset by the whole tensor, in place.
+
+        Gathering is a collective: every rank of the mesh must call this,
+        in the same order (as before a leader-only file write).  The whole
+        stays on the container's device; ``save`` copies it to the host.
+        """
+        for ds in self.datasets.values():
+            ds._data = pmesh.unshard(ds._data)
+        return self
+
+    def _view(self, datasets: dict) -> "ContainerBase":
+        """A container sharing everything of this one but ``datasets``
+        (name -> storage), with its own index-map dict."""
+        new = self.__class__.__new__(self.__class__)
+        new.__dict__.update(self.__dict__)
+        new.index_map = dict(self.index_map)
+        new.datasets = {
+            name: Dataset(name, datasets[name], ds.axes, attrs=ds.attrs, distributed=ds.distributed,
+                          distributed_axis=ds.distributed_axis, spec=ds.spec)
+            for name, ds in self.datasets.items()
+        }
+        return new
+
+    def gathered(self) -> "ContainerBase":
+        """This container with every placed dataset gathered whole: itself
+        when nothing is placed, else a view (a collective, as ``ensure_host``)."""
+        if not self.is_placed():
+            return self
+        return self._view({name: pmesh.unshard(ds._data) for name, ds in self.datasets.items()})
+
+    def freq_split(self, mesh) -> int | None:
+        """The channels of each rank's slab when ``mesh`` splits this
+        container's ``freq`` axis (a dataset with that axis is placed split
+        over the mesh's frequency dimension); None otherwise."""
+        from torch.distributed.tensor import Shard
+
+        k = pmesh.freq_dim(mesh)
+        if k is None or "freq" not in self.index_map:
+            return None
+        for ds in self.datasets.values():
+            if (pmesh.is_placed(ds._data) and "freq" in ds.axes
+                    and ds._data.placements[k] == Shard(ds.axes.index("freq"))):
+                return len(self.index_map["freq"]) // mesh.size(k)
+        return None
+
+    def freq_slab(self, mesh) -> "ContainerBase":
+        """This rank's frequency slab (when :meth:`freq_split` is not None).
+
+        A view whose ``freq`` index map is the rank's channels and whose
+        datasets are the rank's block along ``freq`` and the whole along every
+        other axis (gathered over the other mesh dimensions).
+        """
+        from torch.distributed.tensor import Replicate, Shard
+
+        k = pmesh.freq_dim(mesh)
+        nloc = self.freq_split(mesh)
+        f0 = mesh.get_local_rank(k) * nloc
+        views = {}
+        for name, ds in self.datasets.items():
+            data = ds._data
+            if pmesh.is_placed(data):
+                tgt = [Replicate()] * mesh.ndim
+                if "freq" in ds.axes and data.placements[k] == Shard(ds.axes.index("freq")):
+                    tgt[k] = Shard(ds.axes.index("freq"))
+                data = pmesh.place(data, mesh, tgt).to_local()
+            elif "freq" in ds.axes:
+                data = _select(data, ds.axes.index("freq"), slice(f0, f0 + nloc))
+            views[name] = data
+        view = self._view(views)
+        view.index_map["freq"] = self.index_map["freq"][f0 : f0 + nloc]
+        return view
+
+    def from_freq_slabs(self, mesh) -> "ContainerBase":
+        """The inverse of :meth:`freq_slab` for a frequency-local task's output
+        (this container, on this rank's channels): the whole ``freq`` index
+        map gathered from the ranks, datasets with a ``freq`` axis placed
+        split over the mesh's frequency dimension, the others replicated (a
+        frequency-local task computes them alike on every rank).  In place.
+        """
+        import torch.distributed as dist
+        from torch.distributed.tensor import Replicate, Shard
+
+        k = pmesh.freq_dim(mesh)
+        n = mesh.size(k)
+        if "freq" in self.index_map and n > 1:
+            maps = [None] * n
+            dist.all_gather_object(maps, self.index_map["freq"], group=mesh.get_group(k))
+            self.index_map["freq"] = np.concatenate(maps)
+        for ds in self.datasets.values():
+            if not isinstance(ds._data, torch.Tensor) or pmesh.is_placed(ds._data):
+                continue
+            placements = [Replicate()] * mesh.ndim
+            shape = list(ds._data.shape)
+            if "freq" in ds.axes:
+                fax = ds.axes.index("freq")
+                placements[k] = Shard(fax)
+                shape[fax] *= n
+            ds._data = pmesh.from_block(ds._data.contiguous(), mesh, placements, shape)
         return self
 
     # -- copying ------------------------------------------------------------
@@ -474,7 +602,8 @@ class ContainerBase:
         new._extra_kwargs = {}
         new.datasets = {}
         for name, ds in self.datasets.items():
-            data = ds._data if name in shared else _copy_array(ds._data)
+            # a placed dataset is gathered, never copied as a block
+            data = ds._data if name in shared else _copy_array(pmesh.unshard(ds._data))
             new.datasets[name] = Dataset(
                 name,
                 data,

@@ -177,10 +177,15 @@ class Save(ContainerTask):
     root = config.str_prop("")
 
     def process(self, data):
+        from ..parallel.multihost import is_leader
+
         tag = data.attrs.get("tag", self._count)
         fname = f"{self.root}{tag}.h5"
-        self.log.info("Saving %s", fname)
-        data.save(fname, truncate=self.truncate)
+        if is_leader():
+            # a multi-process launch runs every task on every process; only
+            # the leader writes (as ContainerTask._save_output)
+            self.log.info("Saving %s", fname)
+            data.save(fname, truncate=self.truncate)
         return data
 
 

@@ -44,8 +44,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..parallel.mesh import MULTI_DEVICE_MESSAGE
+from ..parallel import mesh as pmesh
 from . import config as config_mod
+from .containers import ContainerBase
 from .task import (
     ContainerTask,
     MPILoggedTask,
@@ -174,6 +175,7 @@ def _assert_finite_product(task_name: str, label: str, obj) -> None:
     """Raise PipelineRuntimeError if a routed product carries NaN/Inf."""
 
     def check(path, arr):
+        arr = pmesh.unshard(arr)
         if isinstance(arr, torch.Tensor):
             if arr.is_floating_point() or arr.is_complex():
                 bad = int((~torch.isfinite(arr)).sum())
@@ -195,8 +197,8 @@ def _assert_finite_product(task_name: str, label: str, obj) -> None:
 def _parse_mesh_cfg(cfg):
     """Validate `pipeline.mesh` and return (axes, dcn) or None.
 
-    The JAX package's checks, and one more: the port runs on one device,
-    so a mesh that needs more than one raises.
+    Syntax only, so that ``lint`` works anywhere; the sizes are checked
+    against the launch by :meth:`Manager._build_mesh` at ``run``.
     """
     if cfg is None:
         return None
@@ -237,12 +239,6 @@ def _parse_mesh_cfg(cfg):
                 raise config_mod.ConfigError(
                     f"pipeline.mesh.dcn factor {fac} does not divide axis {name!r} size {axes[name]}"
                 )
-    # the least device count the mesh covers: the fixed sizes, times any
-    # multi-slice factor a fill axis must hold
-    ndev = int(np.prod([s for s in axes.values() if s != -1]))
-    ndev *= int(np.prod([f for n, f in (dcn or {}).items() if axes[n] == -1]))
-    if ndev > 1:
-        raise config_mod.ConfigError(f"pipeline.mesh {cfg!r} needs {ndev} devices: {MULTI_DEVICE_MESSAGE}")
     return (dict(axes), dict(dcn) if dcn else None)
 
 
@@ -265,7 +261,7 @@ class Manager(config_mod.Reader):
             raise config_mod.ConfigError("Pipeline has no tasks")
         self.task_specs = task_specs
         # `cluster:` — the reference YAML's batch-queue block; `lint`
-        # checks it, a plain `run` ignores it
+        # checks it, `queue` renders it as a job script, `run` ignores it
         self.cluster = config_dict.get("cluster") or {}
         self.versions = self._collect_versions(pipeline_cfg.get("save_versions", []))
         self._configure_logging(pipeline_cfg.get("logging"))
@@ -285,8 +281,21 @@ class Manager(config_mod.Reader):
             raise config_mod.ConfigError(
                 f"pipeline.retain_products must be one of 'all'/'final'/'none', got {self.retain_products!r}"
             )
-        # `mesh:` is accepted where it covers one device
+        # `mesh:` places the run's containers over a process mesh, so the
+        # production (freq x m) layout is chosen in YAML:
+        #
+        #   pipeline:
+        #     mesh:
+        #       axes: {freq: 2, m: -1}   # -1 fills the remaining processes
+        #       dcn: {freq: 2}           # optional factor across nodes
+        #
+        # (shorthand: `mesh: {freq: 2, m: 4}`)
         self.mesh_cfg = _parse_mesh_cfg(pipeline_cfg.get("mesh"))
+        # `distribute: true` places every routed container over the mesh as
+        # it is produced, so each process holds its block of every
+        # distributed axis (the reference's per-rank MPIArray slabs); on by
+        # default under a mesh
+        self.distribute_products = bool(pipeline_cfg.get("distribute", self.mesh_cfg is not None))
         self.task_timing: dict[str, dict] = {}
 
     # -- constructors --------------------------------------------------------
@@ -377,6 +386,96 @@ class Manager(config_mod.Reader):
             problems.append(f"cluster.time must be minutes or HH:MM:SS, got {t!r}")
         return problems
 
+    def jobscript(self, config_path: str) -> str:
+        """Render the ``cluster:`` stanza as a SLURM launch script.
+
+        One process per card: ``nodes`` nodes of ``ppn`` processes each
+        (the reference's ranks-per-node), every process seeing only its own
+        card (``CUDA_VISIBLE_DEVICES=$SLURM_LOCALID``), the ranks wired
+        through the ``DRACO_TPU_{COORDINATOR,NUM_PROCESSES,PROCESS_ID}``
+        contract (:mod:`draco_tpu_torch.parallel.multihost`).  The JAX
+        package launches one process per host, which drives all its chips,
+        and ignores ``ppn``.
+        """
+        import shlex
+
+        c = self.cluster
+        nodes = int(c.get("nodes", 1))
+        ppn = int(c.get("ppn", 1))
+        t = c.get("time", 60)
+        walltime = f"{int(t) // 60:d}:{int(t) % 60:02d}:00" if isinstance(t, (int, float)) else str(t)  # caput: minutes
+        lines = [
+            "#!/bin/bash",
+            f"#SBATCH --job-name={c.get('name', 'draco-tpu-torch')}",
+            f"#SBATCH --nodes={nodes}",
+            f"#SBATCH --ntasks-per-node={ppn}",
+            f"#SBATCH --gpus-per-node={ppn}",
+            f"#SBATCH --time={walltime}",
+        ]
+        if c.get("queue"):
+            lines.append(f"#SBATCH --partition={c['queue']}")
+        if c.get("account"):
+            lines.append(f"#SBATCH --account={c['account']}")
+        if c.get("mem"):
+            lines.append(f"#SBATCH --mem={c['mem']}")
+        if c.get("directory"):
+            lines.append(f"#SBATCH --chdir={shlex.quote(str(c['directory']))}")
+        lines += ["", "# one process per card: each sees only its own"]
+        if c.get("venv"):
+            lines.append(f"source {shlex.quote(str(c['venv']))}/bin/activate")
+        cfg = shlex.quote(os.path.abspath(config_path))
+        lines += [
+            'head=$(scontrol show hostnames "$SLURM_JOB_NODELIST" | head -n1)',
+            'export DRACO_TPU_COORDINATOR="$head:8476"',
+            'export DRACO_TPU_NUM_PROCESSES="$SLURM_NTASKS"',
+            "srun --export=ALL bash -c "
+            "'CUDA_VISIBLE_DEVICES=$SLURM_LOCALID DRACO_TPU_PROCESS_ID=$SLURM_PROCID "
+            f"python -m draco_tpu_torch run {cfg}'",
+            "",
+        ]
+        return "\n".join(lines)
+
+    def _build_mesh(self):
+        """The configured mesh over the launch's processes (one card each).
+
+        ``-1`` fills the processes the fixed sizes leave; a mesh that does
+        not cover the launch exactly raises ``ConfigError`` naming both
+        counts.  A mesh of one process in a run with no process group
+        splits nothing, and the run goes unsharded.
+        """
+        if self.mesh_cfg is None:
+            return None
+        from ..parallel import multihost
+
+        axes, dcn = self.mesh_cfg
+        world = multihost.process_count()
+        sizes = dict(axes)
+        fixed = int(np.prod([n for n in sizes.values() if n != -1]))
+        for name, n in sizes.items():
+            if n == -1:
+                if world % fixed:
+                    raise config_mod.ConfigError(
+                        f"pipeline.mesh: the fixed axis sizes ({fixed} processes) do not divide "
+                        f"the {world} processes of the launch"
+                    )
+                sizes[name] = world // fixed
+        total = int(np.prod(list(sizes.values())))
+        if total != world:
+            raise config_mod.ConfigError(
+                f"pipeline.mesh covers {total} processes but the launch has {world} (one card each)"
+            )
+        for name, fac in (dcn or {}).items():
+            if sizes[name] % fac:
+                raise config_mod.ConfigError(
+                    f"pipeline.mesh.dcn factor {fac} does not divide the resolved size {sizes[name]} of axis {name!r}"
+                )
+        if not torch.distributed.is_initialized():
+            return None
+        names = tuple(sizes)
+        # with no dcn factors the hybrid layout is the plain row-major grid
+        dcn_shape = tuple((dcn or {}).get(n, 1) for n in names)
+        return pmesh.make_hybrid_mesh(tuple(sizes[n] // f for n, f in zip(names, dcn_shape)), dcn_shape, names)
+
     # -- execution ---------------------------------------------------------------
     def run(self) -> dict[str, list]:
         """Execute the pipeline; returns the products routed by label.
@@ -388,6 +487,17 @@ class Manager(config_mod.Reader):
         ``self.task_timing`` holds each task's wall time and call count
         (with the card synchronised at the end of every call).
         """
+        mesh = self._build_mesh()
+        if mesh is not None:
+            logger.info(
+                "pipeline mesh %s over %s",
+                dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                torch.distributed.get_backend(),
+            )
+        with pmesh.use_mesh(mesh):
+            return self._run_traced()
+
+    def _run_traced(self) -> dict[str, list]:
         if not self.profile_dir:
             return self._run()
         from torch.profiler import ProfilerActivity, profile
@@ -458,6 +568,9 @@ class Manager(config_mod.Reader):
                     f"{runner.name} produced {len(outs)} outputs for {len(runner.out_labels)} labels"
                 )
             for label, out in zip(runner.out_labels, outs):
+                if self.distribute_products and pmesh.get_mesh() is not None and isinstance(out, ContainerBase):
+                    # each process keeps its block of the product
+                    out.to_device()
                 if self.validate_finite:
                     _assert_finite_product(runner.name, label, out)
                 if self.retain_products == "all" or (
@@ -501,7 +614,9 @@ class Manager(config_mod.Reader):
                 # is routed to the out labels (the LoadBeamTransfer
                 # convention, reference test/pipe_config.yaml:16-19)
                 if r.ready_for_setup():
-                    setup_ret = timed(r, r.task.setup, *r.requires_values)
+                    # setup sees whole containers, as every task body does
+                    requires = [v.gathered() if isinstance(v, ContainerBase) else v for v in r.requires_values]
+                    setup_ret = timed(r, r.task.setup, *requires)
                     r.setup_done = True
                     if setup_ret is not None:
                         route(r, setup_ret)
@@ -558,16 +673,13 @@ def lint(config_path: str) -> list[str]:
     return Manager.from_yaml_file(config_path).lint()
 
 
-# CLI commands of the JAX package that wait for later slices of the port
-_NOT_PORTED_COMMANDS = {
-    "queue": "the multi-process launch (parallel/multihost.py, ROADMAP.md queue 1 item 23)",
-}
-
-
 def main(argv=None) -> int:
-    """Command line interface: ``python -m draco_tpu_torch {run,lint,verify,makeproducts,makesky} ...``.
+    """Command line interface: ``python -m draco_tpu_torch {run,lint,queue,verify,makeproducts,makesky} ...``.
 
-    ``run`` and ``lint`` mirror the reference's ``caput-pipeline``;
+    ``run`` and ``lint`` mirror the reference's ``caput-pipeline`` (``run``
+    joins the process group of a multi-process launch first);
+    ``queue`` prints the ``cluster:`` stanza as a SLURM script (exit 1 if
+    the stanza fails lint);
     ``verify`` runs a config several times and demands identical products
     (exit 1 and ``VERIFY FAILED`` otherwise);
     ``makeproducts`` and ``makesky`` re-provide ``drift-makeproducts`` and
@@ -591,6 +703,9 @@ def main(argv=None) -> int:
     p_run.add_argument("configfile")
     p_lint = sub.add_parser("lint", help="validate a pipeline config")
     p_lint.add_argument("configfile", nargs="+")
+    p_queue = sub.add_parser("queue", help="render the config's cluster: stanza as a SLURM launch script")
+    p_queue.add_argument("configfile")
+    p_queue.add_argument("--output", default=None, help="write the job script here (default: stdout)")
     p_verify = sub.add_parser(
         "verify", help="run a pipeline config several times and check that its products are reproducible"
     )
@@ -618,25 +733,40 @@ def main(argv=None) -> int:
     p_sky.add_argument("--seed", type=int, default=0)
     p_sky.add_argument("--pol", action="store_true", help="full-Stokes maps")
     p_sky.add_argument("--lmax", type=int, default=None)
-    for name, what in _NOT_PORTED_COMMANDS.items():
-        p = sub.add_parser(name, help=f"not ported yet: needs {what}")
-        p.add_argument("args", nargs=argparse.REMAINDER)
 
     args = parser.parse_args(argv)
 
-    if args.command in _NOT_PORTED_COMMANDS:
-        print(
-            f"draco_tpu_torch {args.command}: not ported yet; it needs "
-            f"{_NOT_PORTED_COMMANDS[args.command]}, a later slice of the port "
-            "(python -m draco_tpu has it)"
-        )
-        return 2
+    if args.command == "queue":
+        man = Manager.from_yaml_file(args.configfile)
+        problems = man._lint_cluster()
+        for p in problems:
+            print(f"LINT: {p}")
+        if problems:
+            return 1
+        script = man.jobscript(args.configfile)
+        if args.output:
+            with open(args.output, "w") as f:
+                f.write(script)
+            os.chmod(args.output, 0o755)
+            print(f"job script written to {args.output}")
+        else:
+            print(script, end="")
+        return 0
 
     from ..device import default_device
 
     with default_device(args.platform):
         if args.command == "run":
-            run(args.configfile)
+            # a multi-process launch configures DRACO_TPU_COORDINATOR /
+            # _NUM_PROCESSES / _PROCESS_ID; a plain run is untouched
+            from ..parallel import multihost
+
+            joined = multihost.initialize()
+            try:
+                run(args.configfile)
+            finally:
+                if joined:
+                    torch.distributed.destroy_process_group()
             return 0
         if args.command == "verify":
             from ..parallel.validate import DeterminismError, check_pipeline_determinism

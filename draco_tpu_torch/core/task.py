@@ -7,8 +7,18 @@ Port of ``draco_tpu.core.task``, the replacement of the reference's
 A task implements ``setup(*requires)``, ``process(*inputs) -> output`` and
 optionally ``process_finish() -> output``; it signals exhaustion by raising
 :class:`PipelineStopIteration`.  The YAML-driven
-:class:`~draco_tpu_torch.core.pipeline.Manager` drives the lifecycle.  The
-port runs in one process, so every task saves its own outputs.
+:class:`~draco_tpu_torch.core.pipeline.Manager` drives the lifecycle.
+
+Under a mesh (a multi-process launch, :mod:`draco_tpu_torch.parallel`)
+every process runs every task, and no task body receives a placed
+(DTensor) dataset: DTensor has no sharding rule for advanced indexing,
+slice assignment or the port's own CUDA kernels.  A task that works
+channel by channel (``freq_local = True``) receives its rank's frequency
+slab as an ordinary container, and its outputs are placed back from the
+slabs; every other task receives the whole of its inputs, runs as on one
+device, and the Manager places its products again when it routes them
+(the JAX package's ``distribute``).  Outputs are saved by the leader, or
+as one part file a process (``save_sharded``).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..parallel import mesh as pmesh
 from . import config
 from .containers import ContainerBase
 
@@ -92,6 +103,10 @@ class ContainerTask(MPILoggedTask):
     """
 
     save = config.bool_prop(False)
+    # multi-process runs: one part file a process, with its slab of every
+    # distributed dataset (parallel.multihost.save_sharded), in place of the
+    # leader's whole file
+    save_sharded = config.bool_prop(False)
     # lossy mantissa truncation of spec-marked datasets on save
     # (draco_tpu_torch.core.truncate)
     truncate = config.bool_prop(False)
@@ -105,6 +120,16 @@ class ContainerTask(MPILoggedTask):
 
     # set by the Manager
     _manager = None
+
+    # True for a task whose process() treats every frequency channel on its
+    # own, so that under a mesh splitting ``freq`` each rank runs it on its
+    # own channels; its outputs' datasets without a freq axis must not
+    # depend on the channels
+    freq_local: ClassVar[bool] = False
+
+    def _freq_slab_ok(self, nlocal: int) -> bool:
+        """Whether process() can run on slabs of ``nlocal`` channels."""
+        return True
 
     def __init__(self):
         super().__init__()
@@ -126,12 +151,35 @@ class ContainerTask(MPILoggedTask):
             if isinstance(inp, ContainerBase) and "tag" in inp.attrs:
                 self._input_tag = inp.attrs["tag"]
                 break
+        mesh = pmesh.get_mesh()
+        local = False
+        if mesh is not None:
+            inputs, local = self._task_inputs(inputs, mesh)
         output = self.process(*inputs)
+        if local and output is not None:
+            for out in output if isinstance(output, (tuple, list)) else (output,):
+                if isinstance(out, ContainerBase):
+                    out.from_freq_slabs(mesh)
         if output is not None:
             # count outputs, not calls: accumulators returning None must
             # not burn through limit_outputs
             self._count += 1
         return self._process_output(output)
+
+    def _task_inputs(self, inputs, mesh) -> tuple[tuple, bool]:
+        """(inputs as process() takes them, whether they are frequency slabs).
+
+        A frequency-local task gets every container's slab when the mesh
+        splits the freq axis of each of them; otherwise every task gets the
+        whole of every container (a gather: each rank runs the same tasks
+        in the same order, so the collectives match).
+        """
+        conts = [x for x in inputs if isinstance(x, ContainerBase)]
+        if self.freq_local and conts:
+            nloc = {c.freq_split(mesh) for c in conts}
+            if None not in nloc and len(nloc) == 1 and self._freq_slab_ok(nloc.pop()):
+                return tuple(x.freq_slab(mesh) if isinstance(x, ContainerBase) else x for x in inputs), True
+        return tuple(x.gathered() if isinstance(x, ContainerBase) else x for x in inputs), False
 
     def finish(self):
         """Run process_finish if defined, returning its output."""
@@ -175,13 +223,34 @@ class ContainerTask(MPILoggedTask):
         return f"{base}{tag}.h5"
 
     def _save_output(self, output: ContainerBase):
+        from ..parallel import multihost
+
         fname = self._outfile_name(output)
         self._save_count += 1
         d = os.path.dirname(fname)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        self.log.info("Saving output %s", fname)
-        output.save(fname, truncate=self.truncate)
+        multi = multihost.process_count() > 1
+        if multi and self.save_sharded:
+            # every process writes only its slab of each distributed dataset
+            if d:
+                os.makedirs(d, exist_ok=True)
+            self.log.info("Saved shard part %s", multihost.save_sharded(output, fname))
+            return
+        placed = []
+        if multi:
+            # the leader writes the whole file; gathering is a collective,
+            # so every process walks the datasets (gating the whole save on
+            # the leader would leave it waiting in the gather)
+            placed = [name for name, ds in output.datasets.items() if pmesh.is_placed(ds._data)]
+            output.ensure_host()
+        if multihost.is_leader():
+            if d:
+                os.makedirs(d, exist_ok=True)
+            self.log.info("Saving output %s", fname)
+            output.save(fname, truncate=self.truncate)
+        # ensure_host replaced the placed datasets by the whole in place:
+        # place them again for the product's consumers
+        for name in placed:
+            output.datasets[name].to_device()
 
 
 # Reference-compat alias: the pre-migration name for the container task base.

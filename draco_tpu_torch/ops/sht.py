@@ -154,6 +154,32 @@ def _legendre_block_core(x, lnsin, cm_c, a_tab, b_tab, mv, two_float=False, l0=0
     return (hi, lo) if two_float else out
 
 
+def _each_channel(fn, x: torch.Tensor, split: bool) -> torch.Tensor:
+    """``fn(x)``, or with ``split`` ``fn`` of each channel (leading index) of
+    ``x`` alone, concatenated.
+
+    A GEMM folds its batch into its rows, and its kernel (and so a row's
+    bits) depends on how many rows there are.  Contracted alone, a channel
+    has the same bits whichever channels share the call: a rank's frequency
+    slab under a mesh, or the whole band.  Only the contractions go channel
+    by channel; the factors they contract against (the Legendre rows of a
+    chunk, the ring DFTs) are made once for all channels.
+    """
+    if not split:
+        return fn(x)
+    return torch.cat([fn(x[i : i + 1]) for i in range(x.shape[0])])
+
+
+def _stack_parts(z: torch.Tensor) -> torch.Tensor:
+    """[2, ...]: the real and imaginary parts of ``z`` as one batch, so that a
+    channel's contraction reads the Legendre rows once for both."""
+    return torch.stack([z.real, z.imag])
+
+
+def _complex_of(parts: torch.Tensor) -> torch.Tensor:
+    return torch.complex(parts[0], parts[1])
+
+
 def _complex_dtype(rdt: torch.dtype) -> torch.dtype:
     return torch.complex128 if rdt == torch.float64 else torch.complex64
 
@@ -456,11 +482,12 @@ class SHT:
     # ------------------------------------------------------------------
     # ring Fourier steps
     # ------------------------------------------------------------------
-    def _ring_analysis_parts(self, maps, plan, raw_belt: bool = False):
+    def _ring_analysis_parts(self, maps, plan, raw_belt: bool = False, split: bool = False):
         """Quadrature-weighted per-section ring coefficients of real maps.
 
         Returns (F_belt [..., nbelt, M+1], [F_group [..., rows, M+1], ...])
         as complex tensors, in the layout of :meth:`precompute_legendre_split`.
+        ``split``: the DFTs channel by channel (:func:`_each_channel`).
         """
         belt = maps[..., self._belt_off : self._belt_off + self._belt_len].reshape(
             *maps.shape[:-1], len(self._belt_rings), self._belt_nphi
@@ -469,7 +496,7 @@ class SHT:
             maps[..., torch.as_tensor(self._cap_idx[rows_arr][:, :w], device=maps.device)]
             for rows_arr, w in self._cap_wgroups
         ]
-        return self._analysis_sections(belt, caps, plan, raw_belt)
+        return self._analysis_sections(belt, caps, plan, raw_belt, split=split)
 
     def padded_layout(self) -> np.ndarray:
         """HEALPix pixel of each slot of the padded layout
@@ -511,17 +538,17 @@ class SHT:
             off += size
         return self._analysis_sections(belt, caps, plan, raw_belt, mcut)
 
-    def _analysis_sections(self, belt, caps, plan, raw_belt=False, mcut=None):
+    def _analysis_sections(self, belt, caps, plan, raw_belt=False, mcut=None, split=False):
         """Ring DFTs of the belt [..., nbelt, nphi] and the cap groups
         [..., rows, w]: dense GEMMs against the plan's factors, or, with
         ``plan`` None, against factors made on the fly (the cap factors
-        ``chunk_m`` m at a time)."""
+        ``chunk_m`` m at a time); with ``split`` channel by channel."""
         self._require_analysis_band_limit()
         rdt, dev = belt.dtype, belt.device
         ms = slice(None, mcut)
         Wr, Wi = (w[:, ms] for w in (plan["W"] if plan is not None else self._belt_dft(rdt, dev)))
-        Fr = belt @ Wr
-        Fi = belt @ Wi
+        Fr = _each_channel(lambda b: b @ Wr, belt, split)
+        Fi = _each_channel(lambda b: b @ Wi, belt, split)
         if raw_belt:
             F_belt = torch.complex(Fr, Fi)
         else:
@@ -529,7 +556,10 @@ class SHT:
             F_belt = torch.complex(Fr * pr - Fi * pi, Fr * pi + Fi * pr)
 
         def dft(cap, Pr, Pi):
-            return torch.complex(torch.einsum("...rj,rjm->...rm", cap, Pr), torch.einsum("...rj,rjm->...rm", cap, Pi))
+            def one(c):
+                return torch.complex(torch.einsum("...rj,rjm->...rm", c, Pr), torch.einsum("...rj,rjm->...rm", c, Pi))
+
+            return _each_channel(one, cap, split)
 
         group_F = []
         ring_ids = np.asarray(self._cap_rings)
@@ -543,15 +573,19 @@ class SHT:
             group_F.append(torch.cat(parts, dim=-1)[..., ms])
         return F_belt, group_F
 
-    def _contract_alm(self, F_belt, group_F, lam, lam_lo=None):
+    def _contract_alm(self, F_belt, group_F, lam, lam_lo=None, split=False):
         """Sum of the per-section Legendre contractions -> alm [..., L+1, M+1].
 
-        ``lam_lo`` (bfloat16) is upcast and contracted in full float32.
+        ``lam_lo`` (bfloat16) is upcast and contracted in full float32;
+        ``split``: channel by channel.
         """
         rdt = F_belt.real.dtype
 
         def contract(F, lam_s):
             lam_r = lam_s.to(rdt)
+            if split:
+                return _each_channel(lambda f: _complex_of(torch.einsum("...rm,lmr->...lm", _stack_parts(f), lam_r)),
+                                     F, True)
             return torch.complex(
                 torch.einsum("...rm,lmr->...lm", F.real, lam_r),
                 torch.einsum("...rm,lmr->...lm", F.imag, lam_r),
@@ -566,7 +600,7 @@ class SHT:
                 alm = alm + contract(F_g, lam_g)
         return alm
 
-    def _ring_synthesis_parts(self, G_belt, G_caps, plan=None):
+    def _ring_synthesis_parts(self, G_belt, G_caps, plan=None, split=False):
         """Real maps [..., npix] from per-section ring coefficients.
 
         f(r, j) = Re sum_m c_m G_m(r) e^{i m phi_rj} with c_0 = 1, c_m>0 = 2
@@ -574,7 +608,8 @@ class SHT:
         mmax (also mmax >= 4 nside, where the belt's azimuths alias).  The
         plan's cap factors carry the analysis quadrature weight, divided back
         out through the per-row coefficient; with ``plan`` None the cap
-        factors are made ``chunk_m`` m at a time and summed.
+        factors are made ``chunk_m`` m at a time and summed.  ``split``: the
+        inverse DFTs channel by channel.
         """
         rdt = G_belt.real.dtype
         dev = G_belt.device
@@ -584,14 +619,16 @@ class SHT:
         g_belt = G_belt * torch.complex(pr, pi)
         gd = g_belt * cm
         Wcr, Wci = self._belt_dft(rdt, dev, conj=True)
-        f_belt = gd.real @ Wcr.T - gd.imag @ Wci.T
+        f_belt = _each_channel(lambda g: g.real @ Wcr.T - g.imag @ Wci.T, gd, split)
         f_belt = f_belt.reshape(*f_belt.shape[:-2], self._belt_len)
         if not self._ncap:
             return f_belt
 
         def idft(gc, Pr, Pi):
             # Re(gc * conj(P)) = Re(gc) Re(P) + Im(gc) Im(P)
-            return torch.einsum("...rm,rjm->...rj", gc.real, Pr) + torch.einsum("...rm,rjm->...rj", gc.imag, Pi)
+            return _each_channel(
+                lambda g: torch.einsum("...rm,rjm->...rj", g.real, Pr) + torch.einsum("...rm,rjm->...rj", g.imag, Pi),
+                gc, split)
 
         ring_ids = np.asarray(self._cap_rings)
         f_groups = []
@@ -642,20 +679,22 @@ class SHT:
         secs = [lam[:, :, r0:r1] for r0, r1 in self._section_slices()]
         return {"belt": secs[0], "caps": secs[1:]}
 
-    def _contract_alm_chunked(self, F_belt, group_F):
+    def _contract_alm_chunked(self, F_belt, group_F, split=False):
         """:meth:`_contract_alm` with the Legendre rows made ``chunk_m`` m at a
-        time: each chunk contracted as the tables are, section by section."""
+        time: each chunk contracted as the tables are, section by section
+        (with ``split``, channel by channel against the chunk made once)."""
         alm = torch.zeros(*F_belt.shape[:-2], self.lmax + 1, self.mmax + 1, dtype=F_belt.dtype, device=F_belt.device)
         for m_vals in self._m_chunks():
             m0, m1 = int(m_vals[0]), int(m_vals[-1]) + 1
             lam_c, lo_c = (self._section_views(p) for p in self._chunk_legendre(m_vals, F_belt.real.dtype, F_belt.device))
-            alm[..., m0:, m0:m1] = self._contract_alm(F_belt[..., m0:m1], [F[..., m0:m1] for F in group_F], lam_c, lo_c)
+            alm[..., m0:, m0:m1] = self._contract_alm(F_belt[..., m0:m1], [F[..., m0:m1] for F in group_F], lam_c, lo_c,
+                                                      split)
             del lam_c, lo_c
         return alm
 
-    def _legendre_sections_chunked(self, alm):
+    def _legendre_sections_chunked(self, alm, split=False):
         """:meth:`_legendre_sections` with the Legendre rows made ``chunk_m`` m
-        at a time."""
+        at a time (with ``split``, channel by channel against each chunk)."""
         lead = alm.shape[:-2]
         G = [
             torch.zeros(*lead, r1 - r0, self.mmax + 1, dtype=alm.dtype, device=alm.device)
@@ -664,13 +703,13 @@ class SHT:
         for m_vals in self._m_chunks():
             m0, m1 = int(m_vals[0]), int(m_vals[-1]) + 1
             lam_c, lo_c = (self._section_views(p) for p in self._chunk_legendre(m_vals, alm.real.dtype, alm.device))
-            G_belt, G_caps = self._legendre_sections(alm[..., m0:, m0:m1], lam_c, lo_c)
+            G_belt, G_caps = self._legendre_sections(alm[..., m0:, m0:m1], lam_c, lo_c, split)
             for G_s, g in zip(G, [G_belt, *G_caps]):
                 G_s[..., m0:m1] = g
             del lam_c, lo_c
         return G[0], G[1:]
 
-    def _analysis_impl(self, maps, lam=None, plan=None, lam_lo=None):
+    def _analysis_impl(self, maps, lam=None, plan=None, lam_lo=None, split=False):
         """alm[..., lmax+1, mmax+1] (complex) of real or complex maps [..., npix].
 
         ``lam``: the split tables of :meth:`tables` (with their ``plan`` and,
@@ -681,24 +720,30 @@ class SHT:
         contracted against the ring coefficients as they are made.  Without
         a ``plan`` the ring-DFT factors are made on the fly, the cap ones a
         chunk of m at a time.  A complex map's alm are those of its real
-        part plus i those of its imaginary part.
+        part plus i those of its imaginary part.  ``split``: every
+        contraction channel by channel (:func:`_each_channel`).
         """
         if maps.is_complex():
-            ri = self._analysis_impl(torch.stack([maps.real, maps.imag]), lam, plan, lam_lo)
-            return ri[0] + 1j * ri[1]
-        F_belt, group_F = self._ring_analysis_parts(maps, plan)
+            dim = int(split)  # the real and imaginary parts inside each channel
+            ri = self._analysis_impl(torch.stack([maps.real, maps.imag], dim), lam, plan, lam_lo, split)
+            return ri.select(dim, 0) + 1j * ri.select(dim, 1)
+        F_belt, group_F = self._ring_analysis_parts(maps, plan, split=split)
         if lam is None:
-            return self._contract_alm_chunked(F_belt, group_F)
-        return self._contract_alm(F_belt, group_F, self._dense_sections(lam), self._dense_sections(lam_lo))
+            return self._contract_alm_chunked(F_belt, group_F, split)
+        return self._contract_alm(F_belt, group_F, self._dense_sections(lam), self._dense_sections(lam_lo), split)
 
     @staticmethod
-    def _legendre_sections(alm, lam, lam_lo=None):
+    def _legendre_sections(alm, lam, lam_lo=None, split=False):
         """Per-section ring coefficients sum_l Lambda[l, m, r] alm[..., l, m]:
-        (G_belt [..., nbelt, M+1], [G_group [..., rows, M+1], ...])."""
+        (G_belt [..., nbelt, M+1], [G_group [..., rows, M+1], ...]); with
+        ``split`` channel by channel."""
         rdt = alm.real.dtype
 
         def contract(lam_s):
             lam_r = lam_s.to(rdt)
+            if split:
+                return _each_channel(lambda a: _complex_of(torch.einsum("...lm,lmr->...rm", _stack_parts(a), lam_r)),
+                                     alm, True)
             return torch.complex(
                 torch.einsum("...lm,lmr->...rm", alm.real, lam_r),
                 torch.einsum("...lm,lmr->...rm", alm.imag, lam_r),
@@ -711,17 +756,18 @@ class SHT:
             G_caps = [g + contract(c) for g, c in zip(G_caps, lam_lo["caps"])]
         return G_belt, G_caps
 
-    def _synthesis_impl(self, alm, lam=None, plan=None, lam_lo=None):
+    def _synthesis_impl(self, alm, lam=None, plan=None, lam_lo=None, split=False):
         """Real maps [..., npix] from alm[..., lmax+1, mmax+1].
 
-        ``lam`` and ``plan`` as for :meth:`_analysis_impl`: the split tables,
-        a whole Legendre tensor, or None for the chunked route.
+        ``lam``, ``plan`` and ``split`` as for :meth:`_analysis_impl`: the
+        split tables, a whole Legendre tensor, or None for the chunked route.
         """
         if lam is None:
-            G_belt, G_caps = self._legendre_sections_chunked(alm)
+            G_belt, G_caps = self._legendre_sections_chunked(alm, split)
         else:
-            G_belt, G_caps = self._legendre_sections(alm, self._dense_sections(lam), self._dense_sections(lam_lo))
-        return self._ring_synthesis_parts(G_belt, G_caps, plan)
+            G_belt, G_caps = self._legendre_sections(alm, self._dense_sections(lam), self._dense_sections(lam_lo),
+                                                     split)
+        return self._ring_synthesis_parts(G_belt, G_caps, plan, split)
 
     def _route_tables(self, device, rdt):
         """(lam, lam_lo, plan) of the route :meth:`route` picks: the cached
@@ -731,28 +777,32 @@ class SHT:
             return self.tables(device, rdt)
         return None, None, None
 
-    def analysis(self, maps: torch.Tensor, iter: int = 0) -> torch.Tensor:
+    def analysis(self, maps: torch.Tensor, iter: int = 0, per_channel: bool = False) -> torch.Tensor:
         """map2alm of real or complex maps with optional Jacobi iterations
         (healpy-style).
 
         Complex maps iterate on their real and imaginary parts, stacked into
         one batch (the real-field synthesis of the residual assumes a
         Hermitian spectrum); with ``iter=0`` they are analysed directly.
+        ``per_channel``: each channel (leading index) gets the bits it gets
+        alone (:func:`_each_channel`); the Legendre rows are made once.
         """
         if iter > 0 and maps.is_complex():
-            ri = self.analysis(torch.stack([maps.real, maps.imag]), iter=iter)
-            return ri[0] + 1j * ri[1]
+            dim = int(per_channel)
+            ri = self.analysis(torch.stack([maps.real, maps.imag], dim), iter=iter, per_channel=per_channel)
+            return ri.select(dim, 0) + 1j * ri.select(dim, 1)
         lam, lam_lo, plan = self._route_tables(maps.device, maps.real.dtype)
-        alm = self._analysis_impl(maps, lam, plan, lam_lo)
+        alm = self._analysis_impl(maps, lam, plan, lam_lo, per_channel)
         for _ in range(iter):
-            resid = maps - self._synthesis_impl(alm, lam, plan, lam_lo)
-            alm = alm + self._analysis_impl(resid, lam, plan, lam_lo)
+            resid = maps - self._synthesis_impl(alm, lam, plan, lam_lo, per_channel)
+            alm = alm + self._analysis_impl(resid, lam, plan, lam_lo, per_channel)
         return alm
 
-    def synthesis(self, alm: torch.Tensor) -> torch.Tensor:
-        """alm2map for a real field (m >= 0 coefficients)."""
+    def synthesis(self, alm: torch.Tensor, per_channel: bool = False) -> torch.Tensor:
+        """alm2map for a real field (m >= 0 coefficients); ``per_channel`` as
+        for :meth:`analysis`."""
         lam, lam_lo, plan = self._route_tables(alm.device, alm.real.dtype)
-        return self._synthesis_impl(alm, lam, plan, lam_lo)
+        return self._synthesis_impl(alm, lam, plan, lam_lo, per_channel)
 
     def analysis_complex(self, maps: torch.Tensor):
         """Full SHT of complex maps: (alm_pos, alm_neg).
@@ -800,16 +850,18 @@ def alm2map(alm: torch.Tensor, nside: int) -> torch.Tensor:
     return get_sht(nside, alm.shape[-2] - 1, alm.shape[-1] - 1).synthesis(alm)
 
 
-def sphtrans_sky(sky_map, lmax: int | None = None, device=None) -> torch.Tensor:
+def sphtrans_sky(sky_map, lmax: int | None = None, device=None, per_channel: bool = False) -> torch.Tensor:
     """SHT of every (freq, pol) map: [freq, pol, npix] -> [freq, pol, l, m].
 
-    A host array goes to ``device`` (:func:`draco_tpu_torch.device.resolve`).
+    A host array goes to ``device`` (:func:`draco_tpu_torch.device.resolve`);
+    ``per_channel`` gives each frequency the bits it gets alone
+    (:meth:`SHT.analysis`).
     """
     sky_map = as_tensor(sky_map, device)
-    return get_sht(healpix.nside_of(sky_map.shape[-1]), lmax).analysis(sky_map)
+    return get_sht(healpix.nside_of(sky_map.shape[-1]), lmax).analysis(sky_map, per_channel=per_channel)
 
 
-def sphtrans_inv_sky(alm, nside: int, device=None) -> torch.Tensor:
+def sphtrans_inv_sky(alm, nside: int, device=None, per_channel: bool = False) -> torch.Tensor:
     """Inverse of :func:`sphtrans_sky`: [freq, pol, l, m] -> [freq, pol, npix]."""
     alm = as_tensor(alm, device)
-    return get_sht(nside, alm.shape[-2] - 1, alm.shape[-1] - 1).synthesis(alm)
+    return get_sht(nside, alm.shape[-2] - 1, alm.shape[-1] - 1).synthesis(alm, per_channel=per_channel)

@@ -425,6 +425,45 @@ def segment_sum(x: torch.Tensor, plan: SegmentPlan, dim: int = 1) -> torch.Tenso
     return out.index_copy_(dim, plan.outs, y.index_select(dim, plan.heads))
 
 
+def _sorted_plan(sd: torch.Tensor, nout: int) -> SegmentPlan:
+    """:func:`segment_plan` of outputs ``sd`` already in ascending order,
+    built on their device (the same integer plan the host builds)."""
+    dev = sd.device
+    n = sd.shape[0]
+    first = torch.searchsorted(sd, sd)
+    rank = torch.arange(n, device=dev) - first
+    count = torch.bincount(sd, minlength=nout)[sd]
+    levels = []
+    step, most = 1, int(count.max()) if n else 0
+    while step < most:
+        into = torch.nonzero((rank % (2 * step) == 0) & (rank + step < count)).flatten()
+        levels.append((into, into + step))
+        step *= 2
+    outs = torch.unique_consecutive(sd)
+    return SegmentPlan(nout, torch.arange(n, device=dev), levels, torch.searchsorted(sd, outs), outs)
+
+
+def binned_sum(x: torch.Tensor, bins: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Sum the last axis of ``x`` [..., n] into ``nbins`` bins (``bins`` [n],
+    ints in [0, nbins)), on ``x``'s device.
+
+    Each bin's items are summed in ascending order of value as a pairwise
+    tree (:func:`segment_sum`): the same bits on every run and device, and
+    for any order of the items (a bin's sum depends on the multiset of its
+    values only).  ``bincount(weights=...)`` on the card adds with atomics,
+    in an order that changes from run to run.
+    """
+    bins = bins.to(device=x.device, dtype=torch.long)
+    lead = x.shape[:-1]
+    x = x.reshape(-1, x.shape[-1])
+    # lexicographic (bin, value) order of each row: by value, then stably by bin
+    by_value = torch.sort(x, dim=1, stable=True).indices
+    by_bin = torch.sort(bins[by_value], dim=1, stable=True).indices
+    xs = x.gather(1, by_value.gather(1, by_bin))
+    plan = _sorted_plan(torch.sort(bins).values, nbins)
+    return segment_sum(xs, plan, dim=1).reshape(*lead, nbins)
+
+
 def apply_gain(vis: torch.Tensor, gain, axis: int = 1, out: torch.Tensor | None = None, prod_map=None):
     """Apply per-input gains to products: ``out_p = vis_p g_a conj(g_b)``.
 

@@ -29,6 +29,8 @@ from typing import Any, Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from . import mesh as pmesh
+
 logger = logging.getLogger(__name__)
 
 __all__ = [
@@ -37,6 +39,7 @@ __all__ = [
     "compare_products",
     "assert_deterministic",
     "assert_sharding_invariant",
+    "mesh_placement",
     "check_pipeline_determinism",
 ]
 
@@ -46,9 +49,10 @@ class DeterminismError(RuntimeError):
 
 
 def _as_host(x) -> np.ndarray:
-    """An array-like (a tensor on any device included) as a host numpy array."""
+    """An array-like (a tensor on any device included) as a host numpy array;
+    a placed tensor is gathered first (a collective over its mesh)."""
     if isinstance(x, torch.Tensor):
-        x = x.detach()
+        x = pmesh.unshard(x).detach()
         if x.dtype == torch.bfloat16:
             x = x.float()
         return x.resolve_conj().resolve_neg().cpu().numpy()
@@ -212,8 +216,9 @@ def assert_sharding_invariant(
     """Check ``fn`` gives the same answer under every placement.
 
     ``placements`` is an iterable of callables mapping each argument to its
-    placed form (e.g. ``lambda x: x.to("cuda:0")``, or a split over
-    devices); the first placement is the baseline.  The reduction order
+    placed form (e.g. ``lambda x: x.to("cuda:0")``, or
+    :func:`mesh_placement`'s split over a mesh: every rank of the mesh
+    then runs the check); the first placement is the baseline.  The reduction order
     may change across placements, so the default comparison allows a small
     relative tolerance; pass rtol=0.0 to demand bit-identity.
     """
@@ -226,6 +231,19 @@ def assert_sharding_invariant(
         problems = compare_products(ref, out, rtol=rtol)
         if problems:
             raise DeterminismError(f"{label}: placement {i} differs from placement 0:\n  " + "\n  ".join(problems))
+
+
+def mesh_placement(mesh, axis_names, primary: str | None = None) -> Callable[[Any], Any]:
+    """A placement for :func:`assert_sharding_invariant`: a tensor split over
+    ``mesh`` by its axis names (``shard_array_named`` under ``use_mesh``).
+    A program given placed tensors returns placed ones, which the
+    comparison gathers."""
+
+    def place(x):
+        with pmesh.use_mesh(mesh):
+            return pmesh.shard_array_named(x, axis_names, primary)
+
+    return place
 
 
 def check_pipeline_determinism(config: "dict | str", *, runs: int = 2, rtol: float = 0.0) -> dict[str, int]:

@@ -23,7 +23,7 @@ import torch
 from ..core import config, containers, io
 from ..core.task import ContainerTask, PipelineStopIteration
 from ..ops import mmode, regrid, sht
-from ..ops.tools import axis_blocks, invert_no_zero
+from ..ops.tools import axis_blocks, find_keys, invert_no_zero
 
 
 class SimulateSidereal(ContainerTask):
@@ -52,6 +52,10 @@ class SimulateSidereal(ContainerTask):
     streaming = config.bool_prop(False)
     baseline_chunk = config.int_prop(256)
 
+    # every channel is simulated on its own: under a mesh each rank
+    # simulates its own channels
+    freq_local = True
+
     def setup(self, bt):
         """Set the beam transfer manager (BeamTransfer or ProductManager)."""
         self.beamtransfer = io.get_beamtransfer(bt)
@@ -66,19 +70,22 @@ class SimulateSidereal(ContainerTask):
         ntime = mmode.fast_fft_size(2 * mmax + 1) if self.fast_ra else 2 * mmax + 1
 
         freqmap = map_.index_map["freq"][:]
-        if not np.array_equal(tel.frequencies, freqmap["centre"]):
+        # the telescope channels of the map's (all of them, or a rank's slab)
+        freqs = find_keys(list(tel.frequencies), list(freqmap["centre"]))
+        if None in freqs or len(freqs) == 0:
             raise ValueError("The sky map and beam-transfer frequency axes disagree.")
 
         # sky harmonics of every (freq, pol) map, trimmed to mmax; the
         # simulation runs in float32, the JAX package's device precision
         sky = map_.map[:].to(torch.float32)
-        alm = sht.sphtrans_sky(sky, lmax=lmax)[..., : mmax + 1]
+        # channel by channel: a channel's bits do not depend on the slab
+        alm = sht.sphtrans_sky(sky, lmax=lmax, per_channel=True)[..., : mmax + 1]
 
         if self.streaming:
-            vis_m = bt.project_sky_to_telescope_streaming(alm, chunk=self.baseline_chunk)
+            vis_m = bt.project_sky_to_telescope_streaming(alm, chunk=self.baseline_chunk, freqs=freqs)
         else:
             bt.generate(device=sky.device)
-            vis_m = bt.project_sky_to_telescope(alm)  # [m+1, 2, nfreq, nb]
+            vis_m = bt.project_sky_to_telescope(alm, freqs=freqs)  # [m+1, 2, nfreq, nb]
         # the simulated m-modes always fill the largest negative m (oddra)
         vis_stream = mmode.mmodes_to_sidereal(vis_m, n=ntime, oddra=True)  # [f, b, t]
         del alm, vis_m

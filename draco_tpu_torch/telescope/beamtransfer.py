@@ -336,13 +336,21 @@ class BeamTransfer:
             return torch.einsum("ftpl,pl->ft", bm_full, alm)
         return torch.einsum("ftpl,fpl->ft", bm_full, alm)
 
-    def project_sky_to_telescope(self, alm) -> torch.Tensor:
+    def project_sky_to_telescope(self, alm, freqs=None) -> torch.Tensor:
         """Sky alm [nfreq, npol, lmax+1, mmax+1] -> m-mode visibilities
-        [mmax+1, 2, nfreq, nbase] (msign 0 = V_m, 1 = conj(V_{-m}))."""
+        [mmax+1, 2, nfreq, nbase] (msign 0 = V_m, 1 = conj(V_{-m})).
+
+        ``freqs`` names the telescope channels of alm's frequencies (all of
+        them if omitted).
+        """
         self.generate()
         alm = as_tensor(alm, self._bp.device).to(self._bp.dtype)
-        vp = torch.einsum("fbplm,fplm->mfb", self._bp, alm)
-        vm = torch.einsum("fbplm,fplm->mfb", self._bm, alm)
+        bp, bm = self._bp, self._bm
+        if freqs is not None:
+            fsel = torch.as_tensor(np.asarray(freqs, dtype=np.int64), device=bp.device)
+            bp, bm = bp.index_select(0, fsel), bm.index_select(0, fsel)
+        vp = torch.einsum("fbplm,fplm->mfb", bp, alm)
+        vm = torch.einsum("fbplm,fplm->mfb", bm, alm)
         return torch.stack([vp, vm], dim=1)
 
     def project_telescope_to_sky_dirty(self, vis, weight) -> torch.Tensor:
@@ -444,15 +452,15 @@ class BeamTransfer:
         re, im = self._stream_bmaps(vw, bl_w, u_re, u_im, uidx)
         return re.reshape(re.shape[0], -1), im.reshape(im.shape[0], -1)
 
-    def _project_sky_streaming_windowed(self, alm, win, chunk):
+    def _project_sky_streaming_windowed(self, alm, win, chunk, freqs):
         tel = self.telescope
         dev = alm.device
         mmax = win.sht.mmax
         scale = 1.0 / (4 * np.pi / healpix.npix_of(self.beam_nside))
         Ecf, Esf, lam_band, vw, flat_ring, _ = self._windowed_stream_fns(win, dev)
-        vis = torch.zeros(mmax + 1, 2, tel.nfreq, len(tel.uniquepairs), dtype=torch.complex64, device=dev)
-        for fi in range(tel.nfreq):
-            a = alm[fi].to(torch.complex64)
+        vis = torch.zeros(mmax + 1, 2, len(freqs), len(tel.uniquepairs), dtype=torch.complex64, device=dev)
+        for k, fi in enumerate(freqs):
+            a = alm[k].to(torch.complex64)
             Sr = self._band_contract("plm,lmr->prm", a.real, lam_band).index_select(1, flat_ring)
             Si = self._band_contract("plm,lmr->prm", a.imag, lam_band).index_select(1, flat_ring)
             a1 = (Ecf * Sr - Esf * Si).reshape(-1, mmax + 1)
@@ -461,12 +469,12 @@ class BeamTransfer:
             for b0, b1 in self._stream_chunks(chunk):
                 re, im = self._fringe_win(vw, self._stream_baselines(fi, b0, b1, dev), u_re, u_im, u_idx[b0:b1])
                 G1, G2, G3, G4 = re @ a1, im @ a2, re @ a2, im @ a1
-                vis[:, 0, fi, b0:b1] = torch.complex(G1 - G2, G3 + G4).T * scale
-                vis[:, 1, fi, b0:b1] = torch.complex(G1 + G2, G3 - G4).T * scale
+                vis[:, 0, k, b0:b1] = torch.complex(G1 - G2, G3 + G4).T * scale
+                vis[:, 1, k, b0:b1] = torch.complex(G1 + G2, G3 - G4).T * scale
         vis[0, 1] = 0.0
         return vis
 
-    def _project_dirty_streaming_windowed(self, wv, win, chunk):
+    def _project_dirty_streaming_windowed(self, wv, win, chunk, freqs):
         tel = self.telescope
         dev = wv.device
         mmax = win.sht.mmax
@@ -474,12 +482,12 @@ class BeamTransfer:
         scale = 1.0 / (4 * np.pi / healpix.npix_of(self.beam_nside))
         Ecf, Esf, lam_band, vw, _, ring_onehot = self._windowed_stream_fns(win, dev)
         alm_out = []
-        for fi in range(tel.nfreq):
+        for k, fi in enumerate(freqs):
             u_re, u_im, u_idx = self._stream_beam(fi, dev, win.flat_index)
             Yr = torch.zeros(npol * win.Kf, mmax + 1, device=dev)
             Yi = torch.zeros(npol * win.Kf, mmax + 1, device=dev)
             for b0, b1 in self._stream_chunks(chunk):
-                v0, v1 = wv[:, 0, fi, b0:b1], wv[:, 1, fi, b0:b1]
+                v0, v1 = wv[:, 0, k, b0:b1], wv[:, 1, k, b0:b1]
                 vs, vd = (v0 + v1).T, (v1 - v0).T  # [C, M+1]
                 re, im = self._fringe_win(vw, self._stream_baselines(fi, b0, b1, dev), u_re, u_im, u_idx[b0:b1])
                 Yr += re.T @ vs.real - im.T @ vd.imag
@@ -496,27 +504,30 @@ class BeamTransfer:
             )
         return torch.stack(alm_out)
 
-    def project_sky_to_telescope_streaming(self, alm, chunk=None, device=None) -> torch.Tensor:
+    def project_sky_to_telescope_streaming(self, alm, chunk=None, device=None, freqs=None) -> torch.Tensor:
         """Streaming equivalent of :meth:`project_sky_to_telescope`.
 
         Never materialises B: per (frequency, baseline chunk) the fringe x
         beam maps are built on the device from the deduplicated beam
         products.  Runs on ``alm``'s device (a host array goes to
         ``device``) in float32; returns complex64 [mmax+1, 2, nfreq, nbase].
+        ``freqs`` names the telescope channels of alm's frequencies (all of
+        them if omitted).
         """
         alm = as_tensor(alm, device)
+        freqs = range(self.telescope.nfreq) if freqs is None else list(freqs)
         win = self._beam_window()
         if win is not None:
-            return self._project_sky_streaming_windowed(alm, win, chunk)
+            return self._project_sky_streaming_windowed(alm, win, chunk, freqs)
         tel = self.telescope
         dev = alm.device
         s, lam, lam_lo, plan = self._streaming_ops2(dev)
         mmax = s.mmax
         scale = 1.0 / (4 * np.pi / healpix.npix_of(self.beam_nside))
         vec = self._stream_geometry(dev)
-        vis = torch.zeros(mmax + 1, 2, tel.nfreq, len(tel.uniquepairs), dtype=torch.complex64, device=dev)
-        for fi in range(tel.nfreq):
-            G_belt, G_caps = s._legendre_sections(alm[fi].to(torch.complex64), lam, lam_lo)
+        vis = torch.zeros(mmax + 1, 2, len(freqs), len(tel.uniquepairs), dtype=torch.complex64, device=dev)
+        for k, fi in enumerate(freqs):
+            G_belt, G_caps = s._legendre_sections(alm[k].to(torch.complex64), lam, lam_lo)
             # conj(F) S summed over (p, r) = conj(F conj(S)): conjugate the small side
             S_conj = [G.conj() for G in (G_belt, *G_caps)]
             u_re, u_im, u_idx = self._stream_beam(fi, dev)
@@ -525,34 +536,37 @@ class BeamTransfer:
                 F_belt, group_F = s._ring_analysis_parts(torch.stack([re, im]), plan)  # [2, C, p, r, M+1]
                 UV = sum(torch.einsum("xcprm,prm->xmc", F2, Sc) for F2, Sc in zip((F_belt, *group_F), S_conj))
                 U, V = UV.conj()
-                vis[:, 0, fi, b0:b1] = (U + 1j * V) * scale
-                vis[:, 1, fi, b0:b1] = (U - 1j * V) * scale
+                vis[:, 0, k, b0:b1] = (U + 1j * V) * scale
+                vis[:, 1, k, b0:b1] = (U - 1j * V) * scale
         # m-mode container convention: [m = 0, msign = 1] is empty
         vis[0, 1] = 0.0
         return vis
 
-    def project_telescope_to_sky_dirty_streaming(self, vis, weight, chunk=None, device=None) -> torch.Tensor:
+    def project_telescope_to_sky_dirty_streaming(
+        self, vis, weight, chunk=None, device=None, freqs=None
+    ) -> torch.Tensor:
         """Streaming equivalent of :meth:`project_telescope_to_sky_dirty`:
-        complex64 alm [nfreq, npol, L+1, M+1] on ``vis``'s device."""
+        complex64 alm [nfreq, npol, L+1, M+1] on ``vis``'s device.  ``freqs``
+        names the telescope channels of vis's frequencies (all if omitted)."""
         vis = as_tensor(vis, device)
+        freqs = range(self.telescope.nfreq) if freqs is None else list(freqs)
         wv = (vis * as_tensor(weight, vis.device)).to(torch.complex64)
         # the materialised operator zeroes Bm at m = 0: match it exactly
         wv[0, 1] = 0.0
         win = self._beam_window()
         if win is not None:
-            return self._project_dirty_streaming_windowed(wv, win, chunk)
-        tel = self.telescope
+            return self._project_dirty_streaming_windowed(wv, win, chunk, freqs)
         dev = wv.device
         s, lam, lam_lo, plan = self._streaming_ops2(dev)
         scale = 1.0 / (4 * np.pi / healpix.npix_of(self.beam_nside))
         vec = self._stream_geometry(dev)
         out = []
-        for fi in range(tel.nfreq):
+        for k, fi in enumerate(freqs):
             u_re, u_im, u_idx = self._stream_beam(fi, dev)
             T_secs = None
             for b0, b1 in self._stream_chunks(chunk):
-                v_sum = wv[:, 0, fi, b0:b1] + wv[:, 1, fi, b0:b1]
-                v_dif = 1j * (wv[:, 1, fi, b0:b1] - wv[:, 0, fi, b0:b1])
+                v_sum = wv[:, 0, k, b0:b1] + wv[:, 1, k, b0:b1]
+                v_dif = 1j * (wv[:, 1, k, b0:b1] - wv[:, 0, k, b0:b1])
                 vst = torch.stack([v_sum, v_dif])  # [2, M+1, C]
                 re, im = self._stream_bmaps(vec, self._stream_baselines(fi, b0, b1, dev), u_re, u_im, u_idx[b0:b1])
                 F_belt, group_F = s._ring_analysis_parts(torch.stack([re, im]), plan)

@@ -171,53 +171,59 @@ class TransitTelescope(config.Reader):
         if self._baseline_cache is not None:
             return self._baseline_cache
 
-        pos = self.feedpositions
-        bc = self.beamclass
+        pos = np.asarray(self.feedpositions)
+        bc = np.asarray(self.beamclass)
         nfeed = self.nfeed
 
         feedmap = -np.ones((nfeed, nfeed), dtype=int)
         feedconj = np.zeros((nfeed, nfeed), dtype=bool)
         feedmask = np.ones((nfeed, nfeed), dtype=bool)
 
-        unique: dict = {}
-        uniquepairs = []
-        baselines = []
-        redundancy = []
+        # every pair (i <= j) in the order of the reference's double loop
+        ii, jj = np.triu_indices(nfeed)
+        bl = pos[ii] - pos[jj]
+        # canonical orientation: EW > 0, or EW == 0 and NS >= 0
+        conj = (bl[:, 0] < -1e-9) | ((np.abs(bl[:, 0]) < 1e-9) & (bl[:, 1] < -1e-9))
+        ci = np.where(conj, jj, ii)
+        cj = np.where(conj, ii, jj)
+        bl = np.where(conj[:, None], -bl, bl)
+        auto = ii == jj
+        blen = np.hypot(bl[:, 0], bl[:, 1])
+        keep = np.where(auto, bool(self.auto_correlations), (self.minlength <= blen) & (blen <= self.maxlength))
+        feedmask[ii[~keep], jj[~keep]] = False
+        feedmask[jj[~keep & ~auto], ii[~keep & ~auto]] = False
+        ii, jj, ci, cj, bl, conj = ii[keep], jj[keep], ci[keep], cj[keep], bl[keep], conj[keep]
 
-        def canonical(i, j):
-            """Canonical orientation: EW > 0, or EW == 0 and NS >= 0."""
-            bl = pos[i] - pos[j]
-            conj = bl[0] < -1e-9 or (abs(bl[0]) < 1e-9 and bl[1] < -1e-9)
-            if conj:
-                return j, i, -bl, True
-            return i, j, bl, False
+        # a pair's key: its beam classes and its baseline rounded as Python's
+        # round(x, 6) does (each distinct value rounded once; + 0.0 makes
+        # -0.0 the 0.0 that dict keys equate it with), each column coded by
+        # its distinct values and the codes combined into one integer
+        def codes(x, rounding):
+            vals, inv = np.unique(x, return_inverse=True)
+            if rounding:
+                vals, inv2 = np.unique(np.array([round(float(v), 6) for v in vals]) + 0.0, return_inverse=True)
+                inv = inv2[inv]
+            return inv.ravel().astype(np.int64), len(vals)
 
-        for i in range(nfeed):
-            for j in range(i, nfeed):
-                if i == j and not self.auto_correlations:
-                    feedmask[i, j] = False
-                    continue
-                ci, cj, bl, conj = canonical(i, j)
-                blen = np.hypot(bl[0], bl[1])
-                if i != j and not (self.minlength <= blen <= self.maxlength):
-                    feedmask[i, j] = feedmask[j, i] = False
-                    continue
-                key = (
-                    int(bc[ci]),
-                    int(bc[cj]),
-                    round(float(bl[0]), 6),
-                    round(float(bl[1]), 6),
-                )
-                if key not in unique:
-                    unique[key] = len(uniquepairs)
-                    uniquepairs.append([ci, cj])
-                    baselines.append(bl)
-                    redundancy.append(0)
-                idx = unique[key]
-                redundancy[idx] += 1
-                feedmap[i, j] = feedmap[j, i] = idx
-                feedconj[i, j] = conj
-                feedconj[j, i] = not conj if i != j else False
+        key = np.zeros(len(ii), dtype=np.int64)
+        for col, rounding in ((bc[ci], False), (bc[cj], False), (bl[:, 0], True), (bl[:, 1], True)):
+            code, n = codes(col, rounding)
+            key = key * n + code
+        _, first, inverse = np.unique(key, return_index=True, return_inverse=True)
+        # number the unique keys in the order the loop first meets them
+        order = np.argsort(first, kind="stable")
+        rank = np.empty_like(order)
+        rank[order] = np.arange(len(order))
+        idx = rank[inverse.ravel()]
+        head = first[order]
+
+        feedmap[ii, jj] = idx
+        feedmap[jj, ii] = idx
+        feedconj[ii, jj] = conj
+        feedconj[jj, ii] = np.where(ii != jj, ~conj, False)
+        uniquepairs = np.stack([ci[head], cj[head]], axis=1)
+        baselines = bl[head]
+        redundancy = np.bincount(idx, minlength=len(head))
 
         self._baseline_cache = {
             "feedmap": feedmap,

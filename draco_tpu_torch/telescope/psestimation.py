@@ -146,8 +146,9 @@ class PSEstimation(config.Reader):
                 C_svd = kl._svd_cov_all(C_sky, m0, m1)  # [mc, nbands, n, n]
                 C_kl = torch.einsum("mia,mxab,mjb->mxij", fwd, C_svd.to(fwd.dtype), fwd.conj())
                 del C_svd
-                # under a mesh the m axis of the band covariances is the
-                # sharded one and the m-sums below are its reductions
+                # under a mesh the m axis of the band covariances is split
+                # (each rank keeps its block) and the m-sums of _accumulate
+                # add the ranks' partial sums
                 C_kl = pmesh.shard_array_named(C_kl, ("m", "band", "i", "j"), "m")
                 ci_c = pmesh.shard_array_named(ci[m0:m1, : fwd.shape[1]], ("m", "i"), "m")
                 yield m0, m1, C_kl, ci_c
@@ -171,15 +172,19 @@ class PSEstimation(config.Reader):
         q = torch.zeros(nb, dtype=torch.float64, device=dev)
         bias = torch.zeros(nb, dtype=torch.float64, device=dev)
         fisher = torch.zeros((nb, nb), dtype=torch.float64, device=dev)
-        for m0, m1, C_kl, ci in self._chunks():
-            kc = ci.shape[1]
+        for m0, m1, C_placed, ci in self._chunks():
+            # every operand is this rank's block of the chunk's m (the whole
+            # chunk with no mesh); the sums over m add the ranks' blocks
+            C_kl, ci, kc = pmesh.local(C_placed), pmesh.local(ci), ci.shape[1]
             if x is not None:
-                xw = pmesh.shard_array_named(x[m0:m1, :kc].to(C_kl.dtype), ("m", "i"), "m") * ci
-                q += torch.einsum("mi,mxij,mj->x", xw.conj(), C_kl, xw).real.double()
+                xw = pmesh.local(pmesh.shard_array_named(x[m0:m1, :kc].to(C_kl.dtype), ("m", "i"), "m")) * ci
+                q += pmesh.sum_over_shards(torch.einsum("mi,mxij,mj->x", xw.conj(), C_kl, xw).real.double(), C_placed)
             if need_fisher:
-                bias += torch.einsum("mi,mxii->x", ci.to(C_kl.dtype), C_kl).real.double()
+                b = torch.einsum("mi,mxii->x", ci.to(C_kl.dtype), C_kl).real.double()
                 W = ci[:, None, :, None] * C_kl * ci[:, None, None, :]
-                fisher += 0.5 * torch.einsum("mxij,myji->xy", W, C_kl).real.double()
+                f = 0.5 * torch.einsum("mxij,myji->xy", W, C_kl).real.double()
+                bias += pmesh.sum_over_shards(b, C_placed)
+                fisher += pmesh.sum_over_shards(f, C_placed)
         if need_fisher:
             self._fisher = 0.5 * (fisher + fisher.T)
             self._bias = bias

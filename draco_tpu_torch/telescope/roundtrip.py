@@ -42,6 +42,7 @@ from ..device import as_tensor, resolve
 from ..ops import healpix
 from ..ops.sht import SHT
 from ..ops.tools import phase_frac3, sincos_turns, threefloat_split
+from ..parallel import mesh as pmesh
 
 __all__ = [
     "prepare_state",
@@ -725,12 +726,37 @@ def fused_simulate_to_map(bt, sky, chunk: int | None = None, weight=None, device
     ``weight`` [mmax+1, 2, nfreq, nbase] weights the m-modes (unit weights
     when omitted).  The prepared state is cached on ``bt`` per (chunk,
     device, dtype).
+
+    A sky placed over a mesh (``parallel.shard_array_named(sky, ("freq",
+    "pol", "pix"))``) runs each rank's frequency slab through the window of
+    the telescope's channels it holds, and the maps come back placed alike.
     """
+    if pmesh.is_placed(sky):
+        return _simulate_to_map_slabs(bt, sky, chunk, weight)
     sky = _as_sky(sky, device)
     key = (chunk, sky.device, sky.dtype)
     if key not in bt._fused_fns:
         bt._fused_fns[key] = fused_roundtrip_fn(bt, chunk=chunk, dtype=sky.dtype, device=sky.device)
     return bt._fused_fns[key](sky, weight=weight)
+
+
+def _simulate_to_map_slabs(bt, sky, chunk, weight) -> torch.Tensor:
+    """:func:`fused_simulate_to_map` of this rank's block of a placed sky."""
+    mesh, placements, block = sky.device_mesh, list(sky.placements), sky.to_local()
+    split = [k for k, p in enumerate(placements) if p.is_shard()]
+    if any(placements[k].dim != 0 for k in split) or len(split) > 1:
+        raise ValueError(f"a placed sky may be split over its frequency axis only, not {placements}")
+    nloc = block.shape[0]
+    f0 = mesh.get_local_rank(split[0]) * nloc if split else 0
+    weight = pmesh.unshard(weight)
+    w = None if weight is None else weight[:, :, f0 : f0 + nloc]
+    key = (f0, nloc, chunk, block.device, block.dtype)
+    if key not in bt._fused_tiles:
+        bt._fused_tiles[key] = fused_roundtrip_fn(
+            _FreqTileBT(bt, f0, f0 + nloc), chunk=chunk, dtype=block.dtype, device=block.device
+        )
+    out = bt._fused_tiles[key](block, weight=w)
+    return pmesh.from_block(out, mesh, placements, (sky.shape[0],) + tuple(out.shape[1:]))
 
 
 class _TelescopeTile:

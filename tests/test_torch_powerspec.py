@@ -366,3 +366,69 @@ def test_scale_delay_transform_and_excess_scatter_match_jax():
     assert _rel(out.map[:], np.asarray(jout.map[:])) <= 1e-12
     assert _rel(out.weight[:], np.asarray(jout.weight[:])) <= 1e-12
     assert out.attrs["reduction_op"] == jout.attrs["reduction_op"] == "chisq_per_dof"
+
+
+# -- fixed-order binning --------------------------------------------------------------
+
+
+def _tree_sum(vals: np.ndarray) -> float:
+    """A bin's pairwise tree over its values in ascending order (the plan of
+    ``ops/tools.py::segment_sum``)."""
+    a = np.sort(vals).copy()
+    step = 1
+    while step < len(a):
+        a[: len(a) - step : 2 * step] += a[step :: 2 * step][: len(a[: len(a) - step : 2 * step])]
+        step *= 2
+    return a[0] if len(a) else 0.0
+
+
+def test_binned_sum_is_a_value_ordered_tree_in_any_item_order():
+    from draco_tpu_torch.ops.tools import binned_sum
+
+    rng = np.random.Generator(np.random.SFC64(12))
+    x = rng.standard_normal((3, 1000)) * np.exp(rng.uniform(-8, 8, (3, 1000)))
+    bins = rng.integers(0, 7, 1000)
+    bins[bins == 5] = 6  # an empty bin sums to 0
+    got = binned_sum(torch.as_tensor(x), torch.as_tensor(bins), 7)
+    want = np.array([[_tree_sum(row[bins == b]) for b in range(7)] for row in x])
+    assert np.array_equal(got.numpy(), want)
+    perm = rng.permutation(1000)
+    assert torch.equal(binned_sum(torch.as_tensor(x[:, perm]), torch.as_tensor(bins[perm]), 7), got)
+    ref = np.stack([np.bincount(bins, weights=row, minlength=7) for row in x])
+    assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(x).sum()
+
+
+def _cells_shuffled(p, seed):
+    """The 3D spectrum with its u cells in another order (every dataset with
+    a u axis and the u index map permuted alike)."""
+    perm = np.random.Generator(np.random.SFC64(seed)).permutation(len(p.index_map["u"]))
+    q = p.copy()
+    q.index_map["u"] = np.asarray(p.index_map["u"])[perm]
+    for ds in q.datasets.values():
+        if "u" in ds.axes:
+            ax = ds.axes.index("u")
+            data = ds[:]
+            ds._data = (data.index_select(ax, torch.as_tensor(perm)) if isinstance(data, torch.Tensor)
+                        else np.take(data, perm, axis=ax))
+    return q
+
+
+@pytest.mark.parametrize("case", list(CYL_CASES))
+def test_binned_spectra_are_bit_identical_run_to_run_and_in_any_cell_order(spectra3d, case):
+    """The 2D and 1D spectra sum their bins in a fixed order: two runs, and a
+    run on the cells in another order, give the same bits."""
+    _, p = spectra3d
+    q = _cells_shuffled(p, 5)
+    params = CYL_CASES[case]
+    params3 = {k: v for k, v in params.items() if k not in ("Nbins_2D", "logbins_2D")}
+    params3.update(Nbins_3D=5, logbins_3D=False)
+    for cls, prm in ((ps.CylindricalPowerSpectrum2D, params), (ps.SphericalPowerSpectrum3Dto1D, params3)):
+        a, b, c = (_run(cls(), prm, (), x) for x in (p, p, q))
+        names = [n for n, ds in a.datasets.items() if isinstance(ds[:], torch.Tensor)]
+        assert names
+        for name in names:
+            assert torch.equal(a.datasets[name][:], b.datasets[name][:]), (cls.__name__, name)
+            assert torch.equal(a.datasets[name][:], c.datasets[name][:]), (cls.__name__, name)
+        if cls is ps.CylindricalPowerSpectrum2D:
+            one = [_run(ps.SphericalPowerSpectrum2Dto1D(), {"Nbins_3D": 5}, None, x) for x in (a, c)]
+            assert all(torch.equal(one[0].datasets[n][:], one[1].datasets[n][:]) for n in ("spectrum", "var"))
