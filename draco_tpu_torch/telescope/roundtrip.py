@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core import config
 from ..core.task import ContainerTask
@@ -43,6 +42,7 @@ from ..ops import healpix
 from ..ops.sht import SHT
 from ..ops.tools import phase_frac3, sincos_turns, threefloat_split
 from ..parallel import mesh as pmesh
+from ..util.trace import span
 
 __all__ = [
     "prepare_state",
@@ -509,7 +509,7 @@ def _fringe_sections(state, c: int):
     raw (its phase weight is folded in by the caller)."""
     nfreq, _, chunk, _, _, _, Gc = state["dims"]
     va, vb, vc = state["va"], state["vb"], state["vc"]
-    with record_function("fullsphere.fringe_build"):
+    with span("fullsphere.fringe_build"):
         if Gc:
             # trig of the chunk's distinct geometries only, then a row
             # gather from geometries to products
@@ -528,7 +528,7 @@ def _fringe_sections(state, c: int):
         del cph, sph
         X = torch.stack([re, im])  # [2, f, C, p, K]
         del re, im
-    with record_function("fullsphere.ring_analysis"):
+    with span("fullsphere.ring_analysis"):
         return state["sht"]._ring_analysis_parts_padded(X, state["plan"], raw_belt=True)
 
 
@@ -550,9 +550,33 @@ def fused_roundtrip(state: dict, sky: torch.Tensor, weight: torch.Tensor | None 
     ``weight`` [mmax+1, 2, nfreq, nbase] (original baseline order) weights
     the m-modes before the adjoint; unit weights when None.  Runs on the
     state's device in its dtype; returns [nfreq, npol, npix].
+
+    Under ``torch.profiler`` the call is the span ``roundtrip.call``
+    (:func:`draco_tpu_torch.util.trace.span`: a flag check when no profiler
+    records).  The windowed form's stages are five spans inside it, which
+    hold the whole call between them:
+
+    - ``windowed.sky_transform``: the SHT analysis, the band projection and
+      the per-pixel DFT factors, with the padded weights and the zeroed
+      accumulators;
+    - ``windowed.fringe_build``: a chunk's fringe x beam planes;
+    - ``windowed.project``: a chunk's projection GEMMs, validity masks and
+      weights;
+    - ``windowed.accumulate``: a chunk's adjoint GEMMs into the accumulators;
+    - ``windowed.map_transform``: the conjugate DFT factors, the ring
+      reduction, the band adjoint and the SHT synthesis.
+
+    The full-sphere form's spans are listed at
+    :func:`_fused_roundtrip_fullsphere`.
     """
-    if state["form"] == "fullsphere":
-        return _fused_roundtrip_fullsphere(state, sky, weight)
+    with span("roundtrip.call"):
+        if state["form"] == "fullsphere":
+            return _fused_roundtrip_fullsphere(state, sky, weight)
+        return _fused_roundtrip_windowed(state, sky, weight)
+
+
+def _fused_roundtrip_windowed(state: dict, sky: torch.Tensor, weight) -> torch.Tensor:
+    """The windowed form of :func:`fused_roundtrip` (compact beams)."""
     s = state["sht"]
     nfreq, npol, chunk, nchunk, npairs, Kf, mmax, groups = state["dims"]
     K = npol * Kf
@@ -561,73 +585,79 @@ def fused_roundtrip(state: dict, sky: torch.Tensor, weight: torch.Tensor | None 
     scale = 1.0 / (4 * np.pi / s.npix)
     lam, lam_lo, plan = state["lam"], state["lam_lo"], state["plan"]
     lam_band, band_lo = state["lam_band"], state["band_lo"]
-    sky = sky.to(device=dev, dtype=rdt)
 
-    # forward: sky -> alm -> windowed phase tensors
-    alm = s._analysis_impl(sky, lam, plan, lam_lo)  # [f, p, L+1, M+1]
-    Sr = torch.einsum("fplm,lmr->fprm", alm.real, lam_band)
-    Si = torch.einsum("fplm,lmr->fprm", alm.imag, lam_band)
-    if band_lo is not None:
-        blo = band_lo.to(rdt)
-        Sr = Sr + torch.einsum("fplm,lmr->fprm", alm.real, blo)
-        Si = Si + torch.einsum("fplm,lmr->fprm", alm.imag, blo)
-    # ring -> pixel gather, then the per-pixel DFT factors
-    Srk = Sr.index_select(2, state["flat_ring"])  # [f, p, Kf, M+1]
-    Sik = Si.index_select(2, state["flat_ring"])
-    a1 = (Ecf * Srk - Esf * Sik).reshape(nfreq, K, mmax + 1)
-    a2 = (Ecf * Sik + Esf * Srk).reshape(nfreq, K, mmax + 1)
+    with span("windowed.sky_transform"):
+        sky = sky.to(device=dev, dtype=rdt)
+        # forward: sky -> alm -> windowed phase tensors
+        alm = s._analysis_impl(sky, lam, plan, lam_lo)  # [f, p, L+1, M+1]
+        Sr = torch.einsum("fplm,lmr->fprm", alm.real, lam_band)
+        Si = torch.einsum("fplm,lmr->fprm", alm.imag, lam_band)
+        if band_lo is not None:
+            blo = band_lo.to(rdt)
+            Sr = Sr + torch.einsum("fplm,lmr->fprm", alm.real, blo)
+            Si = Si + torch.einsum("fplm,lmr->fprm", alm.imag, blo)
+        # ring -> pixel gather, then the per-pixel DFT factors
+        Srk = Sr.index_select(2, state["flat_ring"])  # [f, p, Kf, M+1]
+        Sik = Si.index_select(2, state["flat_ring"])
+        a1 = (Ecf * Srk - Esf * Sik).reshape(nfreq, K, mmax + 1)
+        a2 = (Ecf * Sik + Esf * Srk).reshape(nfreq, K, mmax + 1)
 
-    if weight is not None:
-        weight_t = _padded_weight(state, weight, chunk * nchunk, mmax + 1, rdt, dev).permute(1, 2, 3, 0)
+        if weight is not None:
+            weight_t = _padded_weight(state, weight, chunk * nchunk, mmax + 1, rdt, dev).permute(1, 2, 3, 0)
 
-    # one pass over the baseline chunks: project, weight, and accumulate
-    # the adjoint while the chunk's fringe planes are live
-    Yr = torch.zeros(nfreq, K, mmax + 1, dtype=rdt, device=dev)
-    Yi = torch.zeros(nfreq, K, mmax + 1, dtype=rdt, device=dev)
-    bidx = torch.arange(chunk, device=dev)
+        # one pass over the baseline chunks: project, weight, and accumulate
+        # the adjoint while the chunk's fringe planes are live
+        Yr = torch.zeros(nfreq, K, mmax + 1, dtype=rdt, device=dev)
+        Yi = torch.zeros(nfreq, K, mmax + 1, dtype=rdt, device=dev)
+        bidx = torch.arange(chunk, device=dev)
+        mpos_all = (torch.arange(mmax + 1, device=dev) > 0).to(rdt)
     for c0, c1, Mb in groups:
         a1b = a1[:, :, :Mb]
         a2b = a2[:, :, :Mb]
-        mpos = (torch.arange(Mb, device=dev) > 0).to(rdt)
+        mpos = mpos_all[:Mb]
         for c in range(c0, c1):
-            re, im = _fringe_planes(state, c)
-            G1 = re @ a1b
-            G2 = im @ a2b
-            G3 = re @ a2b
-            G4 = im @ a1b
-            vp_r = (G1 - G2) * scale
-            vp_i = (G3 + G4) * scale
-            vm_r = (G1 + G2) * scale
-            vm_i = (G3 - G4) * scale
-            # padded baselines carry no data; m = 0 has no negative mode
-            valid = (c * chunk + bidx < npairs).to(rdt)[None, :, None]
-            vp_r, vp_i = vp_r * valid, vp_i * valid
-            vm_r, vm_i = vm_r * valid * mpos, vm_i * valid * mpos
-            if weight is not None:
-                wc = weight_t[:, :, c * chunk : (c + 1) * chunk, :Mb]
-                vp_r, vp_i = vp_r * wc[0], vp_i * wc[0]
-                vm_r, vm_i = vm_r * wc[1], vm_i * wc[1]
-            vs_r, vs_i = vp_r + vm_r, vp_i + vm_i
-            vd_r, vd_i = vm_r - vp_r, vm_i - vp_i
-            reT = re.transpose(1, 2)
-            imT = im.transpose(1, 2)
-            Yr[:, :, :Mb] += reT @ vs_r - imT @ vd_i
-            Yi[:, :, :Mb] += reT @ vs_i + imT @ vd_r
+            with span("windowed.fringe_build"):
+                re, im = _fringe_planes(state, c)
+            with span("windowed.project"):
+                G1 = re @ a1b
+                G2 = im @ a2b
+                G3 = re @ a2b
+                G4 = im @ a1b
+                vp_r = (G1 - G2) * scale
+                vp_i = (G3 + G4) * scale
+                vm_r = (G1 + G2) * scale
+                vm_i = (G3 - G4) * scale
+                # padded baselines carry no data; m = 0 has no negative mode
+                valid = (c * chunk + bidx < npairs).to(rdt)[None, :, None]
+                vp_r, vp_i = vp_r * valid, vp_i * valid
+                vm_r, vm_i = vm_r * valid * mpos, vm_i * valid * mpos
+                if weight is not None:
+                    wc = weight_t[:, :, c * chunk : (c + 1) * chunk, :Mb]
+                    vp_r, vp_i = vp_r * wc[0], vp_i * wc[0]
+                    vm_r, vm_i = vm_r * wc[1], vm_i * wc[1]
+                vs_r, vs_i = vp_r + vm_r, vp_i + vm_i
+                vd_r, vd_i = vm_r - vp_r, vm_i - vp_i
+            with span("windowed.accumulate"):
+                reT = re.transpose(1, 2)
+                imT = im.transpose(1, 2)
+                Yr[:, :, :Mb] += reT @ vs_r - imT @ vd_i
+                Yi[:, :, :Mb] += reT @ vs_i + imT @ vd_r
 
-    # per-pixel conjugate DFT factors, then the pixel -> ring reduction
-    Yr = Yr.reshape(nfreq, npol, Kf, mmax + 1)
-    Yi = Yi.reshape(nfreq, npol, Kf, mmax + 1)
-    Tr = Ecf * Yr + Esf * Yi
-    Ti = Ecf * Yi - Esf * Yr
-    Tr = torch.einsum("rk,fpkm->fprm", state["ring_onehot"], Tr)
-    Ti = torch.einsum("rk,fpkm->fprm", state["ring_onehot"], Ti)
-    ar = torch.einsum("lmr,fprm->fplm", lam_band, Tr)
-    ai = torch.einsum("lmr,fprm->fplm", lam_band, Ti)
-    if band_lo is not None:
-        ar = ar + torch.einsum("lmr,fprm->fplm", blo, Tr)
-        ai = ai + torch.einsum("lmr,fprm->fplm", blo, Ti)
-    a_dirty = torch.complex(ar, ai) * scale
-    return s._synthesis_impl(a_dirty, lam, plan, lam_lo)
+    with span("windowed.map_transform"):
+        # per-pixel conjugate DFT factors, then the pixel -> ring reduction
+        Yr = Yr.reshape(nfreq, npol, Kf, mmax + 1)
+        Yi = Yi.reshape(nfreq, npol, Kf, mmax + 1)
+        Tr = Ecf * Yr + Esf * Yi
+        Ti = Ecf * Yi - Esf * Yr
+        Tr = torch.einsum("rk,fpkm->fprm", state["ring_onehot"], Tr)
+        Ti = torch.einsum("rk,fpkm->fprm", state["ring_onehot"], Ti)
+        ar = torch.einsum("lmr,fprm->fplm", lam_band, Tr)
+        ai = torch.einsum("lmr,fprm->fplm", lam_band, Ti)
+        if band_lo is not None:
+            ar = ar + torch.einsum("lmr,fprm->fplm", blo, Tr)
+            ai = ai + torch.einsum("lmr,fprm->fplm", blo, Ti)
+        a_dirty = torch.complex(ar, ai) * scale
+        return s._synthesis_impl(a_dirty, lam, plan, lam_lo)
 
 
 def _fused_roundtrip_fullsphere(state: dict, sky: torch.Tensor, weight) -> torch.Tensor:
@@ -638,8 +668,18 @@ def _fused_roundtrip_fullsphere(state: dict, sky: torch.Tensor, weight) -> torch
     the T accumulation ``xfcprm,xmfc->fprm`` are then two batched products
     over (f, m) on the same tensor.  The belt phase weight pw is folded in
     twice: conj(pw) into the belt sky section before the loop, pw into the
-    belt T after it.  The stages carry ``torch.profiler`` labels
-    (``fullsphere.*``) for the profile that splits the loop's time.
+    belt T after it.
+
+    Under ``torch.profiler`` the stages are spans inside ``roundtrip.call``
+    (:func:`draco_tpu_torch.util.trace.span`), which hold the whole call
+    between them: ``fullsphere.sky_sections`` (the SHT analysis and the
+    sky's Legendre sections, with the padded weights and the zeroed T),
+    then for each chunk ``fullsphere.fringe_build``,
+    ``fullsphere.ring_analysis``, ``fullsphere.uv_contraction`` and
+    ``fullsphere.t_accumulate``, and last ``fullsphere.adjoint_synthesis``.
+    The benchmark's per-layer metrics ``fullsphere.<stage>_ms``
+    (``portbench/layers/``) read the device time of the kernels each
+    launches.
     """
     s = state["sht"]
     nfreq, npol, chunk, nchunk, npairs, mmax, _ = state["dims"]
@@ -648,10 +688,10 @@ def _fused_roundtrip_fullsphere(state: dict, sky: torch.Tensor, weight) -> torch
     rdt, dev = pr.dtype, pr.device
     scale = 1.0 / (4 * np.pi / s.npix)
     lam, lam_lo, plan = state["lam"], state["lam_lo"], state["plan"]
-    sky = sky.to(device=dev, dtype=rdt)
-    pw = torch.complex(pr, pi)  # [nbelt, M+1]
 
-    with record_function("fullsphere.sky_sections"):
+    with span("fullsphere.sky_sections"):
+        sky = sky.to(device=dev, dtype=rdt)
+        pw = torch.complex(pr, pi)  # [nbelt, M+1]
         alm = s._analysis_impl(sky, lam, plan, lam_lo)  # [f, p, L+1, M+1]
         G_belt, G_caps = s._legendre_sections(alm, lam, lam_lo)  # [f, p, r, M+1]
         sec_rings = [G_belt.shape[2]] + [G.shape[2] for G in G_caps]
@@ -662,17 +702,18 @@ def _fused_roundtrip_fullsphere(state: dict, sky: torch.Tensor, weight) -> torch
         ]
         del alm, G_belt, G_caps
 
-    if weight is not None:
-        weight_t = _padded_weight(state, weight, chunk * nchunk, M1, rdt, dev).permute(1, 2, 0, 3)
-    bidx = torch.arange(chunk, device=dev)
-    mpos = (torch.arange(M1, device=dev) > 0).to(rdt)[:, None]
-    T = [torch.zeros(nfreq, M1, 1, npol * r, dtype=pw.dtype, device=dev) for r in sec_rings]
+        if weight is not None:
+            weight_t = _padded_weight(state, weight, chunk * nchunk, M1, rdt, dev).permute(1, 2, 0, 3)
+        bidx = torch.arange(chunk, device=dev)
+        mpos = (torch.arange(M1, device=dev) > 0).to(rdt)[:, None]
+        T = [torch.zeros(nfreq, M1, 1, npol * r, dtype=pw.dtype, device=dev) for r in sec_rings]
     for c in range(nchunk):
         F_belt, group_F = _fringe_sections(state, c)
-        # a view when nfreq is 1 ((x, c) and (p, r) are adjacent in memory), else a copy
-        Fm =[F.permute(1, 5, 0, 2, 3, 4).reshape(nfreq, M1, 2 * chunk, -1) for F in (F_belt, *group_F)]
-        del F_belt, group_F
-        with record_function("fullsphere.uv_contraction"):
+        with span("fullsphere.uv_contraction"):
+            # the belt's is a view when nfreq is 1 ((x, c) and (p, r) adjacent in memory); the cap
+            # groups' DFT einsums leave their row axis outermost, so theirs are copies
+            Fm = [F.permute(1, 5, 0, 2, 3, 4).reshape(nfreq, M1, 2 * chunk, -1) for F in (F_belt, *group_F)]
+            del F_belt, group_F
             UV = sum(Fs @ Sc for Fs, Sc in zip(Fm, S_conj)).conj().reshape(nfreq, M1, 2, chunk)
             # padded baselines carry no data; m = 0 has no negative mode
             valid = (c * chunk + bidx < npairs).to(rdt) * scale
@@ -682,13 +723,13 @@ def _fused_roundtrip_fullsphere(state: dict, sky: torch.Tensor, weight) -> torch
                 wc = weight_t[:, :, :, c * chunk : (c + 1) * chunk]
                 vp = vp * wc[0]
                 vm = vm * wc[1]
-        with record_function("fullsphere.t_accumulate"):
+        with span("fullsphere.t_accumulate"):
             # T += F[0] (vp + vm) + i F[1] (vm - vp)
             vst = torch.cat([vp + vm, 1j * (vm - vp)], dim=-1)[:, :, None, :]  # [f, M+1, 1, 2C]
             for Tsec, Fs in zip(T, Fm):
                 Tsec += vst @ Fs
             del Fm
-    with record_function("fullsphere.adjoint_synthesis"):
+    with span("fullsphere.adjoint_synthesis"):
         T = [Tsec.reshape(nfreq, M1, npol, r).permute(0, 2, 3, 1) for Tsec, r in zip(T, sec_rings)]
         T[0] = T[0] * pw
         a_dirty = s._contract_alm(T[0], T[1:], lam, lam_lo) * scale

@@ -1,0 +1,14 @@
+"""windowed.map_transform_ms: device ms a call of the kernels launched inside the
+program's ``windowed.map_transform`` spans (the conjugate DFT factors, ring
+reduction, band adjoint and SHT synthesis that end each call of the windowed
+round trip)."""
+
+SPAN = "windowed.map_transform"
+SPANS = (SPAN,)  # the host spans whose kernels the harness sums
+
+
+def read(ctx):
+    tr = ctx["trace"]
+    if tr is None or not tr.span_count.get(SPAN) or not ctx["calls"]:
+        return None
+    return 1e3 * tr.span_device_s[SPAN] / ctx["calls"]

@@ -1,0 +1,13 @@
+"""windowed.project_ms: device ms a call of the kernels launched inside the
+program's ``windowed.project`` spans (the projection GEMMs, validity masks and
+weights of each baseline chunk of the windowed round trip)."""
+
+SPAN = "windowed.project"
+SPANS = (SPAN,)  # the host spans whose kernels the harness sums
+
+
+def read(ctx):
+    tr = ctx["trace"]
+    if tr is None or not tr.span_count.get(SPAN) or not ctx["calls"]:
+        return None
+    return 1e3 * tr.span_device_s[SPAN] / ctx["calls"]
