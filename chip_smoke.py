@@ -18,6 +18,18 @@ Phases, each of which raises on failure (exit code != 0):
    exact, two launches bitwise equal; each timed with CUDA events beside
    the plain version in its type.  At R [300, 1000]: an R with permuted
    columns (every sample window full width) and bw 33, within 1e-5;
+2b. the fringe x beam kernel (``ops/cuda_kernels.py::fringe_planes``,
+   ``csrc/fringe.cu``) against the round trip's plain chain
+   (``roundtrip._fringe_pair``, ``roundtrip._fringe_stack``) on the card, at
+   one baseline chunk of each benchmark cell on seeded operands: dish64's
+   windowed (re, im) [8, 2008, 16768] (a uniform grid of 8 channels, one
+   real beam) and chime2048's stacked [2, 1, 64, 4, 802434] (complex beams
+   of 4 products, the geometry dedup).  Checks: one launch a chunk and
+   every element bit-equal; kernel and plain chain timed with CUDA events
+   beside the bound, the planes' bytes written once at the HBM rate.  The
+   later round-trip phases (3, 4, 6, 7) zero the launch counts just before
+   their float32 call and require one ``fringe`` launch a baseline chunk
+   (none for float64);
 3. the dish slice at the bench headline's width: a time stream from
    ``--seed`` (every baseline of the 64-dish array x 8640 samples, with
    zero-weight gaps) -> ``regrid_sidereal`` to 2048 RA bins ->
@@ -809,6 +821,121 @@ def check_kernel(device, label: str, times, weight):
     return stats
 
 
+# name: (form, nfreq, npol, chunk, K, unique beams, geometry rows): one
+# baseline chunk of the benchmark cells dish64.fused8 (the beam window's 16768
+# pixels, one real beam) and chime2048.fused1 (the padded sphere at nside
+# 256, 802434 slots, complex beams of 4 feed-pair products, the geometry
+# dedup); both on a uniform frequency grid
+FRINGE_CHUNKS = {
+    "dish64": ("windowed", 8, 1, 2008, 16768, 1, 0),
+    "chime2048": ("fullsphere", 1, 4, 64, 802434, 4, 16),
+}
+
+
+def fringe_state(form, nfreq, npol, chunk, K, nuniq, Gc, seed, device) -> dict:
+    """The fringe operands of one chunk of a float32 round-trip state, drawn
+    from ``seed``: pixel unit vectors (every tenth slot a zero pad, with a
+    zero beam), baselines of up to 100 m at 1/lambda ~1.67 per metre (phases
+    of up to ~170 turns) with a per-channel step, both as three-float
+    splits; ``nuniq`` beam products (one real one when 1); with ``Gc`` the
+    dedup's geometry rows and each product's sorted row among them."""
+    import torch
+
+    from draco_tpu_torch.ops.tools import threefloat_split
+
+    rng = np.random.Generator(np.random.SFC64(seed))
+    vec = rng.standard_normal((K, 3))
+    vec /= np.linalg.norm(vec, axis=1, keepdims=True)
+    pad = np.arange(K) % 10 == 9
+    vec[pad] = 0.0
+
+    def split3(bl):
+        coeff = np.stack([bl / 0.6, bl * 0.002])  # base and per-step phase, turns per unit vector
+        return tuple(torch.as_tensor(p, device=device) for p in threefloat_split(coeff))
+
+    def beams():
+        b = rng.standard_normal((nfreq, nuniq, npol, K)).astype(np.float32)
+        b[..., pad] = 0.0
+        return torch.as_tensor(b, device=device)
+
+    u_re = beams()
+    state = {
+        "form": form, "uniform_freq": True, "uniform_real": nuniq == 1, "u_re": u_re,
+        "u_im": torch.zeros_like(u_re) if nuniq == 1 else beams(),
+        "uidx": torch.as_tensor(rng.integers(0, nuniq, chunk), device=device),
+    }
+    state["va"], state["vb"], state["vc"] = (torch.as_tensor(p, device=device) for p in threefloat_split(vec))
+    state["bla"], state["blb"], state["blc"] = split3(rng.uniform(-100.0, 100.0, (chunk, 3)) * [1.0, 1.0, 0.1])
+    if form == "windowed":
+        state["dims"] = (nfreq, npol, chunk, 1, chunk, K, 0, ())
+        return state
+    state["dims"] = (nfreq, npol, chunk, 1, chunk, 0, Gc)
+    if Gc:
+        state["ga"], state["gb"], state["gc"] = split3(rng.uniform(-100.0, 100.0, (Gc, 3)) * [1.0, 1.0, 0.1])
+        state["g0s"] = (0,)
+        state["lidx"] = torch.as_tensor(np.sort(rng.integers(0, Gc, chunk)), device=device)
+    return state
+
+
+def check_fringe(device, seed: int) -> dict:
+    """Phase 2b: the fringe kernel against the plain chain at one chunk of
+    each benchmark cell, bit for bit, each timed beside the other and the
+    bound.  Returns the numbers for the JSON record, by cell."""
+    import torch
+
+    from draco_tpu_torch.ops import cuda_kernels
+    from draco_tpu_torch.telescope import roundtrip
+
+    stats = {}
+    for i, (name, (form, nfreq, npol, chunk, K, nuniq, Gc)) in enumerate(FRINGE_CHUNKS.items()):
+        state = fringe_state(form, nfreq, npol, chunk, K, nuniq, Gc, seed + i, device)
+        stacked = form == "fullsphere"
+        plain = roundtrip._fringe_stack if stacked else roundtrip._fringe_pair
+
+        def kernel(state=state, stacked=stacked):
+            return roundtrip._fringe_kernel_planes(state, 0, stacked)
+
+        before = cuda_kernels.launches["fringe"]
+        got = kernel()
+        launched = cuda_kernels.launches["fringe"] - before
+        want = plain(state, 0)
+        pairs = [(got, want)] if stacked else list(zip(got, want))
+        shapes_ok = all(g.shape == w.shape and g.dtype == torch.float32 for g, w in pairs)
+        differ = sum(int((g != w).sum()) for g, w in pairs) if shapes_ok else -1
+        del got, want, pairs
+        kern1, kern2 = cuda_ms(kernel, 20), cuda_ms(kernel, 20)
+        plain1, plain2 = cuda_ms(lambda: plain(state, 0), 3), cuda_ms(lambda: plain(state, 0), 3)
+        nbytes = 2 * 4 * nfreq * chunk * npol * K
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"fringe kernel [{name} chunk: {form}, [2, {nfreq}, {chunk}, {npol}, {K}], {nuniq} beams, Gc {Gc}]: "
+            f"launches {launched}, elements_differing {differ}; ms: kernel {kern1:.4f} {kern2:.4f}, plain chain "
+            f"{plain1:.3f} {plain2:.3f}, bound {bound:.4f} (bytes: {nbytes / 1e9:.3f} GB written)")
+        if launched != 1 or differ != 0:
+            raise RuntimeError(f"the fringe kernel at the {name} chunk: {launched} launches (want 1), "
+                               f"{differ} elements differing from the plain chain (shapes ok: {shapes_ok})")
+        stats[name] = {"planes": [2, nfreq, chunk, npol, K], "elements_differing": differ,
+                       "ms": min(kern1, kern2), "plain_ms": min(plain1, plain2), "bound_ms": bound,
+                       "bound_by": "bytes", "library_ms": None}
+        del state
+        torch.cuda.empty_cache()
+    return stats
+
+
+def fringe_launches(label: str, launches: int, bt) -> int:
+    """``launches`` of the fringe kernel in one fused round trip through
+    ``bt``'s float32 card state, held to one a baseline chunk."""
+    from draco_tpu_torch.telescope import roundtrip
+
+    states = [fn.state for fn in bt._fused_fns.values() if roundtrip._fringe_on_card(fn.state)]
+    if len(states) != 1:
+        raise RuntimeError(f"{label}: {len(states)} float32 card states of the round trip, want 1")
+    nchunk = states[0]["dims"][3]
+    log(f"{label}: fringe launches {launches} for {nchunk} baseline chunks")
+    if launches != nchunk:
+        raise RuntimeError(f"{label}: the fringe kernel launched {launches} times for {nchunk} chunks")
+    return launches
+
+
 def check_small_cases(device, seed: int, m: int = 300, n: int = 1000, batch: int = 64):
     """Phase 2, small shapes: an R whose columns are permuted, and bw 33."""
     import torch
@@ -1000,11 +1127,12 @@ def profile_top(run, label: str, top: int = 8) -> None:
             f"{name[:60]} x{count} {ms:.1f} ms" for ms, count, name in sorted(kern, reverse=True)[:top]))
 
 
-def run_dualpol(device):
-    """Phase 7: the 2048-feed dual-pol cylinder, unweighted, chunk 96."""
+def run_dualpol(device) -> int:
+    """Phase 7: the 2048-feed dual-pol cylinder, unweighted, chunk 96;
+    returns the fringe kernel's launches in the first call."""
     import torch
 
-    from draco_tpu_torch.ops import healpix
+    from draco_tpu_torch.ops import cuda_kernels, healpix
     from draco_tpu_torch.telescope.roundtrip import fused_simulate_to_map
 
     tel, bt = cylinder(NSIDE, 4, 256, pol=True)
@@ -1016,9 +1144,11 @@ def run_dualpol(device):
         rng.standard_normal((1, tel.num_pol_sky, healpix.npix_of(NSIDE))).astype(np.float32)
     ).to(device)
     torch.cuda.reset_peak_memory_stats(device)
+    cuda_kernels.reset_launches()
     t0 = _sync_clock(device)
     maps = fused_simulate_to_map(bt, sky, chunk=CHUNK_CHIME_POL)
     first = _sync_clock(device) - t0
+    fringe = fringe_launches("dual-pol cylinder", cuda_kernels.launches["fringe"], bt)
     state = next(iter(bt._fused_fns.values())).state
     Gc = state["dims"][-1]
     log(f"dual-pol state: form={state['form']} Gc={Gc} chunks={state['dims'][3]}")
@@ -1033,6 +1163,7 @@ def run_dualpol(device):
         warm.append(_sync_clock(device) - t0)
     log(f"dual-pol round trip: first call {first:.4f} s, warm {min(warm):.4f} s (best of {warm[0]:.4f}, "
         f"{warm[1]:.4f}); peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    return fringe
 
 
 def check_fullsphere_accuracy(device) -> None:
@@ -1194,7 +1325,7 @@ def check_chain_products(products, tel, device) -> None:
         raise RuntimeError(f"task chain time stream has {ntime} samples")
 
 
-def run_task_chain(tel, device) -> tuple[int, tuple[dict, dict]]:
+def run_task_chain(tel, device) -> tuple[dict, tuple[dict, dict]]:
     """Phases 10 and 11: the chain through the Manager, twice; returns the
     kernel launches of the first run and the fingerprints of both runs'
     products (phase 21b compares them)."""
@@ -1219,14 +1350,15 @@ def run_task_chain(tel, device) -> tuple[int, tuple[dict, dict]]:
         products = manager.run()
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
-        launches = cuda_kernels.launches["banded_covariance"]
-        log(f"task chain run 1: {wall:.2f} s wall, kernel launches {dict(cuda_kernels.launches)}, "
+        launches = dict(cuda_kernels.launches)
+        log(f"task chain run 1: {wall:.2f} s wall, kernel launches {launches}, "
             f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
         log("task chain run 1 task_timing (s): " + json.dumps(
             {name: round(t["wall"], 4) for name, t in manager.task_timing.items()}))
         nregrid = len(products["sregrid"])
-        if launches != nregrid:
-            raise RuntimeError(f"the task chain launched banded_covariance {launches} times for {nregrid} regrids")
+        if launches["banded_covariance"] != nregrid:
+            raise RuntimeError(f"the task chain launched banded_covariance {launches['banded_covariance']} times for "
+                               f"{nregrid} regrids")
         check_chain_products(products, tel, device)
         fp1 = validate.fingerprint(products)
 
@@ -5730,7 +5862,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device is available")
     repo = Path(__file__).resolve().parent
     if not all((repo / "draco_tpu_torch" / "csrc" / f"{n}.cu").is_file()
-               for n in ("banded_covariance", "beamform", "legendre")):
+               for n in ("banded_covariance", "beamform", "legendre", "fringe")):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(repo))
 
@@ -5760,12 +5892,16 @@ def main() -> int:
     kern = check_kernel(device, "dish path", stream[0], stream[2])
     check_small_cases(device, seed=args.seed + 1)
 
+    # phase 2b: the fringe kernel at one chunk of each benchmark cell
+    fringe_kern = check_fringe(device, seed=args.seed + 3)
+
     # phase 3: the dish slice at headline width
     rng = np.random.Generator(np.random.SFC64(1))
     sky = rng.standard_normal((tel.nfreq, 1, healpix.npix_of(NSIDE))).astype(np.float32)
     log(f"slice: nside={NSIDE} lmax=mmax={tel.mmax} pairs={nbase} nfreq={tel.nfreq} "
         f"ntime={NTIME} -> {SAMPLES} RA bins, chunk={CHUNK}")
     launches, w, _ = drive_slice("slice", bt, tel, sky, stream, device, CHUNK)
+    fringe_launches("dish slice", launches["fringe"], bt)
     del stream
     leg_tables = check_legendre_tables(device, bt, f"dish slice nside {NSIDE}")
 
@@ -5774,8 +5910,12 @@ def main() -> int:
     rng = np.random.Generator(np.random.SFC64(1))
     sky64 = torch.from_numpy(rng.standard_normal((1, 1, healpix.npix_of(NSIDE_ACC)))).to(device)
     w64 = w[: tel64.mmax + 1].double()
+    cuda_kernels.reset_launches()
     m32 = fused_simulate_to_map(bt64, sky64.float(), chunk=CHUNK, weight=w64.float())
+    acc_fringe = fringe_launches(f"accuracy nside={NSIDE_ACC} float32", cuda_kernels.launches["fringe"], bt64)
     m64 = fused_simulate_to_map(bt64, sky64, chunk=CHUNK, weight=w64)
+    if cuda_kernels.launches["fringe"] != acc_fringe:
+        raise RuntimeError("the float64 round trip launched the fringe kernel")
     rel = ((m32.double() - m64).abs().max() / m64.abs().max()).item()
     log(f"accuracy nside={NSIDE_ACC}: float32 vs float64 weighted round trip rel err {rel:.3e} (tol {TOL_MAP})")
     if not rel <= TOL_MAP:
@@ -5795,6 +5935,7 @@ def main() -> int:
     log(f"cylinder slice: nside={NSIDE} lmax=mmax={tel_c.mmax} 4 x 256 feeds, pairs={nbase_c} "
         f"nfreq={tel_c.nfreq} ntime={NTIME} -> {SAMPLES} RA bins, chunk={CHUNK_CHIME}")
     launches_c, w_c, _ = drive_slice("cylinder slice", bt_c, tel_c, sky_c, stream_c, device, CHUNK_CHIME)
+    fringe_launches("cylinder slice", launches_c["fringe"], bt_c)
     run_c = next(iter(bt_c._fused_fns.values()))
     if run_c.state["form"] != "fullsphere":
         raise RuntimeError(f"the cylinder slice ran the {run_c.state['form']} form, not the full-sphere one")
@@ -5804,7 +5945,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 7: the 2048-feed dual-pol cylinder
-    run_dualpol(device)
+    dualpol_fringe = run_dualpol(device)
     torch.cuda.empty_cache()
 
     # phase 8: full-sphere accuracy at nside 64
@@ -5944,7 +6085,7 @@ def main() -> int:
         "launches": launches["banded_covariance"],
         **kern,
         "cylinder_path": {"launches": launches_c["banded_covariance"], **kern_c},
-        "task_chain": {"launches": chain_launches},
+        "task_chain": {"launches": chain_launches["banded_covariance"]},
         "composite_chain": {"launches": composite_launches},
         "analysis_chain": {"launches": analyze_launches},
         "kl_path": {"launches": kl_launches},
@@ -5976,6 +6117,21 @@ def main() -> int:
         "flagging_path": {"launches": flag_launches["legendre"]},
         "filter_path": {"launches": filter_launches["legendre"]},
         "multidevice_path": {**on_mesh("legendre"), **mesh_leg},
+    }, {
+        "name": "fringe",
+        "route": "cuda",
+        "source": "draco_tpu_torch/csrc/fringe.cu",
+        "replaces": "draco_tpu/telescope/roundtrip.py:197",
+        "launches": launches["fringe"],
+        **fringe_kern["dish64"],
+        "chime2048_chunk": fringe_kern["chime2048"],
+        "accuracy_path": {"launches": acc_fringe},
+        "cylinder_path": {"launches": launches_c["fringe"]},
+        "dualpol_path": {"launches": dualpol_fringe},
+        "task_chain": {"launches": chain_launches["fringe"]},
+        "flagging_path": {"launches": flag_launches["fringe"]},
+        "filter_path": {"launches": filter_launches["fringe"]},
+        "multidevice_path": on_mesh("fringe"),
     }]}
     print(json.dumps(record))
     print(card)

@@ -19,6 +19,23 @@ beamformers (``draco_tpu/ops/interferometry.py``: ``_beamform_sources_jit``,
 builds the row plan of :func:`beamform_plan` and launches
 ``csrc/beamform.cu`` once; on a CPU tensor it runs
 :func:`draco_tpu_torch.ops.interferometry.beamform_sums_plain`.
+
+``legendre_block`` replaces the JAX package's Legendre recurrence
+(``draco_tpu/ops/sht.py::_legendre_block_core``, a ``lax.scan``): on a CUDA
+tensor one launch of ``csrc/legendre.cu`` for a block of m; on a CPU tensor
+:func:`draco_tpu_torch.ops.sht._legendre_block_core`.
+
+``fringe_planes`` makes one baseline chunk's fringe x beam planes for the
+fused round trip (``telescope/roundtrip.py``), which the JAX package leaves
+to XLA to fuse: the three-float phase of ``ops/tools.py::phase_frac3``,
+``sincos_turns``, the per-step rotation on a uniform frequency grid and the
+beam product, written once in the layout the chunk's consumer reads (the
+windowed form's (re, im) [nfreq, chunk, npol * K], the full-sphere form's
+stacked [2, nfreq, chunk, npol, K]).  It takes CUDA tensors only and
+launches ``csrc/fringe.cu`` once, bit-equal to the plain chain on the card;
+the round trip decides where the planes come from and keeps float64 and
+CPU states on its plain chain (``roundtrip._fringe_pair``,
+``roundtrip._fringe_stack``).
 """
 
 from __future__ import annotations
@@ -36,6 +53,7 @@ __all__ = [
     "beamform_plan",
     "beamform_sums",
     "legendre_block",
+    "fringe_planes",
     "tile_rows",
     "tile_windows",
     "launches",
@@ -44,7 +62,7 @@ __all__ = [
 
 # kernel name -> launches since the last reset (incremented only where a
 # kernel is actually launched)
-launches: dict[str, int] = {"banded_covariance": 0, "beamform": 0, "legendre": 0}
+launches: dict[str, int] = {"banded_covariance": 0, "beamform": 0, "legendre": 0, "fringe": 0}
 
 
 def reset_launches() -> None:
@@ -329,3 +347,120 @@ def legendre_block(x, lnsin, cm_c, a_tab, b_tab, mv, mode: str, l0: int = 0):
         raise RuntimeError(f"legendre kernel launch failed: CUDA error {err}")
     launches["legendre"] += 1
     return result
+
+
+def _fringe_lib() -> ctypes.CDLL:
+    lib = _build.load("fringe")
+    if lib.fringe_planes_f32.argtypes is None:
+        lib.fringe_planes_f32.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        )
+        lib.fringe_planes_f32.restype = ctypes.c_int
+    return lib
+
+
+# the operator library that holds the fringe launch, made at its first use
+_fringe_ops: torch.library.Library | None = None
+
+
+def _fringe_launch(ba, bb, bc, va, vb, vc, u_re, u_im, uidx, lidx, row0, uniform_freq, uniform_real, out):
+    """One launch of ``csrc/fringe.cu`` into ``out`` [2, nfreq, C, npol, K]
+    (re, then im), on the current stream of ``out``'s device."""
+    nfreq, C, npol, K = out.shape[1:]
+    lib = _fringe_lib()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.fringe_planes_f32(
+            ba.data_ptr(), bb.data_ptr(), bc.data_ptr(), ba.shape[1], va.data_ptr(), vb.data_ptr(), vc.data_ptr(),
+            u_re.data_ptr(), u_im.data_ptr(), uidx.data_ptr(), None if lidx is None else lidx.data_ptr(), row0,
+            out[0].data_ptr(), out[1].data_ptr(), nfreq, C, npol, K, u_re.shape[1], int(uniform_freq),
+            int(uniform_real), _vector_width(K, (u_re, u_im, out[0], out[1])), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fringe kernel launch failed: CUDA error {err}")
+
+
+def _fringe_op():
+    """The launch as the operator ``draco_tpu_torch::fringe_planes``
+    (registered for CUDA at first use).  Under ``torch.profiler`` an
+    operator's host range is what a kernel launched inside it is linked to,
+    so a trace gives the kernel's device time to the span that launched it;
+    a launch from plain Python reaches the trace unlinked."""
+    global _fringe_ops
+    if _fringe_ops is None:
+        ops = torch.library.Library("draco_tpu_torch", "FRAGMENT")
+        ops.define(
+            "fringe_planes(Tensor ba, Tensor bb, Tensor bc, Tensor va, Tensor vb, Tensor vc, Tensor u_re, "
+            "Tensor u_im, Tensor uidx, Tensor? lidx, int row0, bool uniform_freq, bool uniform_real, "
+            "Tensor(a!) out) -> ()"
+        )
+        ops.impl("fringe_planes", _fringe_launch, "CUDA")
+        _fringe_ops = ops
+    return torch.ops.draco_tpu_torch.fringe_planes
+
+
+def _vector_width(K: int, tensors) -> int:
+    """Pixels a thread of the fringe kernel stores at once: the widest of 4
+    and 2 that divides K and to whose 4-byte multiple every beam and output
+    pointer is aligned, else 1."""
+    for v in (4, 2):
+        if K % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tensors):
+            return v
+    return 1
+
+
+def fringe_planes(ba, bb, bc, va, vb, vc, u_re, u_im, uidx, row0: int, uniform_freq: bool, uniform_real: bool,
+                  lidx=None, stacked: bool = False):
+    """Fringe x beam planes of the C = ``len(uidx)`` rows of one baseline chunk.
+
+    Row i's phase is ``frac(b . n)`` of coefficient row ``row0 + lidx[i]``
+    (``row0 + i`` without ``lidx``) of ba/bb/bc [G, R, 3] against the pixel
+    vectors va/vb/vc [K, 3], both as three-float operands; G is 2 (base and
+    per-step phase) when ``uniform_freq``, else one group a frequency.  Its
+    beam is ``u_re[:, 0]`` when ``uniform_real``, else ``u_re + i u_im`` at
+    ``[:, uidx[i]]``, of [nfreq, U, npol, K].  Returns (re, im) [nfreq, C,
+    npol * K], or with ``stacked`` the tensor [2, nfreq, C, npol, K] that
+    holds them.
+
+    One launch of ``csrc/fringe.cu`` through the operator
+    ``draco_tpu_torch::fringe_planes``, into one tensor that holds both
+    planes.  It takes CUDA tensors on one device, float32 operands and int64
+    indices, and trusts the indices to lie in range (reading none, so the
+    call never waits for the device); the plain chain it is held to is the
+    round trip's own (``roundtrip._fringe_pair``, ``roundtrip._fringe_stack``).
+    """
+    nfreq, _, npol, K = u_re.shape
+    (C,) = uidx.shape
+    G, R = ba.shape[:2]
+    floats = (ba, bb, bc, va, vb, vc, u_re, u_im)
+    indices = (uidx,) if lidx is None else (uidx, lidx)
+    if any(t.shape != (G, R, 3) for t in (bb, bc)) or any(t.shape != (K, 3) for t in (va, vb, vc)):
+        raise ValueError(
+            "expected ba, bb, bc [G, R, 3] and va, vb, vc [K, 3], got "
+            + ", ".join(str(tuple(t.shape)) for t in floats[:6])
+        )
+    if u_im.shape != u_re.shape or G != (2 if uniform_freq else nfreq) or (lidx is not None and lidx.shape != (C,)):
+        raise ValueError(
+            f"expected u_re, u_im [nfreq, U, npol, K], {2 if uniform_freq else nfreq} coefficient groups and "
+            f"lidx [C]; got u_re {tuple(u_re.shape)}, u_im {tuple(u_im.shape)}, G {G}, "
+            f"lidx {None if lidx is None else tuple(lidx.shape)}"
+        )
+    if row0 < 0 or (lidx is None and row0 + C > R):
+        raise IndexError(f"rows [{row0}, {row0 + C}) lie outside the {R} coefficient rows")
+    dev = u_re.device
+    if not all(t.is_cuda and t.device == dev for t in floats + indices):
+        raise ValueError("the fringe inputs must share one CUDA device")
+    if any(t.dtype != torch.float32 for t in floats) or any(t.dtype != torch.int64 for t in indices):
+        raise TypeError(
+            "the CUDA fringe kernel takes float32 operands and int64 indices, got "
+            + ", ".join(str(t.dtype) for t in floats + indices)
+        )
+    if not all(t.is_contiguous() for t in floats + indices):
+        raise ValueError("the CUDA fringe kernel takes contiguous inputs")
+    X = torch.empty(2, nfreq, C, npol, K, dtype=torch.float32, device=dev)
+    _fringe_op()(ba, bb, bc, va, vb, vc, u_re, u_im, uidx, lidx, row0, uniform_freq, uniform_real, X)
+    launches["fringe"] += 1
+    if stacked:
+        return X
+    return X[0].view(nfreq, C, npol * K), X[1].view(nfreq, C, npol * K)

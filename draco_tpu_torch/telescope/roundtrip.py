@@ -38,7 +38,7 @@ import torch
 from ..core import config
 from ..core.task import ContainerTask
 from ..device import as_tensor, resolve
-from ..ops import healpix
+from ..ops import cuda_kernels, healpix
 from ..ops.sht import SHT
 from ..ops.tools import phase_frac3, sincos_turns, threefloat_split
 from ..parallel import mesh as pmesh
@@ -356,6 +356,8 @@ def _prepare_fullsphere(bt, chunk, dtype, device) -> dict:
     u_re, u_im, uidx_pad, uniform_real = _beam_prep(
         bt, nfreq, npad, nbase, lambda bprod: np.where(layout >= 0, bprod[..., lclip], 0.0), order=order
     )
+    # the fringe kernel reads the beam products row-major
+    u_re, u_im = np.ascontiguousarray(u_re), np.ascontiguousarray(u_im)
     ga = gb = gc = lidx = None
     g0s, Gc = (), 0
     if geom is not None:
@@ -426,8 +428,8 @@ def state_from_numpy(consts: dict, device=None) -> dict:
         return t(a.argmax(axis=-1) if a.ndim == 2 else a, np.int64)
 
     dims = tuple(consts["dims"])
-    u_re = t(consts["u_re"])
-    u_im = t(consts["u_im"])
+    u_re = t(np.ascontiguousarray(consts["u_re"]))
+    u_im = t(np.ascontiguousarray(consts["u_im"]))
     order = consts.get("order")
     state = {
         "lam": sections(consts["lam"], t),
@@ -492,8 +494,41 @@ def _beam_planes(state, cph, sph, c: int):
     return br * cp - bi * sp, br * sp + bi * cp
 
 
+def _fringe_on_card(state) -> bool:
+    """Whether the state's fringe planes come from the CUDA kernel: float32
+    on a card (float64 reference states and CPU states run the plain chain)."""
+    return state["va"].is_cuda and state["va"].dtype == torch.float32
+
+
+def _fringe_kernel_planes(state, c: int, stacked: bool):
+    """Chunk ``c``'s planes from one launch of
+    :func:`~draco_tpu_torch.ops.cuda_kernels.fringe_planes`: the windowed
+    form's (re, im) [nfreq, chunk, npol*Kf], or the full-sphere form's
+    stacked [2, nfreq, chunk, npol, K]."""
+    chunk = state["dims"][2]
+    rows = slice(c * chunk, (c + 1) * chunk)
+    if state["form"] == "fullsphere" and state["dims"][6]:
+        coeff, row0, lidx = (state["ga"], state["gb"], state["gc"]), state["g0s"][c], state["lidx"][rows]
+    else:
+        coeff, row0, lidx = (state["bla"], state["blb"], state["blc"]), c * chunk, None
+    return cuda_kernels.fringe_planes(
+        *coeff, state["va"], state["vb"], state["vc"], state["u_re"], state["u_im"], state["uidx"][rows], row0,
+        state["uniform_freq"], state["uniform_real"], lidx=lidx, stacked=stacked,
+    )
+
+
 def _fringe_planes(state, c: int):
-    """(re, im) fringe x beam planes [nfreq, chunk, npol*Kf] of chunk ``c``."""
+    """(re, im) fringe x beam planes [nfreq, chunk, npol*Kf] of chunk ``c``
+    of the windowed form: the kernel on a float32 card state, else
+    :func:`_fringe_pair`."""
+    if _fringe_on_card(state):
+        return _fringe_kernel_planes(state, c, stacked=False)
+    return _fringe_pair(state, c)
+
+
+def _fringe_pair(state, c: int):
+    """(re, im) fringe x beam planes [nfreq, chunk, npol*Kf] of chunk ``c``
+    of the windowed form by the plain chain."""
     nfreq, npol, chunk, _, _, Kf, _, _ = state["dims"]
     cph, sph = _fringe_trig(
         state["bla"], state["blb"], state["blc"], state["va"], state["vb"], state["vc"],
@@ -503,31 +538,38 @@ def _fringe_planes(state, c: int):
     return re.reshape(nfreq, chunk, npol * Kf), im.reshape(nfreq, chunk, npol * Kf)
 
 
+def _fringe_stack(state, c: int):
+    """Chunk ``c``'s stacked [Re, Im] fringe x beam planes [2, f, C, p, K] of
+    the full-sphere form by the plain chain."""
+    nfreq, _, chunk, _, _, _, Gc = state["dims"]
+    va, vb, vc = state["va"], state["vb"], state["vc"]
+    if Gc:
+        # trig of the chunk's distinct geometries only, then a row gather
+        # from geometries to products
+        cg, sg = _fringe_trig(
+            state["ga"], state["gb"], state["gc"], va, vb, vc, state["g0s"][c], Gc, nfreq, state["uniform_freq"],
+        )  # [f, Gc, K]
+        idx = state["lidx"][c * chunk : (c + 1) * chunk]
+        cph, sph = cg.index_select(1, idx), sg.index_select(1, idx)
+        del cg, sg
+    else:
+        cph, sph = _fringe_trig(
+            state["bla"], state["blb"], state["blc"], va, vb, vc, c * chunk, chunk, nfreq, state["uniform_freq"]
+        )  # [f, C, K]
+    re, im = _beam_planes(state, cph, sph, c)
+    del cph, sph
+    return torch.stack([re, im])
+
+
 def _fringe_sections(state, c: int):
     """Ring-section coefficients (F_belt, [F_group, ...]) of chunk ``c``'s
     [Re, Im] fringe x beam maps, each [2, f, C, p, rows, M+1]; the belt
     raw (its phase weight is folded in by the caller)."""
-    nfreq, _, chunk, _, _, _, Gc = state["dims"]
-    va, vb, vc = state["va"], state["vb"], state["vc"]
     with span("fullsphere.fringe_build"):
-        if Gc:
-            # trig of the chunk's distinct geometries only, then a row
-            # gather from geometries to products
-            cg, sg = _fringe_trig(
-                state["ga"], state["gb"], state["gc"], va, vb, vc, state["g0s"][c], Gc, nfreq,
-                state["uniform_freq"],
-            )  # [f, Gc, K]
-            idx = state["lidx"][c * chunk : (c + 1) * chunk]
-            cph, sph = cg.index_select(1, idx), sg.index_select(1, idx)
-            del cg, sg
+        if _fringe_on_card(state):
+            X = _fringe_kernel_planes(state, c, stacked=True)
         else:
-            cph, sph = _fringe_trig(
-                state["bla"], state["blb"], state["blc"], va, vb, vc, c * chunk, chunk, nfreq, state["uniform_freq"]
-            )  # [f, C, K]
-        re, im = _beam_planes(state, cph, sph, c)
-        del cph, sph
-        X = torch.stack([re, im])  # [2, f, C, p, K]
-        del re, im
+            X = _fringe_stack(state, c)  # [2, f, C, p, K]
     with span("fullsphere.ring_analysis"):
         return state["sht"]._ring_analysis_parts_padded(X, state["plan"], raw_belt=True)
 

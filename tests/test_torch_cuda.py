@@ -874,3 +874,109 @@ def test_segment_sum_on_the_card_is_bitwise_the_cpus(cuda):
     plan = tools.segment_plan(dst, 50, cuda)
     outs = [tools.segment_sum(x.to(cuda), plan, 1).cpu() for _ in range(3)]
     assert all(torch.equal(o, ref) for o in outs)
+
+
+# name: (form, nfreq, npol, chunk, K, uniform_freq, uniform_real, geom); the
+# first two are one chunk of the benchmark's dish64 and chime2048 cells (K
+# 16768 = the window's pixels, 802434 = the padded sphere at nside 256), the
+# others the kernel's other paths and its narrower stores (K odd, or 2 mod 4)
+FRINGE_SHAPES = {
+    "dish64": ("windowed", 8, 1, 2008, 16768, True, True, False),
+    "chime2048": ("fullsphere", 1, 4, 64, 802434, True, False, True),
+    "windowed-nonuniform-complex": ("windowed", 3, 4, 37, 1030, False, False, False),
+    "fullsphere-nonuniform-real": ("fullsphere", 2, 1, 20, 1001, False, True, False),
+    "fullsphere-dedup-uniform-real": ("fullsphere", 3, 4, 24, 2048, True, True, True),
+}
+
+
+@pytest.mark.parametrize("shape", list(FRINGE_SHAPES))
+def test_fringe_kernel_is_bit_equal_to_the_plain_chain(cuda, shape):
+    """The kernel's planes against the plain chain's on the card, on the same
+    operands: every bit, in each form's layout, chunk by chunk."""
+    from test_torch_fringe import plain_chain, synthetic_state
+
+    from draco_tpu_torch.telescope import roundtrip
+
+    form, nfreq, npol, chunk, K, uniform_freq, uniform_real, geom = FRINGE_SHAPES[shape]
+    nchunk = 1 if chunk > 1000 or K > 100000 else 3
+    state = synthetic_state(form, nfreq, npol, chunk, nchunk, K, uniform_freq, uniform_real, geom, seed=K,
+                            device=cuda)
+    for c in range(nchunk):
+        before = cuda_kernels.launches["fringe"]
+        got = roundtrip._fringe_kernel_planes(state, c, stacked=form == "fullsphere")
+        torch.cuda.synchronize()
+        assert cuda_kernels.launches["fringe"] == before + 1
+        want = plain_chain(state, c)
+        for g, w in zip(got, want) if form == "windowed" else [(got, want)]:
+            assert g.shape == w.shape and g.dtype == torch.float32 and g.is_cuda
+            diff = (g != w).sum().item()
+            assert diff == 0, f"{diff} of {w.numel()} differ, max |diff| {(g - w).abs().max().item()}"
+        del got, want
+
+
+@pytest.mark.parametrize("form", ["windowed", "fullsphere"])
+def test_fringe_kernel_launches_once_a_chunk(cuda, form):
+    """One round trip of a float32 card state launches the kernel nchunk
+    times, and its map is the CPU's within 1e-5 of its largest value; a
+    float64 card state runs the plain chain and launches nothing."""
+    from draco_tpu_torch.telescope import BeamTransfer, PolarisedCylinderTelescope, UnpolarisedDishArray, roundtrip
+    from test_torch_fringe import DISH, DUALPOL, NSIDE
+
+    tel = UnpolarisedDishArray(**DISH) if form == "windowed" else PolarisedCylinderTelescope(**DUALPOL)
+    bt = BeamTransfer(tel, nside=NSIDE)
+    sky = np.random.Generator(np.random.SFC64(9)).standard_normal((tel.nfreq, tel.num_pol_sky, 12 * NSIDE**2))
+    state = roundtrip.prepare_state(bt, chunk=8, device=cuda)
+    assert state["form"] == form
+    before = cuda_kernels.launches["fringe"]
+    out = roundtrip.fused_roundtrip(state, torch.as_tensor(sky, dtype=torch.float32, device=cuda))
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["fringe"] == before + state["dims"][3]
+    ref = roundtrip.fused_roundtrip(roundtrip.prepare_state(bt, chunk=8, device="cpu"),
+                                    torch.as_tensor(sky, dtype=torch.float32))
+    assert _rel(out.cpu(), ref) <= 1e-5
+    state64 = roundtrip.prepare_state(bt, chunk=8, dtype=torch.float64, device=cuda)
+    before = cuda_kernels.launches["fringe"]
+    roundtrip.fused_roundtrip(state64, torch.as_tensor(sky, device=cuda))
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["fringe"] == before
+
+
+@pytest.mark.parametrize("form", ["windowed", "fullsphere"])
+def test_trace_gives_the_fringe_kernel_to_its_span(cuda, form):
+    """``portbench/trace.py::from_profile`` links each launch of the
+    ctypes-built kernel to the host span it was launched in: the form's
+    ``fringe_build`` span holds exactly the kernel's device time."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    from draco_tpu_torch.telescope import BeamTransfer, PolarisedCylinderTelescope, UnpolarisedDishArray, roundtrip
+    from portbench.trace import WINDOW, from_profile
+    from test_torch_fringe import DISH, DUALPOL, NSIDE
+
+    tel = UnpolarisedDishArray(**DISH) if form == "windowed" else PolarisedCylinderTelescope(**DUALPOL)
+    state = roundtrip.prepare_state(BeamTransfer(tel, nside=NSIDE), chunk=8, device=cuda)
+    sky = torch.randn(tel.nfreq, tel.num_pol_sky, 12 * NSIDE**2, device=cuda)
+    roundtrip.fused_roundtrip(state, sky)
+    torch.cuda.synchronize()
+    name = f"{form}.fringe_build"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(WINDOW):
+            roundtrip.fused_roundtrip(state, sky)
+            torch.cuda.synchronize()
+    tr = from_profile(prof, spans=(name,))
+    kernels = [(a, b) for a, b, n in tr.device if "fringe_kernel" in n]
+    assert len(kernels) == state["dims"][3] == tr.span_count[name]
+    assert tr.span_device_s[name] > 0
+    assert tr.span_device_s[name] == pytest.approx(sum(b - a for a, b in kernels), rel=1e-9, abs=1e-12)
+
+
+def test_fringe_kernel_refuses_what_it_does_not_take(cuda):
+    from test_torch_fringe import synthetic_state
+
+    state = synthetic_state("windowed", 2, 1, 4, 2, 20, True, True, False, device=cuda)
+    args = [state[k] for k in ("bla", "blb", "blc", "va", "vb", "vc", "u_re", "u_im")]
+    uidx = state["uidx"][:4]
+    with pytest.raises(TypeError):
+        cuda_kernels.fringe_planes(*args[:6], args[6].double(), args[7].double(), uidx, 0, True, True)
+    with pytest.raises(ValueError):
+        cuda_kernels.fringe_planes(*args, uidx.cpu(), 0, True, True)
