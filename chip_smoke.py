@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --spine-stages tasks,sht [--repo DIR]   # not the smoke: a timing (spine_stages)
+    python3 chip_smoke.py --belt-chunk [--seed N]                 # phase 2c alone
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -30,6 +31,16 @@ Phases, each of which raises on failure (exit code != 0):
    later round-trip phases (3, 4, 6, 7) zero the launch counts just before
    their float32 call and require one ``fringe`` launch a baseline chunk
    (none for float64);
+2c. the ring analysis of one chime2048.fused1 chunk ([2, 1, 64, 4, 802434]
+   seeded float32 planes in the padded layout at nside 256): the belt (513
+   rings of 1024, m < 768) by the dense DFT GEMMs against the plan's
+   factors and by the real FFT route (``SHT._belt_coefficients``), each
+   timed beside its bound (the GEMMs' operations at the float32 rate; the
+   FFT route's belt read and coefficients written once at the HBM rate) with
+   its error against the dense DFT in float64 on the same planes and its
+   peak of requested bytes; the FFT route's parts (the contiguous copy, the
+   FFT, the gather); the cap groups' GEMMs alone and the whole stage.
+   Checks: the FFT route within 1e-6, one FFT, a contiguous output;
 3. the dish slice at the bench headline's width: a time stream from
    ``--seed`` (every baseline of the 64-dish array x 8640 samples, with
    zero-weight gaps) -> ``regrid_sidereal`` to 2048 RA bins ->
@@ -54,7 +65,8 @@ Phases, each of which raises on failure (exit code != 0):
    full-sphere loop by stage;
 7. the 2048-feed dual-pol cylinder (7155 stacked products, T/Q/U/V sky):
    the unweighted full-sphere round trip at chunk 96 with the geometry
-   dedup engaged;
+   dedup engaged, its belt ring analyses by the real FFT (one a chunk and
+   one for the sky);
 8. accuracy at nside 64: the full-sphere round trip in float32 against
    float64 within 1e-5 relative (a weighted 2 x 16 cylinder and a 2 x 8
    dual-pol cylinder), and the fused map against the composed streaming
@@ -405,6 +417,7 @@ EPSILON = 1e-3
 TOL_KERNEL = 1e-5
 TOL_KERNEL_F64 = 1e-12
 TOL_MAP = 1e-5
+TOL_BELT = 1e-6  # the belt's real FFT route in float32 against the dense DFT in float64
 TOL_COMPOSED = 3e-5
 TOL_PROJECTION = 2e-5
 TOL_SVD = 1e-4
@@ -921,6 +934,114 @@ def check_fringe(device, seed: int) -> dict:
     return stats
 
 
+# one baseline chunk of chime2048.fused1's ring analysis: [2, nfreq 1, chunk 64,
+# npol 4, K] float32 planes in the padded layout at nside 256
+BELT_CHUNK = (2, 1, 64, 4)
+
+
+def check_belt(device, seed: int) -> dict:
+    """Phase 2c: the ring analysis of one chime2048.fused1 chunk on seeded
+    normal planes.  The belt (513 rings of 1024 slots, m < 768) by the dense
+    DFT GEMMs against the plan's factors (the route before the FFT) and by
+    the real FFT route (``SHT._belt_coefficients``), each against the dense
+    DFT in float64 on the same planes and timed beside its bound; the FFT
+    route's parts (the contiguous copy, the FFT, the gather) and its peak of
+    requested bytes; the cap groups' GEMMs alone; the whole stage.  Returns
+    the numbers for the JSON record."""
+    import torch
+
+    from draco_tpu_torch.ops import sht
+
+    s = sht.SHT(NSIDE)
+    plan = s.precompute_ring_plan(torch.float32, device)
+    K = len(s.padded_layout())
+    X = torch.randn(*BELT_CHUNK, K, generator=torch.Generator(device).manual_seed(seed), device=device)
+    nbelt, nphi, M1 = len(s._belt_rings), s._belt_nphi, s.mmax + 1
+    belt = X[..., : s._belt_len].reshape(*BELT_CHUNK, nbelt, nphi)
+    rows = belt.numel() // nphi
+    Wr, Wi = plan["W"]
+
+    def dense():
+        return torch.complex(belt @ Wr, belt @ Wi)
+
+    def fft():
+        return s._belt_coefficients(belt, raw_belt=True)
+
+    cap_views, off = [], s._belt_len
+    for rows_arr, w in s._cap_wgroups:
+        cap_views.append(X[..., off : off + len(rows_arr) * w].reshape(*BELT_CHUNK, len(rows_arr), w))
+        off += len(rows_arr) * w
+
+    # errors against the dense DFT in float64, one channel plane at a time to bound the memory
+    W64 = s._belt_dft(torch.float64, device)
+    err = {"dense": 0.0, "fft": 0.0}
+    ref_max = 0.0
+    sht.reset_belt_ffts()
+    got = {"dense": dense(), "fft": fft()}
+    ffts = sht.belt_ffts
+    for i in range(BELT_CHUNK[0]):
+        b64 = belt[i].double()
+        ref = torch.complex(b64 @ W64[0], b64 @ W64[1])
+        ref_max = max(ref_max, ref.abs().max().item())
+        for k in err:
+            err[k] = max(err[k], (got[k][i] - ref).abs().max().item())
+        del b64, ref
+    rel = {k: v / ref_max for k, v in err.items()}
+    contiguous_out = got["fft"].is_contiguous()
+    del got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # requested bytes above the planes while each belt route runs
+    peaks = {}
+    for name, fn in (("dense", dense), ("fft", fft)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_stats(device)["requested_bytes.all.current"]
+        torch.cuda.reset_peak_memory_stats(device)
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.memory_stats(device)["requested_bytes.all.peak"] - base
+        del out
+    bc = belt.contiguous()
+    H = torch.fft.rfft(bc)
+    m = torch.arange(M1, device=device)
+    src = torch.where(m <= nphi // 2, m, nphi - m)
+    parts = {
+        "copy": cuda_ms(lambda: belt.contiguous(), 10),
+        "rfft": cuda_ms(lambda: torch.fft.rfft(bc), 10),
+        "gather": cuda_ms(lambda: H.index_select(-1, src), 10),
+    }
+    del bc, H
+    ms = {
+        "dense": min(cuda_ms(dense, 3), cuda_ms(dense, 3)),
+        "fft": min(cuda_ms(fft, 10), cuda_ms(fft, 10)),
+        "caps": min(cuda_ms(lambda: s._cap_coefficients(cap_views, plan), 3) for _ in range(2)),
+        "stage": min(cuda_ms(lambda: s._ring_analysis_parts_padded(X, plan, raw_belt=True), 3) for _ in range(2)),
+    }
+    belt_bytes = belt.numel() * 4 + rows * M1 * 8  # the planes' belt read once, F written once
+    cap_flops = sum(4.0 * (X.numel() // K) * len(r) * w * M1 for r, w in s._cap_wgroups)
+    dense_ops_ms = 4.0 * rows * nphi * M1 / PEAK_FLOPS["float32"] * 1e3
+    dense_by = "operations" if dense_ops_ms >= belt_bytes / HBM_BYTES_PER_S * 1e3 else "bytes"
+    bounds = {
+        "dense": max(dense_ops_ms, belt_bytes / HBM_BYTES_PER_S * 1e3),
+        "fft": belt_bytes / HBM_BYTES_PER_S * 1e3,
+        "caps": cap_flops / PEAK_FLOPS["float32"] * 1e3,
+    }
+    log(f"belt [{', '.join(map(str, BELT_CHUNK))}, {nbelt}, {nphi}] -> m < {M1}: dense GEMMs {ms['dense']:.3f} ms "
+        f"(bound {bounds['dense']:.3f}, {dense_by}), rel err {rel['dense']:.3e}, {peaks['dense'] / 1e9:.3f} GB "
+        f"requested above the planes; real FFT route {ms['fft']:.3f} ms (bound {bounds['fft']:.3f}, bytes: "
+        f"{belt_bytes / 1e9:.3f} GB), rel err {rel['fft']:.3e}, {peaks['fft'] / 1e9:.3f} GB requested, "
+        f"{ffts} FFT, contiguous {contiguous_out}; its parts: copy {parts['copy']:.3f}, rfft {parts['rfft']:.3f}, "
+        f"gather {parts['gather']:.3f} ms")
+    log(f"caps ({len(s._cap_wgroups)} groups, {K - s._belt_len} slots) GEMMs alone {ms['caps']:.3f} ms (bound "
+        f"{bounds['caps']:.3f}, operations); the whole ring analysis of the chunk {ms['stage']:.3f} ms")
+    if not (rel["fft"] <= TOL_BELT and ffts == 1 and contiguous_out):
+        raise RuntimeError(f"the belt's real FFT route: rel err {rel['fft']:.3e} (tol {TOL_BELT}), {ffts} FFTs "
+                           f"(want 1), contiguous {contiguous_out}")
+    return {"planes": [*BELT_CHUNK, K], "ms": ms, "bound_ms": bounds, "parts_ms": parts, "rel_err": rel,
+            "requested_bytes_above_planes": peaks}
+
+
 def fringe_launches(label: str, launches: int, bt) -> int:
     """``launches`` of the fringe kernel in one fused round trip through
     ``bt``'s float32 card state, held to one a baseline chunk."""
@@ -1127,12 +1248,13 @@ def profile_top(run, label: str, top: int = 8) -> None:
             f"{name[:60]} x{count} {ms:.1f} ms" for ms, count, name in sorted(kern, reverse=True)[:top]))
 
 
-def run_dualpol(device) -> int:
+def run_dualpol(device) -> tuple[int, int]:
     """Phase 7: the 2048-feed dual-pol cylinder, unweighted, chunk 96;
-    returns the fringe kernel's launches in the first call."""
+    returns the fringe kernel's launches and the belt FFTs in the first
+    call (one a chunk and one for the sky)."""
     import torch
 
-    from draco_tpu_torch.ops import cuda_kernels, healpix
+    from draco_tpu_torch.ops import cuda_kernels, healpix, sht
     from draco_tpu_torch.telescope.roundtrip import fused_simulate_to_map
 
     tel, bt = cylinder(NSIDE, 4, 256, pol=True)
@@ -1145,13 +1267,17 @@ def run_dualpol(device) -> int:
     ).to(device)
     torch.cuda.reset_peak_memory_stats(device)
     cuda_kernels.reset_launches()
+    sht.reset_belt_ffts()
     t0 = _sync_clock(device)
     maps = fused_simulate_to_map(bt, sky, chunk=CHUNK_CHIME_POL)
     first = _sync_clock(device) - t0
+    ffts = sht.belt_ffts
     fringe = fringe_launches("dual-pol cylinder", cuda_kernels.launches["fringe"], bt)
     state = next(iter(bt._fused_fns.values())).state
     Gc = state["dims"][-1]
-    log(f"dual-pol state: form={state['form']} Gc={Gc} chunks={state['dims'][3]}")
+    log(f"dual-pol state: form={state['form']} Gc={Gc} chunks={state['dims'][3]}; belt FFTs {ffts}")
+    if ffts != state["dims"][3] + 1:
+        raise RuntimeError(f"dual-pol cylinder: {ffts} belt FFTs, want one a chunk and one for the sky")
     if state["form"] != "fullsphere" or Gc <= 0:
         raise RuntimeError(f"dual-pol cylinder: form {state['form']}, geometry dedup Gc={Gc} not engaged")
     if tuple(maps.shape) != (1, 4, healpix.npix_of(NSIDE)) or not bool(torch.isfinite(maps).all()):
@@ -1163,7 +1289,7 @@ def run_dualpol(device) -> int:
         warm.append(_sync_clock(device) - t0)
     log(f"dual-pol round trip: first call {first:.4f} s, warm {min(warm):.4f} s (best of {warm[0]:.4f}, "
         f"{warm[1]:.4f}); peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
-    return fringe
+    return fringe, ffts
 
 
 def check_fullsphere_accuracy(device) -> None:
@@ -5846,6 +5972,8 @@ def main() -> int:
     parser.add_argument("--repo", default=str(Path(__file__).resolve().parent),
                         help="with --spine-stages: the checkout whose draco_tpu_torch is timed")
     parser.add_argument("--device", default="cuda", help="with --spine-stages: the device")
+    parser.add_argument("--belt-chunk", action="store_true",
+                        help="instead of the smoke, phase 2c alone (the ring analysis of one CHIME chunk)")
     parser.add_argument("--nside", type=int, default=NSIDE, help="with --spine-stages: the task chain's nside")
     parser.add_argument("--nside-chunked", type=int, default=SHT_NSIDE, help="with --spine-stages: the maps' nside")
     parser.add_argument("--nfreq", type=int, default=MESH_NFREQ, help="with --spine-stages: channels")
@@ -5876,6 +6004,10 @@ def main() -> int:
     card = gpu_name_and_power()
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| tf32 matmul {torch.backends.cuda.matmul.allow_tf32}")
+    if args.belt_chunk:
+        print(json.dumps({"belt_fft": check_belt(device, seed=args.seed + 4)}))
+        print(card)
+        return 0
 
     # phase 1: build every kernel, one nvcc for each source, all started together
     t0 = time.perf_counter()
@@ -5894,6 +6026,9 @@ def main() -> int:
 
     # phase 2b: the fringe kernel at one chunk of each benchmark cell
     fringe_kern = check_fringe(device, seed=args.seed + 3)
+
+    # phase 2c: the ring analysis of one CHIME chunk, the belt by GEMMs and by the real FFT
+    belt_stats = check_belt(device, seed=args.seed + 4)
 
     # phase 3: the dish slice at headline width
     rng = np.random.Generator(np.random.SFC64(1))
@@ -5945,7 +6080,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 7: the 2048-feed dual-pol cylinder
-    dualpol_fringe = run_dualpol(device)
+    dualpol_fringe, dualpol_ffts = run_dualpol(device)
     torch.cuda.empty_cache()
 
     # phase 8: full-sphere accuracy at nside 64
@@ -6132,7 +6267,7 @@ def main() -> int:
         "flagging_path": {"launches": flag_launches["fringe"]},
         "filter_path": {"launches": filter_launches["fringe"]},
         "multidevice_path": on_mesh("fringe"),
-    }]}
+    }], "belt_fft": {**belt_stats, "dualpol_path": {"ffts": dualpol_ffts}}}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,13 @@ the hand-written kernel ``csrc/legendre.cu``
 (:func:`draco_tpu_torch.ops.cuda_kernels.legendre_block`), on the CPU its
 plain version :func:`_legendre_block_core`.  The float32 tensors are
 two-float: the recurrence runs in float64 and each value is kept as a
-float32 ``hi`` plus a bfloat16 ``lo`` residual.  The ring-DFT factors
-reduce their phases exactly in integers (every HEALPix azimuth is
-pi(2j+s)/n) before any floating-point trig.  Both keep the round trip
-inside the 1e-5 map-error contract in float32; float64 (exact trig,
-single float64 Legendre) is the reference.
+float32 ``hi`` plus a bfloat16 ``lo`` residual.  The analysis takes the
+equatorial belt's rings, all of 4 nside pixels, through one batched real
+FFT (counted in :data:`belt_ffts`); the cap rings and every synthesis
+contract dense ring-DFT factors, whose phases are reduced exactly in
+integers (every HEALPix azimuth is pi(2j+s)/n) before any floating-point
+trig.  Both keep the round trip inside the 1e-5 map-error contract in
+float32; float64 (exact trig, single float64 Legendre) is the reference.
 
 :meth:`SHT.analysis` and :meth:`SHT.synthesis` take one of two routes:
 
@@ -49,7 +51,7 @@ from . import cuda_kernels, healpix
 from .tools import sincos_turns
 
 __all__ = [
-    "SHT", "TABLE_BUDGET_BYTES", "get_sht", "alm2map", "map2alm", "sphtrans_sky", "sphtrans_inv_sky",
+    "SHT", "TABLE_BUDGET_BYTES", "reset_belt_ffts", "get_sht", "alm2map", "map2alm", "sphtrans_sky", "sphtrans_inv_sky",
 ]
 
 # Power-of-two block for the dynamic rescaling of the Legendre recurrence.
@@ -63,6 +65,14 @@ _CAP_WSPLIT = 16
 # float64; nside 512 at lmax 1535 needs 43 GB in float32 and goes chunk by
 # chunk, as does nside 1024 (341 GB at lmax 3071, 113 GB at lmax 1535).
 TABLE_BUDGET_BYTES = 16 * 2**30
+# belt ring analyses by the real FFT (one a torch.fft.rfft call; with
+# ``split`` one a channel) since the last reset_belt_ffts()
+belt_ffts = 0
+
+
+def reset_belt_ffts() -> None:
+    global belt_ffts
+    belt_ffts = 0
 
 
 def _seed_log_coeff(mmax: int) -> np.ndarray:
@@ -371,7 +381,10 @@ class SHT:
     def precompute_ring_plan(self, rdt=torch.float32, device=None):
         """Ring-DFT factors: {"W": (re, im) [nphi, M+1], "P": [(re, im) [rows, w, M+1]]}.
 
-        The cap factors carry the quadrature weight.
+        The cap factors carry the quadrature weight.  The analysis contracts
+        only the cap factors (the belt takes the real FFT); ``W``, the belt's,
+        stays in the plan's layout, which ``roundtrip.state_from_numpy`` fills
+        from the JAX package's constants.
         """
         device = resolve(device)
         ring_ids = np.asarray(self._cap_rings)
@@ -539,21 +552,50 @@ class SHT:
         return self._analysis_sections(belt, caps, plan, raw_belt, mcut)
 
     def _analysis_sections(self, belt, caps, plan, raw_belt=False, mcut=None, split=False):
-        """Ring DFTs of the belt [..., nbelt, nphi] and the cap groups
-        [..., rows, w]: dense GEMMs against the plan's factors, or, with
-        ``plan`` None, against factors made on the fly (the cap factors
-        ``chunk_m`` m at a time); with ``split`` channel by channel."""
+        """Ring coefficients of the belt [..., nbelt, nphi]
+        (:meth:`_belt_coefficients`) and of the cap groups [..., rows, w]
+        (:meth:`_cap_coefficients`), the columns m < ``mcut``; with ``split``
+        channel by channel."""
         self._require_analysis_band_limit()
+        return self._belt_coefficients(belt, raw_belt, mcut, split), self._cap_coefficients(caps, plan, mcut, split)
+
+    def _belt_coefficients(self, belt, raw_belt=False, mcut=None, split=False):
+        """F[..., r, m] = sum_j belt[..., r, j] exp(-2 pi i j m / nphi) for m <
+        M+1 (or ``mcut``), times the belt phase weight unless ``raw_belt``.
+
+        One batched real FFT along the ring gives H[m], m <= nphi/2; the
+        columns are gathered from it into one contiguous [..., nbelt, M+1]
+        tensor, F[m] = H[m] up to nphi/2 and conj(H[nphi - m]) above (the band
+        limit mmax < nphi keeps nphi - m >= 1), and H is freed.  With
+        ``split`` the FFT runs channel by channel (:func:`_each_channel`).
+        Each FFT adds one to :data:`belt_ffts`.
+        """
         rdt, dev = belt.dtype, belt.device
-        ms = slice(None, mcut)
-        Wr, Wi = (w[:, ms] for w in (plan["W"] if plan is not None else self._belt_dft(rdt, dev)))
-        Fr = _each_channel(lambda b: b @ Wr, belt, split)
-        Fi = _each_channel(lambda b: b @ Wi, belt, split)
+        nphi = self._belt_nphi
+        ncol = len(range(self.mmax + 1)[:mcut])
+        m = torch.arange(ncol, device=dev)
+        src = torch.where(m <= nphi // 2, m, nphi - m)
+
+        def spectrum(b):
+            global belt_ffts
+            belt_ffts += 1
+            F = torch.fft.rfft(b).index_select(-1, src)
+            F.imag[..., nphi // 2 + 1 :].neg_()
+            return F
+
+        F = _each_channel(spectrum, belt, split)
         if raw_belt:
-            F_belt = torch.complex(Fr, Fi)
-        else:
-            pr, pi = (p[:, ms] for p in self.belt_phase_weight(rdt, dev))
-            F_belt = torch.complex(Fr * pr - Fi * pi, Fr * pi + Fi * pr)
+            return F
+        pr, pi = (p[:, :ncol] for p in self.belt_phase_weight(rdt, dev))
+        Fr, Fi = F.real, F.imag
+        return torch.complex(Fr * pr - Fi * pi, Fr * pi + Fi * pr)
+
+    def _cap_coefficients(self, caps, plan, mcut=None, split=False):
+        """[F_group [..., rows, M+1 (or mcut)], ...] of the cap groups [...,
+        rows, w]: dense GEMMs against the plan's factors, or, with ``plan``
+        None, against factors made ``chunk_m`` m at a time; with ``split``
+        channel by channel."""
+        ms = slice(None, mcut)
 
         def dft(cap, Pr, Pi):
             def one(c):
@@ -568,10 +610,11 @@ class SHT:
                 Pr, Pi = plan["P"][gi]
                 group_F.append(dft(cap, Pr[..., ms], Pi[..., ms]))
                 continue
+            rdt, dev = cap.dtype, cap.device
             w_rows = torch.as_tensor(self._w[ring_ids[grp[0]]], dtype=rdt, device=dev)
             parts = [dft(cap, Pr, Pi) for _, _, Pr, Pi in self._cap_dft_chunks(grp, rdt, dev, w_rows)]
             group_F.append(torch.cat(parts, dim=-1)[..., ms])
-        return F_belt, group_F
+        return group_F
 
     def _contract_alm(self, F_belt, group_F, lam, lam_lo=None, split=False):
         """Sum of the per-section Legendre contractions -> alm [..., L+1, M+1].

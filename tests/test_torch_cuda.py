@@ -980,3 +980,26 @@ def test_fringe_kernel_refuses_what_it_does_not_take(cuda):
         cuda_kernels.fringe_planes(*args[:6], args[6].double(), args[7].double(), uidx, 0, True, True)
     with pytest.raises(ValueError):
         cuda_kernels.fringe_planes(*args, uidx.cpu(), 0, True, True)
+
+
+def test_belt_fft_on_a_chime_shaped_slice_is_within_float32_rounding(cuda):
+    """The belt's coefficients by the real FFT on the card on 8 baselines of
+    a chime2048.fused1 chunk: [2, 1, 8, 4, 802434] float32 planes in the
+    padded layout at nside 256 (513 rings of 1024; m < 768, 255 of them
+    mirrored from the half spectrum), against the dense DFT in float64 on the
+    same planes.  Bound: max|diff| / max|ref| <= 1e-6; a float32 FFT of 1024
+    points rounds each output in log2(1024) = 10 stages, ~1e-7 here."""
+    from draco_tpu_torch.ops import sht
+
+    s = sht.SHT(256)
+    K = len(s.padded_layout())
+    X = torch.randn(2, 1, 8, 4, K, generator=torch.Generator(cuda).manual_seed(5), device=cuda)
+    belt = X[..., : s._belt_len].reshape(*X.shape[:-1], len(s._belt_rings), s._belt_nphi)
+    sht.reset_belt_ffts()
+    F = s._belt_coefficients(belt, raw_belt=True)
+    assert sht.belt_ffts == 1
+    assert F.shape == (2, 1, 8, 4, 513, 768) and F.dtype == torch.complex64 and F.is_contiguous()
+    Wr, Wi = s._belt_dft(torch.float64, cuda)
+    b64 = belt.double()
+    ref = torch.complex(b64 @ Wr, b64 @ Wi)
+    assert _crel(F, ref) <= 1e-6

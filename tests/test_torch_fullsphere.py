@@ -20,6 +20,7 @@ from draco_tpu.telescope import BeamTransfer as JBeamTransfer
 from draco_tpu.telescope import PolarisedCylinderTelescope as JPolCylinder
 from draco_tpu.telescope import UnpolarisedCylinderTelescope as JCylinder
 from draco_tpu_torch import device as tdevice
+from draco_tpu_torch.ops import sht
 from draco_tpu_torch.telescope import BeamTransfer, PolarisedCylinderTelescope, UnpolarisedCylinderTelescope
 from draco_tpu_torch.telescope import roundtrip
 
@@ -183,6 +184,32 @@ def test_fullsphere_float32_within_contract_of_float64(case):
     m64 = roundtrip.fused_simulate_to_map(bt, sky.double(), chunk=CHUNK, weight=w.double())
     assert m64.dtype == torch.float64
     assert _rel(m32.double().numpy(), m64.numpy()) <= 1e-5
+
+
+def test_one_channel_belt_reaches_the_contraction_as_a_view():
+    """On one channel a chunk's belt coefficients, seen as the U/V
+    contraction's [f, M+1, 2C, p*r] (the reshape of
+    ``_fused_roundtrip_fullsphere``), share their storage: a copy would move
+    them once more a chunk."""
+    _, tel = telescopes("dualpol")
+    state = roundtrip.prepare_state(BeamTransfer(tel, nside=NSIDE), chunk=CHUNK, device=CPU)
+    nfreq, _, chunk, _, _, mmax, _ = state["dims"]
+    assert nfreq == 1
+    F_belt, _ = roundtrip._fringe_sections(state, 0)
+    Fm = F_belt.permute(1, 5, 0, 2, 3, 4).reshape(nfreq, mmax + 1, 2 * chunk, -1)
+    assert F_belt.is_contiguous() and Fm._base is F_belt and Fm.data_ptr() == F_belt.data_ptr()
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_round_trip_takes_one_belt_fft_a_chunk_and_one_for_the_sky(name):
+    _, tel = telescopes(name)
+    state = roundtrip.prepare_state(BeamTransfer(tel, nside=NSIDE), chunk=CHUNK, device=CPU)
+    sky = torch.from_numpy(
+        np.random.Generator(np.random.SFC64(4)).standard_normal((tel.nfreq, tel.num_pol_sky, 12 * NSIDE**2))
+    ).float()
+    sht.reset_belt_ffts()
+    roundtrip.fused_roundtrip(state, sky)
+    assert sht.belt_ffts == state["dims"][3] + 1
 
 
 def test_tiled_matches_full_batch():

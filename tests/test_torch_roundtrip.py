@@ -15,6 +15,7 @@ import torch
 import draco_tpu.telescope.roundtrip as jrt
 from draco_tpu.telescope import BeamTransfer as JBeamTransfer
 from draco_tpu.telescope import UnpolarisedDishArray as JDishArray
+from draco_tpu_torch.ops import sht
 from draco_tpu_torch.telescope import BeamTransfer, UnpolarisedDishArray
 from draco_tpu_torch.telescope import roundtrip
 
@@ -139,6 +140,17 @@ def test_float32_within_contract_of_float64(setup):
     m64 = roundtrip.fused_simulate_to_map(bt, sky.double(), chunk=CHUNK)
     assert m64.dtype == torch.float64
     assert _rel(m32.double().numpy(), m64.numpy()) <= 1e-5
+
+
+def test_windowed_round_trip_takes_one_belt_fft_for_the_sky():
+    """The windowed form analyses only the sky (its chunks contract per-pixel
+    factors): one belt FFT a call, whatever the number of chunks."""
+    st = roundtrip.prepare_state(BeamTransfer(UnpolarisedDishArray(**CONFIG), nside=NSIDE), chunk=CHUNK, device="cpu")
+    assert st["form"] == "windowed" and st["dims"][3] > 1
+    sky = torch.from_numpy(np.random.Generator(np.random.SFC64(3)).standard_normal((2, 1, 12 * NSIDE**2))).float()
+    sht.reset_belt_ffts()
+    roundtrip.fused_roundtrip(st, sky)
+    assert sht.belt_ffts == 1
 
 
 def test_beam_fringe_maps_match_jax():

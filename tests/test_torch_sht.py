@@ -211,6 +211,62 @@ def test_ring_analysis_parts_padded_matches_jax(pair, raw_belt, mcut):
         assert _rel(got.numpy(), want[..., : got.shape[-1]].numpy()) <= 1e-6
 
 
+@pytest.fixture(scope="module")
+def shts():
+    return {nside: sht.SHT(nside) for nside in (8, 16, 32)}
+
+
+def _dense_belt(s, belt, raw_belt, ncol):
+    """The belt's coefficients by the dense DFT factors (:meth:`SHT._belt_dft`)
+    in the belt's precision, times the phase weight unless ``raw_belt``."""
+    Wr, Wi = (w[:, :ncol] for w in s._belt_dft(belt.dtype, "cpu"))
+    F = torch.complex(belt @ Wr, belt @ Wi)
+    if raw_belt:
+        return F
+    pr, pi = (p[:, :ncol] for p in s.belt_phase_weight(belt.dtype, "cpu"))
+    return F * torch.complex(pr, pi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("layout", ["gathered", "padded"])
+@pytest.mark.parametrize("raw_belt", [False, True])
+@pytest.mark.parametrize("mcut", [None, 20, "mmax"])
+@pytest.mark.parametrize("nside", [8, 16, 32])
+def test_belt_fft_matches_the_dense_belt_dft(shts, nside, mcut, raw_belt, layout, dtype):
+    """The belt's coefficients by one real FFT against the dense DFT factors,
+    the columns above nphi/2 (mirrored from the half spectrum) included:
+    float64 within 1e-12, float32 within TOL32.  The maps' leading batch is
+    not contiguous; gathered from HEALPix order or in the padded layout, the
+    coefficients come out as one contiguous [..., nbelt, ncol] tensor of the
+    maps' precision, in one FFT."""
+    s = shts[nside]
+    mcut = s.mmax if mcut == "mmax" else mcut
+    ncol = len(range(s.mmax + 1)[:mcut])
+    half = s._belt_nphi // 2
+    # columns above nphi/2 at every mcut but 20 at nside 16 and 32
+    assert (ncol > half + 1) == (mcut != 20 or nside == 8)
+    rng = np.random.Generator(np.random.SFC64(nside))
+    maps = torch.from_numpy(rng.standard_normal((3, 2, s.npix))).to(dtype).transpose(0, 1)
+    belt = maps[..., s._belt_off : s._belt_off + s._belt_len].reshape(2, 3, len(s._belt_rings), s._belt_nphi)
+    sht.reset_belt_ffts()
+    if layout == "gathered":
+        F = s._belt_coefficients(belt, raw_belt, mcut)
+    else:
+        lay = s.padded_layout()
+        pad = torch.where(torch.from_numpy(lay >= 0), maps[..., np.clip(lay, 0, None)], 0.0)
+        pad = pad.transpose(0, 1).contiguous().transpose(0, 1)
+        assert not pad.is_contiguous()
+        F = s._ring_analysis_parts_padded(pad, s.precompute_ring_plan(dtype, "cpu"), raw_belt, mcut)[0]
+    assert sht.belt_ffts == 1
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    assert F.shape == (2, 3, len(s._belt_rings), ncol) and F.dtype == cdt and F.is_contiguous()
+    want = _dense_belt(s, belt.contiguous(), raw_belt, ncol)
+    tol = 1e-12 if dtype == torch.float64 else TOL32
+    assert _rel(F.numpy(), want.numpy()) <= tol
+    if ncol > half + 1:
+        assert _rel(F[..., half + 1 :].numpy(), want[..., half + 1 :].numpy()) <= tol
+
+
 def test_analysis_padded_and_complex_analysis_match_jax(pair):
     s, js = pair
     rng = np.random.Generator(np.random.SFC64(9))
