@@ -20,8 +20,8 @@ Phases, each of which raises on failure (exit code != 0):
    the plain version in its type.  At R [300, 1000]: an R with permuted
    columns (every sample window full width) and bw 33, within 1e-5;
 2b. the fringe x beam kernel (``ops/cuda_kernels.py::fringe_planes``,
-   ``csrc/fringe.cu``) against the round trip's plain chain
-   (``roundtrip._fringe_pair``, ``roundtrip._fringe_stack``) on the card, at
+   ``csrc/fringe.cu``) against its plain version
+   (``ops/cuda_kernels.py::fringe_planes_plain``) on the card, at
    one baseline chunk of each benchmark cell on seeded operands: dish64's
    windowed (re, im) [8, 2008, 16768] (a uniform grid of 8 channels, one
    real beam) and chime2048's stacked [2, 1, 64, 4, 802434] (complex beams
@@ -897,27 +897,32 @@ def check_fringe(device, seed: int) -> dict:
     import torch
 
     from draco_tpu_torch.ops import cuda_kernels
-    from draco_tpu_torch.telescope import roundtrip
 
     stats = {}
     for i, (name, (form, nfreq, npol, chunk, K, nuniq, Gc)) in enumerate(FRINGE_CHUNKS.items()):
         state = fringe_state(form, nfreq, npol, chunk, K, nuniq, Gc, seed + i, device)
         stacked = form == "fullsphere"
-        plain = roundtrip._fringe_stack if stacked else roundtrip._fringe_pair
+        coeff = ("ga", "gb", "gc") if Gc else ("bla", "blb", "blc")
+        args = (*(state[k] for k in (*coeff, "va", "vb", "vc", "u_re", "u_im", "uidx")), 0, True,
+                state["uniform_real"])
+        kwargs = {"lidx": state["lidx"] if Gc else None, "geom_rows": Gc, "stacked": stacked}
 
-        def kernel(state=state, stacked=stacked):
-            return roundtrip._fringe_kernel_planes(state, 0, stacked)
+        def kernel(args=args, kwargs=kwargs):
+            return cuda_kernels.fringe_planes(*args, **kwargs)
+
+        def plain(args=args, kwargs=kwargs):
+            return cuda_kernels.fringe_planes_plain(*args, **kwargs)
 
         before = cuda_kernels.launches["fringe"]
         got = kernel()
         launched = cuda_kernels.launches["fringe"] - before
-        want = plain(state, 0)
+        want = plain()
         pairs = [(got, want)] if stacked else list(zip(got, want))
         shapes_ok = all(g.shape == w.shape and g.dtype == torch.float32 for g, w in pairs)
         differ = sum(int((g != w).sum()) for g, w in pairs) if shapes_ok else -1
         del got, want, pairs
         kern1, kern2 = cuda_ms(kernel, 20), cuda_ms(kernel, 20)
-        plain1, plain2 = cuda_ms(lambda: plain(state, 0), 3), cuda_ms(lambda: plain(state, 0), 3)
+        plain1, plain2 = cuda_ms(plain, 3), cuda_ms(plain, 3)
         nbytes = 2 * 4 * nfreq * chunk * npol * K
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"fringe kernel [{name} chunk: {form}, [2, {nfreq}, {chunk}, {npol}, {K}], {nuniq} beams, Gc {Gc}]: "
@@ -929,7 +934,7 @@ def check_fringe(device, seed: int) -> dict:
         stats[name] = {"planes": [2, nfreq, chunk, npol, K], "elements_differing": differ,
                        "ms": min(kern1, kern2), "plain_ms": min(plain1, plain2), "bound_ms": bound,
                        "bound_by": "bytes", "library_ms": None}
-        del state
+        del state, args, kwargs, kernel, plain
         torch.cuda.empty_cache()
     return stats
 
@@ -959,7 +964,7 @@ def check_belt(device, seed: int) -> dict:
     nbelt, nphi, M1 = len(s._belt_rings), s._belt_nphi, s.mmax + 1
     belt = X[..., : s._belt_len].reshape(*BELT_CHUNK, nbelt, nphi)
     rows = belt.numel() // nphi
-    Wr, Wi = plan["W"]
+    Wr, Wi = s._belt_dft(torch.float32, device)
 
     def dense():
         return torch.complex(belt @ Wr, belt @ Wi)
@@ -1045,9 +1050,9 @@ def check_belt(device, seed: int) -> dict:
 def fringe_launches(label: str, launches: int, bt) -> int:
     """``launches`` of the fringe kernel in one fused round trip through
     ``bt``'s float32 card state, held to one a baseline chunk."""
-    from draco_tpu_torch.telescope import roundtrip
+    from draco_tpu_torch.ops import cuda_kernels
 
-    states = [fn.state for fn in bt._fused_fns.values() if roundtrip._fringe_on_card(fn.state)]
+    states = [fn.state for fn in bt._fused_fns.values() if cuda_kernels.fringe_kernel_takes(fn.state["u_re"])]
     if len(states) != 1:
         raise RuntimeError(f"{label}: {len(states)} float32 card states of the round trip, want 1")
     nchunk = states[0]["dims"][3]
@@ -4224,7 +4229,7 @@ def run_flagging(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = RING_NFRE
 
     import torch
 
-    from draco_tpu_torch import native
+    from draco_tpu_torch import _build, native
     from draco_tpu_torch.analysis.beam import phased_beam
     from draco_tpu_torch.analysis.fringestop import mix_in_place
     from draco_tpu_torch.core import containers
@@ -4246,7 +4251,7 @@ def run_flagging(device, ncyl: int = 4, nfeed: int = 256, nfreq: int = RING_NFRE
     GB = 1e9
     native.load()
     log(f"flagging path: host {os.cpu_count()} CPUs, native medians {native.omp_threads()} OpenMP threads, "
-        f"library build {native.build_seconds:.2f} s (0: built before this process); {ncyl} x {nfeed} dual-pol "
+        f"library build {_build.build_seconds.get(_build.HOST, 0.0):.2f} s (0: built before this process); {ncyl} x {nfeed} dual-pol "
         f"feeds, {nstack} stacks, {nfreq} channels; 19a: {ntime} samples of a day, stream "
         f"{12 * nfreq * nstack * ntime / GB:.2f} GB, RFITransientVisMask on channels {transient[0]}-{transient[1] - 1}; "
         f"19b: the hybrid stream [4, {nfreq}, ew, {npix}, {nra}]")

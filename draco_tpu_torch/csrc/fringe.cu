@@ -15,7 +15,7 @@
 // short Taylor polynomials).  On a uniform frequency grid the coefficient
 // rows hold the base phase (group 0) and the per-step phase (group 1), and
 // the base phasor is rotated by the step phasor once a frequency, as
-// draco_tpu_torch/telescope/roundtrip.py::_fringe_trig does; otherwise group
+// draco_tpu_torch/ops/cuda_kernels.py::_fringe_trig does; otherwise group
 // f holds frequency f's own phase.  Identical dishes share one real beam
 // product (uniform_real); otherwise uidx[i] selects row i's complex product.
 // With the geometry dedup of the full-sphere form, row i reads coefficient
@@ -25,7 +25,7 @@
 // Replaces no TPU kernel: the JAX package leaves this generator to XLA,
 // which fuses it (draco_tpu/telescope/roundtrip.py::_fringe_trig and the
 // beam product of its chunk bodies).  The port's plain version,
-// _fringe_trig -> _beam_planes, is ~115 element-wise kernels a chunk, each
+// ops/cuda_kernels.py::fringe_planes_plain, is ~115 element-wise kernels a chunk, each
 // reading and writing a whole [nfreq, chunk, K] plane.
 //
 // The bound.  The kernel reads almost nothing (nine floats a pixel, nine or

@@ -1,17 +1,19 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Each wrapper launches its kernel (built on first use, on the current
-stream) for CUDA tensors and runs the kernel's plain version for CPU
-tensors; it never falls back from the card to the plain version: a CUDA
-input that the kernel does not take raises.  ``launches`` counts the
-kernel launches by name.
+Each wrapper chooses from its inputs between its kernel and the kernel's
+plain version: the kernel for the CUDA inputs it takes, the plain version
+for CPU inputs.  It never falls back from the card to the plain version:
+any other CUDA input raises.  Every kernel launches
+through :func:`_launch`: the operator ``draco_tpu_torch::<name>`` (so that
+``torch.profiler`` links the kernel's device time to the span that
+launched it), on the current stream of its tensors' device; ``launches``
+counts the launches by name.
 
 ``banded_covariance_batched`` replaces the TPU kernel
 ``draco_tpu/ops/pallas_kernels.py::banded_covariance_pallas``: all band
 diagonals of ``R diag(Ni_b) R^T`` for a batch of weight rows.  On a CUDA
-tensor it launches ``csrc/banded_covariance.cu`` (built on first use) on
-the current stream; on a CPU tensor it runs the plain reference
-:func:`draco_tpu_torch.ops.banded.banded_covariance`.
+tensor it launches ``csrc/banded_covariance.cu``; on a CPU tensor it runs
+the plain reference :func:`draco_tpu_torch.ops.banded.banded_covariance`.
 
 ``beamform_sums`` replaces the XLA programs of the JAX package's source
 beamformers (``draco_tpu/ops/interferometry.py``: ``_beamform_sources_jit``,
@@ -31,22 +33,24 @@ to XLA to fuse: the three-float phase of ``ops/tools.py::phase_frac3``,
 ``sincos_turns``, the per-step rotation on a uniform frequency grid and the
 beam product, written once in the layout the chunk's consumer reads (the
 windowed form's (re, im) [nfreq, chunk, npol * K], the full-sphere form's
-stacked [2, nfreq, chunk, npol, K]).  It takes CUDA tensors only and
-launches ``csrc/fringe.cu`` once, bit-equal to the plain chain on the card;
-the round trip decides where the planes come from and keeps float64 and
-CPU states on its plain chain (``roundtrip._fringe_pair``,
-``roundtrip._fringe_stack``).
+stacked [2, nfreq, chunk, npol, K]).  On float32 CUDA tensors it launches
+``csrc/fringe.cu`` once, bit-equal to the plain version on the card; on CPU
+tensors it runs the plain version, :func:`fringe_planes_plain`, which
+float64 reference states call by name on either device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
 from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from . import banded
+from .tools import phase_frac3, sincos_turns
 
 __all__ = [
     "banded_covariance_batched",
@@ -54,6 +58,8 @@ __all__ = [
     "beamform_sums",
     "legendre_block",
     "fringe_planes",
+    "fringe_planes_plain",
+    "fringe_kernel_takes",
     "tile_rows",
     "tile_windows",
     "launches",
@@ -70,21 +76,102 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _banded_covariance_lib() -> ctypes.CDLL:
-    lib = _build.load("banded_covariance")
-    if lib.banded_covariance_f32.argtypes is None:
-        for fn in (lib.banded_covariance_f32, lib.banded_covariance_f64):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.banded_covariance_tile_rows.argtypes = []
-        lib.banded_covariance_tile_rows.restype = ctypes.c_int
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# kernel (csrc/<kernel>.cu) -> its C entry points' argtypes: a launch entry
+# takes a tensor's pointer (or NULL) for each c_void_p, an integer for each
+# other argument, and the stream last; every entry returns an int (a launch
+# its CUDA error)
+_ENTRIES = {
+    "banded_covariance": {
+        "banded_covariance_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+        "banded_covariance_f64": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+        "banded_covariance_tile_rows": [],
+    },
+    "beamform": {"beamform_rows_f32": [_PTR] * 14 + [_INT] * 7 + [_PTR]},
+    "legendre": {
+        "legendre_f64": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+        "legendre_f32": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+        "legendre_2f": [_PTR] * 8 + [_INT] * 5 + [_PTR],
+    },
+    "fringe": {"fringe_planes_f32": [_PTR] * 3 + [_I64] + [_PTR] * 7 + [_I64] + [_PTR] * 2 + [_INT] * 8 + [_PTR]},
+}
+
+
+@functools.cache
+def _library(kernel: str) -> ctypes.CDLL:
+    """``csrc/<kernel>.cu``'s library (built on first use), its entry points bound."""
+    lib = _build.load(kernel)
+    for entry, argtypes in _ENTRIES[kernel].items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib
+
+
+@functools.cache
+def _entry_point(kernel: str, entry: str):
+    """(bound entry point, which of its arguments before the stream are
+    pointers, how many are)."""
+    is_ptr = tuple(k is _PTR for k in _ENTRIES[kernel][entry][:-1])
+    return getattr(_library(kernel), entry), is_ptr, sum(is_ptr)
+
+
+def _run(kernel: str, entry: str, inputs, outputs, ints) -> None:
+    """The CUDA implementation of the operator ``draco_tpu_torch::<kernel>``:
+    one call of the C entry point ``entry``, its pointers from ``inputs``
+    then ``outputs`` and its integers from ``ints`` in the order of its
+    argtypes, on the current stream of the outputs' device."""
+    fn, is_ptr, nptr = _entry_point(kernel, entry)
+    tensors = (*inputs, *outputs)
+    if nptr != len(tensors) or len(is_ptr) - nptr != len(ints):
+        raise TypeError(f"{entry} takes {nptr} tensors and {len(is_ptr) - nptr} integers, "
+                        f"got {len(tensors)} and {len(ints)}")
+    ptrs, nums = iter(tensors), iter(ints)
+    args = [(None if (t := next(ptrs)) is None else t.data_ptr()) if p else next(nums) for p in is_ptr]
+    dev = next(t.device for t in outputs if t is not None)
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+
+
+_ops_lock = threading.Lock()
+# the operator library that holds the launches, made at the first launch
+_op_library: torch.library.Library | None = None
+# kernel -> its operator draco_tpu_torch::<kernel>
+_ops: dict = {}
+
+
+def _operators() -> dict:
+    """Kernel -> its operator ``draco_tpu_torch::<kernel>``, registered for
+    CUDA at the first call: ``(entry, inputs, outputs, ints)``, of which
+    only ``outputs`` are marked as written."""
+    global _op_library
+    with _ops_lock:
+        if _op_library is None:
+            lib = torch.library.Library("draco_tpu_torch", "FRAGMENT")
+            for name in _ENTRIES:
+                lib.define(f"{name}(str entry, Tensor?[] inputs, Tensor(a!)?[] outputs, int[] ints) -> ()")
+                lib.impl(name, functools.partial(_run, name), "CUDA")
+                _ops[name] = getattr(torch.ops.draco_tpu_torch, name).default
+            _op_library = lib
+    return _ops
+
+
+def _launch(kernel: str, entry: str, inputs, outputs, ints) -> None:
+    """Launch ``entry`` of ``csrc/<kernel>.cu`` through its operator and
+    count it.  Under ``torch.profiler`` an operator's host range is what a
+    kernel launched inside it is linked to, so a trace gives the kernel's
+    device time to the span that launched it; a launch from plain Python
+    reaches the trace unlinked.  The wrapper has checked the tensors: one
+    CUDA device, the kernel's types, contiguous."""
+    _operators()[kernel](entry, list(inputs), list(outputs), list(ints))
+    launches[kernel] += 1
 
 
 def tile_rows() -> int:
     """Rows of R per block of the CUDA kernel (its ``TJ``), which sets the
     tiles of :func:`tile_windows`.  Builds the kernel on first use."""
-    return _banded_covariance_lib().banded_covariance_tile_rows()
+    return _library("banded_covariance").banded_covariance_tile_rows()
 
 
 def tile_windows(R: torch.Tensor, tile_rows: int) -> torch.Tensor:
@@ -136,18 +223,12 @@ def banded_covariance_batched(R: torch.Tensor, Ni: torch.Tensor, bw: int) -> tor
         raise TypeError(f"the CUDA kernel takes float32 or float64 for both, got {R.dtype} and {Ni.dtype}")
     if not (R.is_contiguous() and Ni.is_contiguous()):
         raise ValueError("the CUDA kernel takes contiguous R and Ni")
-    lib = _banded_covariance_lib()
-    fn = lib.banded_covariance_f32 if R.dtype == torch.float32 else lib.banded_covariance_f64
+    entry = "banded_covariance_f32" if R.dtype == torch.float32 else "banded_covariance_f64"
     m, n = R.shape
     B = Ni.shape[0]
     out = torch.empty(B, bw + 1, m, dtype=R.dtype, device=R.device)
-    with torch.cuda.device(R.device):
-        windows = tile_windows(R, tile_rows())
-        stream = torch.cuda.current_stream(R.device).cuda_stream
-        err = fn(R.data_ptr(), Ni.data_ptr(), windows.data_ptr(), out.data_ptr(), m, n, B, bw, stream)
-    if err != 0:
-        raise RuntimeError(f"banded_covariance kernel launch failed: CUDA error {err}")
-    launches["banded_covariance"] += 1
+    windows = tile_windows(R, tile_rows())
+    _launch("banded_covariance", entry, (R, Ni, windows), (out,), (m, n, B, bw))
     return out
 
 
@@ -198,14 +279,6 @@ def beamform_plan(ra_idx: torch.Tensor, nra: int, max_pairs: int = BEAMFORM_ITEM
     return BeamformPlan(pairs.to(i32), item_row.to(i32), item_start.to(i32), item_count.to(i32))
 
 
-def _beamform_lib() -> ctypes.CDLL:
-    lib = _build.load("beamform")
-    if lib.beamform_rows_f32.argtypes is None:
-        lib.beamform_rows_f32.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        lib.beamform_rows_f32.restype = ctypes.c_int
-    return lib
-
-
 def beamform_sums(vis, sw, vw, ra_idx, a, b, u, v, natural: bool):
     """The beamforming contraction of one polarisation's stacks.
 
@@ -249,32 +322,15 @@ def beamform_sums(vis, sw, vw, ra_idx, a, b, u, v, natural: bool):
         )
     if not all(x.is_contiguous() for x in inputs):
         raise ValueError("the CUDA beamform kernel takes contiguous inputs")
-    lib = _beamform_lib()
     F = torch.empty(nfreq, S, nha, dtype=torch.float32, device=vis.device)
     W = torch.empty_like(F)
     Q = torch.empty_like(F) if natural else None
-    with torch.cuda.device(vis.device):
-        plan = beamform_plan(ra_idx, nra)
-        stream = torch.cuda.current_stream(vis.device).cuda_stream
-        err = lib.beamform_rows_f32(
-            vis.data_ptr(), sw.data_ptr(), vw.data_ptr() if natural else None, *(x.data_ptr() for x in plan),
-            a.data_ptr(), b.data_ptr(), u.data_ptr(), v.data_ptr(), F.data_ptr(), W.data_ptr(),
-            Q.data_ptr() if natural else None, nfreq, nra, nprod, S * nha, len(plan.item_row), BEAMFORM_ITEM_PAIRS,
-            int(natural), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"beamform kernel launch failed: CUDA error {err}")
-    launches["beamform"] += 1
+    plan = beamform_plan(ra_idx, nra)
+    _launch(
+        "beamform", "beamform_rows_f32", (vis, sw, vw if natural else None, *plan, a, b, u, v), (F, W, Q),
+        (nfreq, nra, nprod, S * nha, len(plan.item_row), BEAMFORM_ITEM_PAIRS, int(natural)),
+    )
     return F, W, Q
-
-
-def _legendre_lib() -> ctypes.CDLL:
-    lib = _build.load("legendre")
-    if lib.legendre_f64.argtypes is None:
-        for fn in (lib.legendre_f64, lib.legendre_f32, lib.legendre_2f):
-            fn.argtypes = [ctypes.c_void_p] * (8 if fn is lib.legendre_2f else 7) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
 
 
 # the working type of each mode of legendre_block
@@ -325,79 +381,16 @@ def legendre_block(x, lnsin, cm_c, a_tab, b_tab, mv, mode: str, l0: int = 0):
             f"the CUDA legendre kernel's mode {mode!r} takes {wdt} and an integer mv, got "
             + ", ".join(str(t.dtype) for t in (*inputs, mv))
         )
-    inputs = [t.contiguous() for t in inputs]
-    mv32 = mv.to(torch.int32).contiguous()
-    lib = _legendre_lib()
+    operands = [t.contiguous() for t in inputs] + [mv.to(torch.int32).contiguous()]
     rs = -(-R // LEGENDRE_ROW_ALIGN) * LEGENDRE_ROW_ALIGN
     shape = (L1 - l0, C, rs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = [t.data_ptr() for t in inputs] + [mv32.data_ptr()]
-        if mode == "2f":
-            hi = torch.empty(shape, dtype=torch.float32, device=dev)
-            lo = torch.empty(shape, dtype=torch.bfloat16, device=dev)
-            err = lib.legendre_2f(*ptrs, hi.data_ptr(), lo.data_ptr(), L1, l0, C, R, rs, stream)
-            result = (hi[..., :R], lo[..., :R])
-        else:
-            result = torch.empty(shape, dtype=wdt, device=dev)
-            fn = lib.legendre_f64 if mode == "f64" else lib.legendre_f32
-            err = fn(*ptrs, result.data_ptr(), L1, l0, C, R, rs, stream)
-            result = result[..., :R]
-    if err != 0:
-        raise RuntimeError(f"legendre kernel launch failed: CUDA error {err}")
-    launches["legendre"] += 1
-    return result
-
-
-def _fringe_lib() -> ctypes.CDLL:
-    lib = _build.load("fringe")
-    if lib.fringe_planes_f32.argtypes is None:
-        lib.fringe_planes_f32.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        )
-        lib.fringe_planes_f32.restype = ctypes.c_int
-    return lib
-
-
-# the operator library that holds the fringe launch, made at its first use
-_fringe_ops: torch.library.Library | None = None
-
-
-def _fringe_launch(ba, bb, bc, va, vb, vc, u_re, u_im, uidx, lidx, row0, uniform_freq, uniform_real, out):
-    """One launch of ``csrc/fringe.cu`` into ``out`` [2, nfreq, C, npol, K]
-    (re, then im), on the current stream of ``out``'s device."""
-    nfreq, C, npol, K = out.shape[1:]
-    lib = _fringe_lib()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = lib.fringe_planes_f32(
-            ba.data_ptr(), bb.data_ptr(), bc.data_ptr(), ba.shape[1], va.data_ptr(), vb.data_ptr(), vc.data_ptr(),
-            u_re.data_ptr(), u_im.data_ptr(), uidx.data_ptr(), None if lidx is None else lidx.data_ptr(), row0,
-            out[0].data_ptr(), out[1].data_ptr(), nfreq, C, npol, K, u_re.shape[1], int(uniform_freq),
-            int(uniform_real), _vector_width(K, (u_re, u_im, out[0], out[1])), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fringe kernel launch failed: CUDA error {err}")
-
-
-def _fringe_op():
-    """The launch as the operator ``draco_tpu_torch::fringe_planes``
-    (registered for CUDA at first use).  Under ``torch.profiler`` an
-    operator's host range is what a kernel launched inside it is linked to,
-    so a trace gives the kernel's device time to the span that launched it;
-    a launch from plain Python reaches the trace unlinked."""
-    global _fringe_ops
-    if _fringe_ops is None:
-        ops = torch.library.Library("draco_tpu_torch", "FRAGMENT")
-        ops.define(
-            "fringe_planes(Tensor ba, Tensor bb, Tensor bc, Tensor va, Tensor vb, Tensor vc, Tensor u_re, "
-            "Tensor u_im, Tensor uidx, Tensor? lidx, int row0, bool uniform_freq, bool uniform_real, "
-            "Tensor(a!) out) -> ()"
-        )
-        ops.impl("fringe_planes", _fringe_launch, "CUDA")
-        _fringe_ops = ops
-    return torch.ops.draco_tpu_torch.fringe_planes
+    if mode == "2f":
+        outs = (torch.empty(shape, dtype=torch.float32, device=dev), torch.empty(shape, dtype=torch.bfloat16, device=dev))
+    else:
+        outs = (torch.empty(shape, dtype=wdt, device=dev),)
+    _launch("legendre", f"legendre_{mode}", operands, outs, (L1, l0, C, R, rs))
+    result = tuple(t[..., :R] for t in outs)
+    return result if mode == "2f" else result[0]
 
 
 def _vector_width(K: int, tensors) -> int:
@@ -410,25 +403,32 @@ def _vector_width(K: int, tensors) -> int:
     return 1
 
 
+def fringe_kernel_takes(t: torch.Tensor) -> bool:
+    """Whether the fringe kernel takes an operand like ``t``: float32 on the card."""
+    return t.is_cuda and t.dtype == torch.float32
+
+
 def fringe_planes(ba, bb, bc, va, vb, vc, u_re, u_im, uidx, row0: int, uniform_freq: bool, uniform_real: bool,
-                  lidx=None, stacked: bool = False):
+                  lidx=None, geom_rows: int = 0, stacked: bool = False):
     """Fringe x beam planes of the C = ``len(uidx)`` rows of one baseline chunk.
 
     Row i's phase is ``frac(b . n)`` of coefficient row ``row0 + lidx[i]``
     (``row0 + i`` without ``lidx``) of ba/bb/bc [G, R, 3] against the pixel
-    vectors va/vb/vc [K, 3], both as three-float operands; G is 2 (base and
-    per-step phase) when ``uniform_freq``, else one group a frequency.  Its
+    vectors va/vb/vc [K, 3], both as three-float operands (a float64 operand
+    and two zeros for float64 states); G is 2 (base and per-step phase) when
+    ``uniform_freq``, else one group a frequency.  ``lidx`` indexes the
+    ``geom_rows`` rows from ``row0`` (the full-sphere form's geometry dedup:
+    the plain version evaluates the trig of those rows, then gathers).  Its
     beam is ``u_re[:, 0]`` when ``uniform_real``, else ``u_re + i u_im`` at
     ``[:, uidx[i]]``, of [nfreq, U, npol, K].  Returns (re, im) [nfreq, C,
     npol * K], or with ``stacked`` the tensor [2, nfreq, C, npol, K] that
     holds them.
 
-    One launch of ``csrc/fringe.cu`` through the operator
-    ``draco_tpu_torch::fringe_planes``, into one tensor that holds both
-    planes.  It takes CUDA tensors on one device, float32 operands and int64
-    indices, and trusts the indices to lie in range (reading none, so the
-    call never waits for the device); the plain chain it is held to is the
-    round trip's own (``roundtrip._fringe_pair``, ``roundtrip._fringe_stack``).
+    On float32 CUDA tensors (int64 indices, contiguous, one device) one
+    launch of ``csrc/fringe.cu`` into one tensor that holds both planes; it
+    trusts the indices to lie in range (reading none, so the call never
+    waits for the device).  On CPU tensors :func:`fringe_planes_plain`.
+    Any other CUDA input raises, float64 ones included.
     """
     nfreq, _, npol, K = u_re.shape
     (C,) = uidx.shape
@@ -446,12 +446,18 @@ def fringe_planes(ba, bb, bc, va, vb, vc, u_re, u_im, uidx, row0: int, uniform_f
             f"lidx [C]; got u_re {tuple(u_re.shape)}, u_im {tuple(u_im.shape)}, G {G}, "
             f"lidx {None if lidx is None else tuple(lidx.shape)}"
         )
-    if row0 < 0 or (lidx is None and row0 + C > R):
-        raise IndexError(f"rows [{row0}, {row0 + C}) lie outside the {R} coefficient rows")
+    if lidx is not None and geom_rows < 1:
+        raise ValueError(f"lidx indexes geom_rows rows from row0, got geom_rows {geom_rows}")
+    nrows = C if lidx is None else geom_rows
+    if row0 < 0 or row0 + nrows > R:
+        raise IndexError(f"rows [{row0}, {row0 + nrows}) lie outside the {R} coefficient rows")
+    args = (ba, bb, bc, va, vb, vc, u_re, u_im, uidx, row0, uniform_freq, uniform_real, lidx, geom_rows, stacked)
+    if all(t.device.type == "cpu" for t in floats + indices):
+        return fringe_planes_plain(*args)
     dev = u_re.device
     if not all(t.is_cuda and t.device == dev for t in floats + indices):
         raise ValueError("the fringe inputs must share one CUDA device")
-    if any(t.dtype != torch.float32 for t in floats) or any(t.dtype != torch.int64 for t in indices):
+    if not all(map(fringe_kernel_takes, floats)) or any(t.dtype != torch.int64 for t in indices):
         raise TypeError(
             "the CUDA fringe kernel takes float32 operands and int64 indices, got "
             + ", ".join(str(t.dtype) for t in floats + indices)
@@ -459,8 +465,66 @@ def fringe_planes(ba, bb, bc, va, vb, vc, u_re, u_im, uidx, row0: int, uniform_f
     if not all(t.is_contiguous() for t in floats + indices):
         raise ValueError("the CUDA fringe kernel takes contiguous inputs")
     X = torch.empty(2, nfreq, C, npol, K, dtype=torch.float32, device=dev)
-    _fringe_op()(ba, bb, bc, va, vb, vc, u_re, u_im, uidx, lidx, row0, uniform_freq, uniform_real, X)
-    launches["fringe"] += 1
+    _launch(
+        "fringe", "fringe_planes_f32", (ba, bb, bc, va, vb, vc, u_re, u_im, uidx, lidx), (X[0], X[1]),
+        (R, row0, nfreq, C, npol, K, u_re.shape[1], int(uniform_freq), int(uniform_real),
+         _vector_width(K, (u_re, u_im, X[0], X[1]))),
+    )
     if stacked:
         return X
     return X[0].view(nfreq, C, npol * K), X[1].view(nfreq, C, npol * K)
+
+
+def _fringe_trig(ba, bb, bc, va, vb, vc, c0, chunk, nfreq, uniform):
+    """(cos, sin) fringe planes [nfreq, chunk, K] of rows ``[c0, c0 + chunk)``.
+
+    Uniform grids rotate the base phasor by the per-step phasor once per
+    frequency.
+    """
+    Ba = ba[:, c0 : c0 + chunk]
+    Bb = bb[:, c0 : c0 + chunk]
+    Bc = bc[:, c0 : c0 + chunk]
+    if not uniform:
+        return sincos_turns(phase_frac3(Ba, Bb, Bc, va, vb, vc))
+    c_f, s_f = sincos_turns(phase_frac3(Ba[0], Bb[0], Bc[0], va, vb, vc))
+    if nfreq == 1:
+        return c_f[None], s_f[None]
+    cd, sd = sincos_turns(phase_frac3(Ba[1], Bb[1], Bc[1], va, vb, vc))
+    cs, ss = [c_f], [s_f]
+    for _ in range(nfreq - 1):
+        c_f, s_f = cs[-1] * cd - ss[-1] * sd, cs[-1] * sd + ss[-1] * cd
+        cs.append(c_f)
+        ss.append(s_f)
+    return torch.stack(cs), torch.stack(ss)
+
+
+def fringe_planes_plain(ba, bb, bc, va, vb, vc, u_re, u_im, uidx, row0: int, uniform_freq: bool, uniform_real: bool,
+                        lidx=None, geom_rows: int = 0, stacked: bool = False):
+    """The plain version of :func:`fringe_planes` (the same arguments,
+    which it does not check), in the operands' type on their device: the
+    fringe trig of the chunk's rows (or of its ``geom_rows`` geometry rows,
+    then a row gather from geometries to products), then the beam product.
+    On float32 CUDA operands the kernel's every bit.  Float64 reference
+    states call it by name on either device, as the reference and not as a
+    fallback."""
+    nfreq, _, npol, K = u_re.shape
+    (C,) = uidx.shape
+    if lidx is None:
+        cph, sph = _fringe_trig(ba, bb, bc, va, vb, vc, row0, C, nfreq, uniform_freq)  # [f, C, K]
+    else:
+        cg, sg = _fringe_trig(ba, bb, bc, va, vb, vc, row0, geom_rows, nfreq, uniform_freq)  # [f, Gc, K]
+        cph, sph = cg.index_select(1, lidx), sg.index_select(1, lidx)
+        del cg, sg
+    if uniform_real:
+        b = u_re[:, 0][:, None]  # [f, 1, p, K]
+        re, im = b * cph[:, :, None], b * sph[:, :, None]
+    else:
+        br = u_re.index_select(1, uidx)  # [f, C, p, K]
+        bi = u_im.index_select(1, uidx)
+        cp = cph[:, :, None]
+        sp = sph[:, :, None]
+        re, im = br * cp - bi * sp, br * sp + bi * cp
+    del cph, sph
+    if stacked:
+        return torch.stack([re, im])
+    return re.reshape(nfreq, C, npol * K), im.reshape(nfreq, C, npol * K)

@@ -331,25 +331,14 @@ class SHT:
         c, sn = self._phase_turns(j[:, None] * m_d[None, :], den, rdt)
         return c, sn if conj else -sn
 
-    def _cap_dft(self, group, rdt, device):
-        """(re, im) of P[r, j, m] = mask * exp(-i m phi_rj) for one cap row group."""
-        rows_arr, w = group
-        two_ps = torch.as_tensor(self._cap_2ps[rows_arr][:, :w], device=device)
-        den = torch.as_tensor(2 * self._cap_n[rows_arr], device=device)[:, None, None]
-        mask = torch.as_tensor(self._cap_mask[rows_arr][:, :w], dtype=rdt, device=device)[..., None]
-        m_d = torch.as_tensor(self._m, device=device)
-        c, sn = self._phase_turns(two_ps[:, :, None] * m_d[None, None, :], den, rdt)
-        return c * mask, -sn * mask
-
     def _cap_dft_chunks(self, group, rdt, device, row_scale=None):
         """(m0, m1, Pr, Pi) for each chunk of m of one cap row group: the
         factors P[r, j, m] = mask * row_scale[r] * exp(-i m phi_rj), m0 <= m < m1.
 
         Every phase of row r is a multiple of 2 pi / (2 n_r), so its 2 n_r
-        values are tabulated once (by :meth:`_phase_turns`, as :meth:`_cap_dft`
-        makes them, times row_scale[r]) and a chunk gathers them by the exact
-        integer phase; padding gathers a zero.  The same bits as the whole
-        plan, without the trig of every (r, j, m).
+        values are tabulated once (by :meth:`_phase_turns`, times
+        row_scale[r]) and a chunk gathers them by the exact integer phase;
+        padding gathers a zero.  No trig of every (r, j, m).
         """
         rows_arr, w = group
         nrow = len(rows_arr)
@@ -363,9 +352,10 @@ class SHT:
         if row_scale is not None:
             tc, ts = tc * row_scale[:, None], ts * row_scale[:, None]
         zero = torch.zeros(1, dtype=rdt, device=device)
-        tc, ts = torch.cat([tc.reshape(-1), zero]), torch.cat([-ts.reshape(-1), zero])
+        tc, ts = torch.cat([tc.reshape(-1), zero]), -torch.cat([ts.reshape(-1), zero])
         mask = torch.as_tensor(self._cap_mask[rows_arr][:, :w] > 0, device=device)
-        # where each pixel's row starts in the flat tables; padding reads the zero at the end
+        # where each pixel's row starts in the flat tables; padding reads the zeros at the end,
+        # (+0, -0) as mask 0 times the factor of phase 0 makes them
         base = torch.where(mask, torch.arange(nrow, dtype=idt, device=device)[:, None] * (2 * w), nrow * 2 * w)[..., None]
         for m_vals in self._m_chunks():
             idx = (two_ps * torch.as_tensor(m_vals, dtype=idt, device=device)) % den[..., None] + base
@@ -379,22 +369,18 @@ class SHT:
         return c * w_belt, s * w_belt
 
     def precompute_ring_plan(self, rdt=torch.float32, device=None):
-        """Ring-DFT factors: {"W": (re, im) [nphi, M+1], "P": [(re, im) [rows, w, M+1]]}.
-
-        The cap factors carry the quadrature weight.  The analysis contracts
-        only the cap factors (the belt takes the real FFT); ``W``, the belt's,
-        stays in the plan's layout, which ``roundtrip.state_from_numpy`` fills
-        from the JAX package's constants.
-        """
+        """Ring-DFT factors of the cap groups: {"P": [(re, im) [rows, w, M+1]]},
+        with the rows' quadrature weight (:meth:`_cap_dft_chunks` over every
+        chunk of m).  The belt takes the real FFT in the analysis and builds
+        its factors (:meth:`_belt_dft`) in the synthesis."""
         device = resolve(device)
         ring_ids = np.asarray(self._cap_rings)
         P = []
         for grp in self._cap_wgroups:
-            rows_arr, _ = grp
-            w_rows = torch.as_tensor(self._w[ring_ids[rows_arr]], dtype=rdt, device=device)[:, None, None]
-            pr, pi = self._cap_dft(grp, rdt, device)
-            P.append((pr * w_rows, pi * w_rows))
-        return {"W": self._belt_dft(rdt, device), "P": P}
+            w_rows = torch.as_tensor(self._w[ring_ids[grp[0]]], dtype=rdt, device=device)
+            parts = [(pr, pi) for _, _, pr, pi in self._cap_dft_chunks(grp, rdt, device, w_rows)]
+            P.append(tuple(torch.cat(p, dim=-1) for p in zip(*parts)))
+        return {"P": P}
 
     # ------------------------------------------------------------------
     # Legendre tables
@@ -459,7 +445,8 @@ class SHT:
     def table_bytes(self, rdt=torch.float32) -> int:
         """Device bytes of :meth:`tables` for ``rdt``: the Legendre tensor
         (two-float, 6 bytes a value, for float32; 8 for float64) and the
-        ring plan (complex factors of every belt column and cap pixel)."""
+        complex DFT factors of every cap pixel (the ring plan) and belt
+        column (which the synthesis builds)."""
         esize = 4 if rdt == torch.float32 else 8
         nlam = (self.lmax + 1) * (self.mmax + 1) * self.info.nring
         npix_plan = self._belt_nphi + sum(len(rows_arr) * w for rows_arr, w in self._cap_wgroups)

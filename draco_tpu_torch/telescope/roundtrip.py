@@ -40,7 +40,7 @@ from ..core.task import ContainerTask
 from ..device import as_tensor, resolve
 from ..ops import cuda_kernels, healpix
 from ..ops.sht import SHT
-from ..ops.tools import phase_frac3, sincos_turns, threefloat_split
+from ..ops.tools import threefloat_split
 from ..parallel import mesh as pmesh
 from ..util.trace import span
 
@@ -152,29 +152,6 @@ def _split3(a64: np.ndarray, rdt, device):
         z = torch.zeros_like(a)
         return a, z, z.clone()
     return tuple(torch.as_tensor(p, device=device) for p in threefloat_split(a64))
-
-
-def _fringe_trig(ba, bb, bc, va, vb, vc, c0, chunk, nfreq, uniform):
-    """(cos, sin) fringe planes [nfreq, chunk, K] of rows ``[c0, c0 + chunk)``.
-
-    Uniform grids rotate the base phasor by the per-step phasor once per
-    frequency.
-    """
-    Ba = ba[:, c0 : c0 + chunk]
-    Bb = bb[:, c0 : c0 + chunk]
-    Bc = bc[:, c0 : c0 + chunk]
-    if not uniform:
-        return sincos_turns(phase_frac3(Ba, Bb, Bc, va, vb, vc))
-    c_f, s_f = sincos_turns(phase_frac3(Ba[0], Bb[0], Bc[0], va, vb, vc))
-    if nfreq == 1:
-        return c_f[None], s_f[None]
-    cd, sd = sincos_turns(phase_frac3(Ba[1], Bb[1], Bc[1], va, vb, vc))
-    cs, ss = [c_f], [s_f]
-    for _ in range(nfreq - 1):
-        c_f, s_f = cs[-1] * cd - ss[-1] * sd, cs[-1] * sd + ss[-1] * cd
-        cs.append(c_f)
-        ss.append(s_f)
-    return torch.stack(cs), torch.stack(ss)
 
 
 def _beam_prep(bt, nfreq: int, npad: int, nbase: int, gather, order=None):
@@ -434,10 +411,7 @@ def state_from_numpy(consts: dict, device=None) -> dict:
     state = {
         "lam": sections(consts["lam"], t),
         "lam_lo": None if consts["lam_lo"] is None else sections(consts["lam_lo"], bf16),
-        "plan": {
-            "W": reim(consts["plan"]["W"]),
-            "P": [reim(p) for p in consts["plan"]["P"]],
-        },
+        "plan": {"P": [reim(p) for p in consts["plan"]["P"]]},
         "va": t(consts["va"]),
         "vb": t(consts["vb"]),
         "vc": t(consts["vc"]),
@@ -479,97 +453,31 @@ def state_from_numpy(consts: dict, device=None) -> dict:
     return state
 
 
-def _beam_planes(state, cph, sph, c: int):
-    """(re, im) fringe x beam planes [nfreq, chunk, npol, K] of chunk ``c``
-    from its fringe (cos, sin) planes [nfreq, chunk, K]."""
-    chunk = state["dims"][2]
-    if state["uniform_real"]:
-        b = state["u_re"][:, 0][:, None]  # [f, 1, p, K]
-        return b * cph[:, :, None], b * sph[:, :, None]
-    idx = state["uidx"][c * chunk : (c + 1) * chunk]
-    br = state["u_re"].index_select(1, idx)  # [f, C, p, K]
-    bi = state["u_im"].index_select(1, idx)
-    cp = cph[:, :, None]
-    sp = sph[:, :, None]
-    return br * cp - bi * sp, br * sp + bi * cp
-
-
-def _fringe_on_card(state) -> bool:
-    """Whether the state's fringe planes come from the CUDA kernel: float32
-    on a card (float64 reference states and CPU states run the plain chain)."""
-    return state["va"].is_cuda and state["va"].dtype == torch.float32
-
-
-def _fringe_kernel_planes(state, c: int, stacked: bool):
-    """Chunk ``c``'s planes from one launch of
-    :func:`~draco_tpu_torch.ops.cuda_kernels.fringe_planes`: the windowed
-    form's (re, im) [nfreq, chunk, npol*Kf], or the full-sphere form's
-    stacked [2, nfreq, chunk, npol, K]."""
-    chunk = state["dims"][2]
-    rows = slice(c * chunk, (c + 1) * chunk)
-    if state["form"] == "fullsphere" and state["dims"][6]:
-        coeff, row0, lidx = (state["ga"], state["gb"], state["gc"]), state["g0s"][c], state["lidx"][rows]
-    else:
-        coeff, row0, lidx = (state["bla"], state["blb"], state["blc"]), c * chunk, None
-    return cuda_kernels.fringe_planes(
-        *coeff, state["va"], state["vb"], state["vc"], state["u_re"], state["u_im"], state["uidx"][rows], row0,
-        state["uniform_freq"], state["uniform_real"], lidx=lidx, stacked=stacked,
-    )
-
-
-def _fringe_planes(state, c: int):
-    """(re, im) fringe x beam planes [nfreq, chunk, npol*Kf] of chunk ``c``
-    of the windowed form: the kernel on a float32 card state, else
-    :func:`_fringe_pair`."""
-    if _fringe_on_card(state):
-        return _fringe_kernel_planes(state, c, stacked=False)
-    return _fringe_pair(state, c)
-
-
-def _fringe_pair(state, c: int):
-    """(re, im) fringe x beam planes [nfreq, chunk, npol*Kf] of chunk ``c``
-    of the windowed form by the plain chain."""
-    nfreq, npol, chunk, _, _, Kf, _, _ = state["dims"]
-    cph, sph = _fringe_trig(
-        state["bla"], state["blb"], state["blc"], state["va"], state["vb"], state["vc"],
-        c * chunk, chunk, nfreq, state["uniform_freq"],
-    )  # [f, C, Kf]
-    re, im = _beam_planes(state, cph, sph, c)
-    return re.reshape(nfreq, chunk, npol * Kf), im.reshape(nfreq, chunk, npol * Kf)
-
-
-def _fringe_stack(state, c: int):
-    """Chunk ``c``'s stacked [Re, Im] fringe x beam planes [2, f, C, p, K] of
-    the full-sphere form by the plain chain."""
-    nfreq, _, chunk, _, _, _, Gc = state["dims"]
-    va, vb, vc = state["va"], state["vb"], state["vc"]
-    if Gc:
-        # trig of the chunk's distinct geometries only, then a row gather
-        # from geometries to products
-        cg, sg = _fringe_trig(
-            state["ga"], state["gb"], state["gc"], va, vb, vc, state["g0s"][c], Gc, nfreq, state["uniform_freq"],
-        )  # [f, Gc, K]
-        idx = state["lidx"][c * chunk : (c + 1) * chunk]
-        cph, sph = cg.index_select(1, idx), sg.index_select(1, idx)
-        del cg, sg
-    else:
-        cph, sph = _fringe_trig(
-            state["bla"], state["blb"], state["blc"], va, vb, vc, c * chunk, chunk, nfreq, state["uniform_freq"]
-        )  # [f, C, K]
-    re, im = _beam_planes(state, cph, sph, c)
-    del cph, sph
-    return torch.stack([re, im])
+def _fringe_planes_of(state):
+    """The function that makes ``state``'s fringe x beam planes: the
+    kernel's wrapper, or for a float64 reference state its plain version,
+    called by name."""
+    if state["u_re"].dtype == torch.float64:
+        return cuda_kernels.fringe_planes_plain
+    return cuda_kernels.fringe_planes
 
 
 def _fringe_sections(state, c: int):
     """Ring-section coefficients (F_belt, [F_group, ...]) of chunk ``c``'s
     [Re, Im] fringe x beam maps, each [2, f, C, p, rows, M+1]; the belt
     raw (its phase weight is folded in by the caller)."""
+    chunk, Gc = state["dims"][2], state["dims"][6]
+    rows = slice(c * chunk, (c + 1) * chunk)
     with span("fullsphere.fringe_build"):
-        if _fringe_on_card(state):
-            X = _fringe_kernel_planes(state, c, stacked=True)
+        if Gc:
+            # the chunk's distinct geometries, and each product's row among them
+            coeff, row0, lidx = (state["ga"], state["gb"], state["gc"]), state["g0s"][c], state["lidx"][rows]
         else:
-            X = _fringe_stack(state, c)  # [2, f, C, p, K]
+            coeff, row0, lidx = (state["bla"], state["blb"], state["blc"]), c * chunk, None
+        X = _fringe_planes_of(state)(
+            *coeff, *(state[k] for k in ("va", "vb", "vc", "u_re", "u_im")), state["uidx"][rows], row0,
+            state["uniform_freq"], state["uniform_real"], lidx=lidx, geom_rows=Gc, stacked=True,
+        )  # [2, f, C, p, K]
     with span("fullsphere.ring_analysis"):
         return state["sht"]._ring_analysis_parts_padded(X, state["plan"], raw_belt=True)
 
@@ -653,13 +561,17 @@ def _fused_roundtrip_windowed(state: dict, sky: torch.Tensor, weight) -> torch.T
         Yi = torch.zeros(nfreq, K, mmax + 1, dtype=rdt, device=dev)
         bidx = torch.arange(chunk, device=dev)
         mpos_all = (torch.arange(mmax + 1, device=dev) > 0).to(rdt)
+        fringe_operands = [state[k] for k in ("bla", "blb", "blc", "va", "vb", "vc", "u_re", "u_im")]
     for c0, c1, Mb in groups:
         a1b = a1[:, :, :Mb]
         a2b = a2[:, :, :Mb]
         mpos = mpos_all[:Mb]
         for c in range(c0, c1):
             with span("windowed.fringe_build"):
-                re, im = _fringe_planes(state, c)
+                re, im = _fringe_planes_of(state)(
+                    *fringe_operands, state["uidx"][c * chunk : (c + 1) * chunk], c * chunk, state["uniform_freq"],
+                    state["uniform_real"],
+                )
             with span("windowed.project"):
                 G1 = re @ a1b
                 G2 = im @ a2b

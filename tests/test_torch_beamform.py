@@ -541,8 +541,8 @@ def test_build_all_starts_one_compiler_a_source_and_reports_failures(tmp_path, m
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", build)
     script = "import shutil, sys; src = sys.argv[2]; sys.exit(3) if 'bad' in src else shutil.copy(src, sys.argv[1])"
-    monkeypatch.setattr(_build, "_nvcc_cmd", lambda name, out: [sys.executable, "-c", script, str(out),
-                                                                str(csrc / f"{name}.cu")])
+    monkeypatch.setattr(_build, "_command", lambda name, out: [sys.executable, "-c", script, str(out),
+                                                               str(csrc / f"{name}.cu")])
     assert _build.sources() == ["one", "two"]
     assert set(_build.build_all()) == {"one", "two"}
     assert all(_build.library_path(n).read_text() == f"// {n}\n" for n in ("one", "two"))

@@ -149,7 +149,7 @@ def test_prepare_state_defaults_to_the_card(cuda):
     assert state["form"] == "fullsphere"
     for name in ("va", "u_re", "bla", "uidx"):
         assert state[name].device == cuda, name
-    assert state["lam"]["belt"].device == cuda and state["plan"]["W"][0].device == cuda
+    assert state["lam"]["belt"].device == cuda and state["plan"]["P"][0][0].device == cuda
 
 
 @pytest.mark.parametrize("weighted", [False, True])
@@ -891,11 +891,9 @@ FRINGE_SHAPES = {
 
 @pytest.mark.parametrize("shape", list(FRINGE_SHAPES))
 def test_fringe_kernel_is_bit_equal_to_the_plain_chain(cuda, shape):
-    """The kernel's planes against the plain chain's on the card, on the same
-    operands: every bit, in each form's layout, chunk by chunk."""
-    from test_torch_fringe import plain_chain, synthetic_state
-
-    from draco_tpu_torch.telescope import roundtrip
+    """The kernel's planes against the plain version's on the card, on the
+    same operands: every bit, in each form's layout, chunk by chunk."""
+    from test_torch_fringe import chunk_args, plain_chain, synthetic_state
 
     form, nfreq, npol, chunk, K, uniform_freq, uniform_real, geom = FRINGE_SHAPES[shape]
     nchunk = 1 if chunk > 1000 or K > 100000 else 3
@@ -903,7 +901,8 @@ def test_fringe_kernel_is_bit_equal_to_the_plain_chain(cuda, shape):
                             device=cuda)
     for c in range(nchunk):
         before = cuda_kernels.launches["fringe"]
-        got = roundtrip._fringe_kernel_planes(state, c, stacked=form == "fullsphere")
+        args, kwargs = chunk_args(state, c)
+        got = cuda_kernels.fringe_planes(*args, **kwargs)
         torch.cuda.synchronize()
         assert cuda_kernels.launches["fringe"] == before + 1
         want = plain_chain(state, c)
@@ -980,6 +979,26 @@ def test_fringe_kernel_refuses_what_it_does_not_take(cuda):
         cuda_kernels.fringe_planes(*args[:6], args[6].double(), args[7].double(), uidx, 0, True, True)
     with pytest.raises(ValueError):
         cuda_kernels.fringe_planes(*args, uidx.cpu(), 0, True, True)
+
+
+@pytest.mark.parametrize("form", ["windowed", "fullsphere"])
+def test_fringe_planes_raise_on_a_float64_card_state(cuda, form):
+    """The wrapper never falls back from the card to its plain version: a
+    float64 state on the card raises and launches nothing.  Its plain
+    version, called by name as float64 reference states call it, gives the
+    planes in float64 on the card."""
+    from test_torch_fringe import chunk_args, plain_chain, synthetic_state
+
+    state = synthetic_state(form, 2, 2, 4, 2, 40, True, False, form == "fullsphere", device=cuda,
+                            dtype=torch.float64)
+    args, kwargs = chunk_args(state, 1)
+    before = cuda_kernels.launches["fringe"]
+    with pytest.raises(TypeError, match="float32"):
+        cuda_kernels.fringe_planes(*args, **kwargs)
+    assert cuda_kernels.launches["fringe"] == before
+    got = plain_chain(state, 1)
+    for g in got if form == "windowed" else [got]:
+        assert g.is_cuda and g.dtype == torch.float64 and bool(torch.isfinite(g).all())
 
 
 def test_belt_fft_on_a_chime_shaped_slice_is_within_float32_rounding(cuda):

@@ -1,7 +1,8 @@
 """The native host medians: draco_tpu_torch.native against numpy and the JAX package.
 
 The port builds its own copy of ``fast_host.c`` into ``draco_tpu_torch/_build``
-and raises when the build fails; ``method="numpy"`` is its plain version.
+by the builder of the CUDA kernels (``draco_tpu_torch/_build.py``) and raises
+when the build fails; ``method="numpy"`` is its plain version.
 
 Tolerance: bit-equal.  A weighted median picks values of its input, and
 the weights here are integers (0/1 masks and small counts), so every
@@ -16,7 +17,7 @@ import pytest
 from threadpoolctl import threadpool_limits
 
 from draco_tpu.ops import median as jmedian
-from draco_tpu_torch import native
+from draco_tpu_torch import _build, native
 from draco_tpu_torch.ops import median
 
 
@@ -42,24 +43,24 @@ def _data(seed, shape, frac=0.3, counts=False):
 
 def test_the_library_builds_from_the_ports_source_into_build():
     lib = native.load()
-    path = native.library_path()
-    assert path.exists() and path.parent == native.BUILD_DIR and native.BUILD_DIR.name == "_build"
-    assert native.BUILD_DIR.parent.name == "draco_tpu_torch" and native.SOURCE.parent.name == "native"
-    assert native.SOURCE.parent.parent.name == "draco_tpu_torch"
-    key = native.SOURCE.read_bytes() + " ".join((native.COMPILER, *native.CFLAGS)).encode()
-    assert hashlib.sha256(key).hexdigest()[:16] in path.name
-    assert "-fopenmp" in native.CFLAGS and native.omp_threads() >= 1
+    path = _build.library_path(_build.HOST)
+    assert path.exists() and path.parent == _build.BUILD_DIR and _build.BUILD_DIR.name == "_build"
+    assert _build.BUILD_DIR.parent.name == "draco_tpu_torch" and _build.HOST_SOURCE.parent.name == "native"
+    assert _build.HOST_SOURCE.parent.parent.name == "draco_tpu_torch" and _build.HOST_SOURCE.name == "fast_host.c"
+    key = _build.HOST_SOURCE.read_bytes() + " ".join((_build.CC, *_build.CC_FLAGS)).encode()
+    assert hashlib.sha256(key).hexdigest()[:16] in path.name and path.name.startswith("libfast_host-")
+    assert _build.CC == "cc" and "-fopenmp" in _build.CC_FLAGS and native.omp_threads() >= 1
     assert lib is native.load()
 
 
 def test_a_failed_build_raises(monkeypatch, tmp_path):
     """No quiet fall back: a compiler that does not exist makes the load raise."""
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(native, "COMPILER", str(tmp_path / "no-such-cc"))
-    with pytest.raises(RuntimeError, match="building the native library failed"):
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "CC", str(tmp_path / "no-such-cc"))
+    with pytest.raises(RuntimeError, match="building fast_host.c failed"):
         native.load()
-    with pytest.raises(RuntimeError, match="building the native library failed"):
+    with pytest.raises(RuntimeError, match="building fast_host.c failed"):
         median.weighted_median(np.ones(3), np.ones(3))
     assert not list(tmp_path.glob("*.so"))
 

@@ -72,7 +72,7 @@ def test_exact_turns_dft_factors(pair):
     s, js = pair
     plan = s.precompute_ring_plan(torch.float32, "cpu")
     jplan = js.precompute_ring_plan_streamed()
-    Wr, Wi = plan["W"]
+    Wr, Wi = s._belt_dft(torch.float32, "cpu")  # the belt's factors, built where the synthesis reads them
     W = Wr.numpy() + 1j * Wi.numpy()
     assert _rel(W, jplan["W"]) <= TOL32
     j = np.arange(s._belt_nphi, dtype=np.float64)[:, None]
@@ -90,6 +90,35 @@ def test_exact_turns_dft_factors(pair):
     phi0 = s.info.phi0[s._belt_rings]
     exact = np.exp(-1j * phi0[:, None] * np.arange(s.mmax + 1)[None, :])
     assert np.abs(pr.numpy() + 1j * pi.numpy() - exact).max() < 5e-7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("nside", [8, 64])
+def test_cap_factors_are_the_exact_phasors(nside, dtype):
+    """The plan's cap factors P[r, j, m] against mask * w_r * exp(-i m
+    phi_rj) in float64, phi_rj = phi0_r + 2 pi j / n_r of each cap ring's
+    pixels: within float32 rounding (5e-7 of w_r; the phases are reduced in
+    exact integer turns, so the error does not grow with m) or float64
+    rounding (1e-12; the float64 reference's m phi alone rounds at ~1e-13);
+    padding slots exactly zero."""
+    s = sht.SHT(nside)
+    plan = s.precompute_ring_plan(dtype, "cpu")
+    tol = 5e-7 if dtype == torch.float32 else 1e-12
+    m = np.arange(s.mmax + 1)
+    ring_ids = np.asarray(s._cap_rings)
+    assert len(plan) == 1 and len(plan["P"]) == len(s._cap_wgroups)
+    for (Pr, Pi), (rows_arr, wd) in zip(plan["P"], s._cap_wgroups):
+        rings = ring_ids[rows_arr]
+        assert Pr.shape == Pi.shape == (len(rings), wd, s.mmax + 1) and Pr.dtype == Pi.dtype == dtype
+        n = s.info.nphi[rings][:, None]
+        j = np.arange(wd)[None, :]
+        phi = s.info.phi0[rings][:, None] + 2 * np.pi * j / n
+        mask = (j < n)[..., None]
+        w = s.info.weight[rings][:, None, None]
+        exact = mask * w * np.exp(-1j * phi[..., None] * m)
+        P = Pr.numpy() + 1j * Pi.numpy()
+        assert np.abs(P - exact).max() <= tol * w.max()
+        assert not P[~np.broadcast_to(mask, P.shape)].any()
 
 
 def test_map2alm_alm2map_match_jax():
