@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --spine-stages tasks,sht [--repo DIR]   # not the smoke: a timing (spine_stages)
     python3 chip_smoke.py --belt-chunk [--seed N]                 # phase 2c alone
+    python3 chip_smoke.py --windowed-plans [--seed N]             # phase 2d alone
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -23,9 +24,14 @@ Phases, each of which raises on failure (exit code != 0):
    ``csrc/fringe.cu``) against its plain version
    (``ops/cuda_kernels.py::fringe_planes_plain``) on the card, at
    one baseline chunk of each benchmark cell on seeded operands: dish64's
-   windowed (re, im) [8, 2008, 16768] (a uniform grid of 8 channels, one
-   real beam) and chime2048's stacked [2, 1, 64, 4, 802434] (complex beams
-   of 4 products, the geometry dedup).  Checks: one launch a chunk and
+   windowed (re, im) [8, chunk, 16768] (a uniform grid of 8 channels, one
+   real beam; the chunk its automatic plan's, 512 rows) and chime2048's
+   stacked [2, 1, 64, 4, 802434] (complex beams of 4 products, the geometry
+   dedup).  First one weighted dish64.fused8 call (its telescope from
+   ``portbench/configs/dish64.json``) under the automatic baseline-chunk
+   plan gives that chunk: one fringe launch a chunk, the plan's work counted
+   once (``roundtrip.windowed_gemm_work``), the float32 map within 1e-5 of
+   the float64 round trip under the same plan.  Checks: one launch a chunk and
    every element bit-equal; kernel and plain chain timed with CUDA events
    beside the bound, the planes' bytes written once at the HBM rate.  The
    later round-trip phases (3, 4, 6, 7) zero the launch counts just before
@@ -41,6 +47,22 @@ Phases, each of which raises on failure (exit code != 0):
    peak of requested bytes; the FFT route's parts (the contiguous copy, the
    FFT, the gather); the cap groups' GEMMs alone and the whole stage.
    Checks: the FFT route within 1e-6, one FFT, a contiguous output;
+2d. (alone only, ``--windowed-plans``: the whole smoke is near its time
+   limit) the dish's baseline-chunk plans: dish64's weighted round trip (2017
+   baselines, nside 256, the benchmark's 8 channels, and its first channel
+   alone as a frequency tile) at each uniform chunk of ``WINDOWED_PLANS``
+   and at the automatic one.  For each plan: the m-support groups, the
+   planned GEMM work (the ``roundtrip.windowed_gemm_work`` count of one
+   call, which must equal the plan's) and its TFLOP, the device ms a call
+   of ``windowed.fringe_build``, ``windowed.project`` and
+   ``windowed.accumulate`` over three warm calls (the benchmark's reader,
+   ``portbench/trace.py``),
+   project + accumulate's TFLOP/s against the 67 TFLOP/s float32 rate, the
+   call's CUDA-event ms, and the float32 map's error against the float64
+   round trip with every chunk at all mmax + 1 columns (the untruncated
+   plan); for the 8 channels also the float64 map of the plan against that
+   reference.  Checks: the count, float32 within 1e-5 and float64 within
+   1e-12 of the reference;
 3. the dish slice at the bench headline's width: a time stream from
    ``--seed`` (every baseline of the 64-dish array x 8640 samples, with
    zero-weight gaps) -> ``regrid_sidereal`` to 2048 RA bins ->
@@ -418,6 +440,12 @@ TOL_KERNEL = 1e-5
 TOL_KERNEL_F64 = 1e-12
 TOL_MAP = 1e-5
 TOL_BELT = 1e-6  # the belt's real FFT route in float32 against the dense DFT in float64
+# phase 2d: uniform chunks of the dish's windowed round trip by channels a call;
+# the first of each is the plan before the m-support profile chose it
+WINDOWED_PLANS = {8: (2008, 1016, 512, 256, 128), 1: (2024, 1016, 512, 256, 128)}
+TOL_PLAN_F64 = 1e-12
+DISH64_CONFIG = Path(__file__).resolve().parent / "portbench" / "configs" / "dish64.json"
+PLAN_STAGES = ("windowed.fringe_build", "windowed.project", "windowed.accumulate")
 TOL_COMPOSED = 3e-5
 TOL_PROJECTION = 2e-5
 TOL_SVD = 1e-4
@@ -676,6 +704,14 @@ def telescope(nside: int):
     return tel, BeamTransfer(tel, nside=nside)
 
 
+def dish64():
+    """The dish64.fused8 cell's telescope and ``BeamTransfer``, built from its
+    configuration file as the benchmark builds them."""
+    from portbench.drivers.fused import program_telescope
+
+    return program_telescope(json.loads(DISH64_CONFIG.read_text()))
+
+
 def cylinder(nside: int, ncyl: int, nfeed: int, pol: bool = False, nfreq: int = 1):
     """A CHIME-class cylinder array at lambda = 0.6 m (``nfreq`` 1), or over
     400-500 MHz; ``pol`` gives X and Y feeds at every position."""
@@ -836,11 +872,13 @@ def check_kernel(device, label: str, times, weight):
 
 # name: (form, nfreq, npol, chunk, K, unique beams, geometry rows): one
 # baseline chunk of the benchmark cells dish64.fused8 (the beam window's 16768
-# pixels, one real beam) and chime2048.fused1 (the padded sphere at nside
-# 256, 802434 slots, complex beams of 4 feed-pair products, the geometry
-# dedup); both on a uniform frequency grid
+# pixels, one real beam; its chunk, None here, is the automatic plan's, taken
+# from the call that dish_plan_call makes) and chime2048.fused1 (the padded
+# sphere at nside 256, 802434 slots, complex beams of 4 feed-pair products,
+# the geometry dedup; 64 rows, its automatic chunk); both on a uniform
+# frequency grid
 FRINGE_CHUNKS = {
-    "dish64": ("windowed", 8, 1, 2008, 16768, 1, 0),
+    "dish64": ("windowed", 8, 1, None, 16768, 1, 0),
     "chime2048": ("fullsphere", 1, 4, 64, 802434, 4, 16),
 }
 
@@ -890,16 +928,22 @@ def fringe_state(form, nfreq, npol, chunk, K, nuniq, Gc, seed, device) -> dict:
     return state
 
 
-def check_fringe(device, seed: int) -> dict:
+def check_fringe(device, seed: int, dish_plan: dict) -> dict:
     """Phase 2b: the fringe kernel against the plain chain at one chunk of
-    each benchmark cell, bit for bit, each timed beside the other and the
-    bound.  Returns the numbers for the JSON record, by cell."""
+    each benchmark cell (dish64's of ``dish_plan``, :func:`dish_plan_call`'s
+    record), bit for bit, each timed beside the other and the bound.
+    Returns the numbers for the JSON record, by cell."""
     import torch
 
     from draco_tpu_torch.ops import cuda_kernels
 
     stats = {}
     for i, (name, (form, nfreq, npol, chunk, K, nuniq, Gc)) in enumerate(FRINGE_CHUNKS.items()):
+        if chunk is None:
+            if (nfreq, K) != (dish_plan["nfreq"], dish_plan["Kf"]):
+                raise RuntimeError(f"the {name} chunk: {nfreq} channels x {K} pixels, the plan's call "
+                                   f"{dish_plan['nfreq']} x {dish_plan['Kf']}")
+            chunk = dish_plan["chunk"]
         state = fringe_state(form, nfreq, npol, chunk, K, nuniq, Gc, seed + i, device)
         stacked = form == "fullsphere"
         coeff = ("ga", "gb", "gc") if Gc else ("bla", "blb", "blc")
@@ -1045,6 +1089,127 @@ def check_belt(device, seed: int) -> dict:
                            f"(want 1), contiguous {contiguous_out}")
     return {"planes": [*BELT_CHUNK, K], "ms": ms, "bound_ms": bounds, "parts_ms": parts, "rel_err": rel,
             "requested_bytes_above_planes": peaks}
+
+
+def check_windowed_plans(device, seed: int) -> dict:
+    """Phase 2d: dish64's weighted round trip under each chunk plan of
+    ``WINDOWED_PLANS`` and the automatic one (None), at 8 channels and at
+    the first channel alone; per plan the groups, the planned work and its
+    TFLOP, stage device ms, TFLOP/s, the call's ms and the map's errors
+    against the untruncated float64 round trip.  Returns the numbers for
+    the JSON record."""
+    import torch
+
+    from draco_tpu_torch.ops import healpix
+    from draco_tpu_torch.telescope import roundtrip as rt
+
+    _, bt8 = dish64()
+    nbase = len(bt8.telescope.uniquepairs)
+    gen = torch.Generator(device).manual_seed(seed)
+    out = {}
+    for nfreq, chunks in WINDOWED_PLANS.items():
+        bt = bt8 if nfreq == 8 else rt._FreqTileBT(bt8, 0, nfreq)
+        m_cut = np.sort(rt._m_cut(bt, bt._beam_window()))
+        sky = torch.randn(nfreq, 1, healpix.npix_of(NSIDE), generator=gen, device=device)
+        w = 0.5 + 1.5 * torch.rand(bt8.telescope.mmax + 1, 2, nfreq, nbase, generator=gen, device=device)
+        ref_state = rt.prepare_state(bt, chunk=chunks[0], dtype=torch.float64, device=device)
+        dims = ref_state["dims"]
+        ref_state["dims"] = dims[:-1] + (((0, dims[3], dims[6] + 1),),)
+        ref = rt.fused_roundtrip(ref_state, sky.double(), w.double())
+        del ref_state
+        rows = []
+        for chunk in (*chunks, None):
+            run = rt.fused_roundtrip_fn(bt, chunk=chunk, device=device)
+            _, _, c, nchunk, _, Kf, mmax, groups = run.state["dims"]
+            work = rt._plan_work(m_cut, c, mmax)
+            rt.reset_windowed_gemm_work()
+            got = run(sky, w)
+            counted = rt.windowed_gemm_work
+            err32 = _rel(got, ref)
+            del got
+            stage_ms = stage_device_ms(lambda run=run: run(sky, w), PLAN_STAGES, calls=3)
+            call_ms = min(cuda_ms(lambda run=run: run(sky, w), 3) for _ in range(2))
+            gemm_ms = stage_ms["windowed.project"] + stage_ms["windowed.accumulate"]
+            tflop = 16.0 * nfreq * Kf * work / 1e12
+            row = {"chunk": c, "nchunk": nchunk, "groups": [list(g) for g in groups], "work": work,
+                   "counted": counted, "tflop": tflop, "stage_ms": stage_ms, "call_ms": call_ms,
+                   "tflops": tflop / gemm_ms * 1e3, "rel_err_f32": err32}
+            if nfreq == 8:
+                state64 = rt.prepare_state(bt, chunk=c, dtype=torch.float64, device=device)
+                row["rel_err_f64"] = _rel(rt.fused_roundtrip(state64, sky.double(), w.double()), ref)
+                del state64
+            del run
+            torch.cuda.empty_cache()
+            log(f"plan {nfreq} channels, {'auto ' if chunk is None else ''}{nchunk} x {c}: Mb groups {groups}, "
+                f"work {work} (counted {counted}), {tflop:.3f} TFLOP; device ms a call: fringe "
+                f"{stage_ms['windowed.fringe_build']:.3f}, project {stage_ms['windowed.project']:.3f}, "
+                f"accumulate {stage_ms['windowed.accumulate']:.3f} ({row['tflops']:.1f} TFLOP/s of 67); "
+                f"call {call_ms:.3f} ms; map rel err f32 {err32:.3e}"
+                + (f", f64 {row['rel_err_f64']:.3e}" if "rel_err_f64" in row else ""))
+            if counted != work or not err32 <= TOL_MAP or not row.get("rel_err_f64", 0.0) <= TOL_PLAN_F64:
+                raise RuntimeError(f"plan {nfreq} x {c}: counted {counted} of {work}, rel err f32 {err32:.3e} "
+                                   f"(tol {TOL_MAP}), f64 {row.get('rel_err_f64')} (tol {TOL_PLAN_F64})")
+            rows.append(row)
+        del ref
+        out[nfreq] = rows
+    return out
+
+
+def dish_plan_call(device, seed: int) -> dict:
+    """Phase 2b's first call: one weighted dish64.fused8 round trip (the
+    cell's telescope from its configuration file, a sky and weights drawn
+    from ``seed``) under the automatic baseline-chunk plan, as the cell runs
+    it.  Checks one fringe launch a chunk, the plan's work counted once, and
+    the float32 map within ``TOL_MAP`` of the float64 round trip under the
+    same plan.  Returns the plan and its numbers for the JSON record."""
+    import torch
+
+    from draco_tpu_torch.ops import cuda_kernels, healpix
+    from draco_tpu_torch.telescope import roundtrip as rt
+
+    tel, bt = dish64()
+    nfreq, nbase, nside = tel.nfreq, len(tel.uniquepairs), bt.beam_nside
+    gen = torch.Generator(device).manual_seed(seed)
+    sky = torch.randn(nfreq, 1, healpix.npix_of(nside), generator=gen, device=device)
+    w = 0.5 + 1.5 * torch.rand(tel.mmax + 1, 2, nfreq, nbase, generator=gen, device=device)
+    cuda_kernels.reset_launches()
+    rt.reset_windowed_gemm_work()
+    m32 = rt.fused_simulate_to_map(bt, sky, weight=w)
+    counted = rt.windowed_gemm_work
+    launched = fringe_launches("dish64 automatic plan", cuda_kernels.launches["fringe"], bt)
+    (run,) = bt._fused_fns.values()
+    _, _, chunk, nchunk, _, Kf, _, groups = run.state["dims"]
+    work = sum((c1 - c0) * chunk * mb for c0, c1, mb in groups)
+    call_ms = min(cuda_ms(lambda: run(sky, weight=w), 3) for _ in range(2))
+    rel = _rel(m32, rt.fused_simulate_to_map(bt, sky.double(), weight=w.double()))
+    tflop = 16.0 * nfreq * Kf * work / 1e12
+    log(f"dish64 automatic plan: {nbase} baselines, {nfreq} channels, nside {nside}: {nchunk} x {chunk} rows, "
+        f"Mb groups {groups}, planned work {work} (counted {counted}), {tflop:.3f} TFLOP; call {call_ms:.3f} ms; "
+        f"float32 vs float64 weighted round trip rel err {rel:.3e} (tol {TOL_MAP})")
+    if counted != work or not rel <= TOL_MAP:
+        raise RuntimeError(f"dish64 automatic plan: counted {counted} of {work}, rel err {rel:.3e} (tol {TOL_MAP})")
+    del bt, run, m32, sky, w
+    torch.cuda.empty_cache()
+    return {"nfreq": nfreq, "chunk": chunk, "nchunk": nchunk, "Kf": Kf, "groups": [list(g) for g in groups],
+            "work": work, "tflop": tflop, "fringe_launches": launched, "call_ms": call_ms, "rel_err": rel}
+
+
+def stage_device_ms(run, stages, calls: int) -> dict:
+    """Device ms a call of the kernels launched inside each host span of
+    ``stages``, over ``calls`` calls of ``run`` under ``torch.profiler``: the
+    benchmark's own reading (``portbench/trace.py::from_profile``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from portbench import trace as tracing
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(tracing.WINDOW):
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+    return {k: v * 1e3 / calls for k, v in tracing.from_profile(prof, stages).span_device_s.items()}
 
 
 def fringe_launches(label: str, launches: int, bt) -> int:
@@ -5979,6 +6144,8 @@ def main() -> int:
     parser.add_argument("--device", default="cuda", help="with --spine-stages: the device")
     parser.add_argument("--belt-chunk", action="store_true",
                         help="instead of the smoke, phase 2c alone (the ring analysis of one CHIME chunk)")
+    parser.add_argument("--windowed-plans", action="store_true",
+                        help="instead of the smoke, phase 2d alone (the dish's baseline-chunk plans)")
     parser.add_argument("--nside", type=int, default=NSIDE, help="with --spine-stages: the task chain's nside")
     parser.add_argument("--nside-chunked", type=int, default=SHT_NSIDE, help="with --spine-stages: the maps' nside")
     parser.add_argument("--nfreq", type=int, default=MESH_NFREQ, help="with --spine-stages: channels")
@@ -6013,6 +6180,10 @@ def main() -> int:
         print(json.dumps({"belt_fft": check_belt(device, seed=args.seed + 4)}))
         print(card)
         return 0
+    if args.windowed_plans:
+        print(json.dumps({"windowed_plans": check_windowed_plans(device, seed=args.seed + 5)}))
+        print(card)
+        return 0
 
     # phase 1: build every kernel, one nvcc for each source, all started together
     t0 = time.perf_counter()
@@ -6029,8 +6200,10 @@ def main() -> int:
     kern = check_kernel(device, "dish path", stream[0], stream[2])
     check_small_cases(device, seed=args.seed + 1)
 
-    # phase 2b: the fringe kernel at one chunk of each benchmark cell
-    fringe_kern = check_fringe(device, seed=args.seed + 3)
+    # phase 2b: one dish64 call under its automatic plan, then the fringe
+    # kernel at one chunk of each benchmark cell, the dish's that plan's
+    dish_plan = dish_plan_call(device, seed=args.seed + 6)
+    fringe_kern = check_fringe(device, seed=args.seed + 3, dish_plan=dish_plan)
 
     # phase 2c: the ring analysis of one CHIME chunk, the belt by GEMMs and by the real FFT
     belt_stats = check_belt(device, seed=args.seed + 4)
@@ -6265,6 +6438,7 @@ def main() -> int:
         "launches": launches["fringe"],
         **fringe_kern["dish64"],
         "chime2048_chunk": fringe_kern["chime2048"],
+        "dish64_plan_path": dish_plan,
         "accuracy_path": {"launches": acc_fringe},
         "cylinder_path": {"launches": launches_c["fringe"]},
         "dualpol_path": {"launches": dualpol_fringe},

@@ -15,11 +15,14 @@ once and consumed by both sets of products.
 Compact (dish) beams run the windowed form: baselines are sorted by
 their m-support bound and chunks grouped by the rounded support ``Mb``,
 so a chunk of short baselines contracts only its first ``Mb``
-m-columns.  Wide (cylinder) beams run the full-sphere form: the sky is
-contracted against the split Legendre sections once, each chunk
-ring-analyses its [Re, Im] fringe x beam maps on the SHT's padded
-layout, and the adjoint accumulates per-section T tensors with the
-Legendre applied once after the loop.
+m-columns.  Without an explicit ``chunk`` the plan comes from that
+profile: the budget's chunks balanced so that none is padding, then split
+while that cuts the planned GEMM work (:func:`_windowed_chunk`).  Wide
+(cylinder) beams run the full-sphere form: the sky is contracted against
+the split Legendre sections once, each chunk ring-analyses its [Re, Im]
+fringe x beam maps on the SHT's padded layout, and the adjoint
+accumulates per-section T tensors with the Legendre applied once after
+the loop.
 
 The prepared state (:func:`prepare_state`, or :func:`state_from_numpy`
 from the JAX package's own constants) is a dict of tensors on one device
@@ -52,10 +55,27 @@ __all__ = [
     "fused_simulate_to_map",
     "fused_simulate_to_map_tiled",
     "SimulateAndMap",
+    "reset_windowed_gemm_work",
 ]
 
 # HBM budget that sizes the baseline chunk when none is given
 CHUNK_BUDGET_BYTES = 4 * 2**30
+# Fewest rows a chunk of the windowed form's automatic plan.  The
+# projection GEMMs [nfreq, chunk, Kf] @ [Kf, Mb] and the adjoint ones run at
+# 42-50 TFLOP/s float32 from 512 rows a chunk up and at 33-35 at 256
+# (22-25 at 128), at 1 and at 8 channels alike (dish64, Kf 16768, H100 80GB
+# HBM3 at 700 W, chip_smoke.py phase 2d): below 512 rows the rate falls by
+# more than a halving of the chunk saves work.
+MIN_PLAN_ROWS = 512
+# planned GEMM work of the windowed calls since the last
+# reset_windowed_gemm_work(): each call adds its plan's sum over chunks of
+# chunk x Mb (its GEMMs' operations are 16 nfreq npol Kf times that)
+windowed_gemm_work = 0
+
+
+def reset_windowed_gemm_work() -> None:
+    global windowed_gemm_work
+    windowed_gemm_work = 0
 
 
 def _pad_to(n: int, chunk: int) -> int:
@@ -177,10 +197,42 @@ def _beam_prep(bt, nfreq: int, npad: int, nbase: int, gather, order=None):
 
 
 def _auto_chunk(nbase: int, nfreq: int, npol: int, per_pixel: int) -> int:
-    """Baselines per chunk from ``CHUNK_BUDGET_BYTES`` of fringe planes."""
+    """Baselines per chunk: the fewest chunks of the rows that
+    ``CHUNK_BUDGET_BYTES`` of fringe planes allows (at least 64, rounded up
+    to 8), with the baselines balanced over them and rounded up to 8, so
+    that no chunk is wholly padding.  A balanced chunk may hold fewer than
+    64 rows: fewer than 64 baselines take one chunk of their own count
+    rounded up to 8."""
     c = int(CHUNK_BUDGET_BYTES // max(1, 4 * 4 * nfreq * npol * per_pixel))
-    c = max(64, min(c, nbase))
-    return (c + 7) // 8 * 8
+    c = _pad_to(max(64, min(c, nbase)), 8)
+    nchunk = -(-nbase // c)
+    return _pad_to(-(-nbase // nchunk), 8)
+
+
+def _plan_work(m_cut_sorted: np.ndarray, chunk: int, mmax: int) -> int:
+    """The windowed GEMMs' planned work, sum over chunks of chunk x Mb."""
+    nchunk = -(-len(m_cut_sorted) // chunk)
+    return sum((c1 - c0) * chunk * mb for c0, c1, mb in _chunk_groups(m_cut_sorted, nchunk, chunk, mmax))
+
+
+def _windowed_chunk(m_cut_sorted: np.ndarray, chunk: int, mmax: int) -> int:
+    """The windowed form's automatic chunk: ``chunk`` (:func:`_auto_chunk`'s)
+    or a balanced split of its chunks into 2, 4, 8, ... parts, whichever
+    plans the least GEMM work (:func:`_plan_work`; ties to fewer chunks).
+    Finer chunks narrow each chunk's m-columns to its own rows' support.
+    No chunk has fewer than ``MIN_PLAN_ROWS`` rows."""
+    nbase = len(m_cut_sorted)
+    n = -(-nbase // chunk)
+    best, best_work = chunk, _plan_work(m_cut_sorted, chunk, mmax)
+    while n < nbase:
+        n *= 2
+        c = _pad_to(-(-nbase // n), 8)
+        if c < MIN_PLAN_ROWS:
+            break
+        work = _plan_work(m_cut_sorted, c, mmax)
+        if work < best_work:
+            best, best_work = c, work
+    return best
 
 
 def _beam_m_support(bt, info, tau: float) -> int:
@@ -219,6 +271,19 @@ def _beam_m_support(bt, info, tau: float) -> int:
     return m_sup
 
 
+def _m_cut(bt, win) -> np.ndarray:
+    """Each baseline's inclusive m-support bound: the fringe's Jacobi-Anger
+    band edge 2 pi |u_perp| sin(theta)_max, a Bessel-tail margin, and the
+    beam product's measured azimuthal band width, at most mmax + 1."""
+    tel, s = bt.telescope, win.sht
+    bl3 = tel.baseline_vectors_3d()
+    u_perp = np.hypot(bl3[:, 0], bl3[:, 1]) / tel.wavelengths.min()
+    s_max = float(np.sin(s.info.theta[win.band]).max())
+    x = 2 * np.pi * u_perp * s_max
+    m_margin = _beam_m_support(bt, s.info, 1e-6) + np.ceil(4.0 * np.cbrt(np.maximum(x, 1.0))).astype(int)
+    return np.minimum(np.ceil(x).astype(int) + m_margin, s.mmax + 1)
+
+
 def _chunk_groups(m_cut_sorted: np.ndarray, nchunk: int, chunk: int, mmax: int):
     """(chunk_start, chunk_end, Mb) runs of chunks sharing their 128-rounded
     m-support; ``m_cut`` is an inclusive max-m bound, so mb + 1 columns
@@ -252,21 +317,10 @@ def prepare_state(bt, chunk: int | None = None, dtype=torch.float32, device=None
     npol = tel.num_pol_sky
     nfreq = tel.nfreq
     nbase = len(tel.uniquepairs)
-    if chunk is None:
-        chunk = _auto_chunk(nbase, nfreq, npol, win.Kf)
-
-    # m-support bound per baseline: the fringe's Jacobi-Anger band edge
-    # 2 pi |u_perp| sin(theta)_max, a Bessel-tail margin, and the beam
-    # product's measured azimuthal band width
-    bl3 = tel.baseline_vectors_3d()
-    u_perp = np.hypot(bl3[:, 0], bl3[:, 1]) / tel.wavelengths.min()
-    s_max = float(np.sin(s.info.theta[win.band]).max())
-    x = 2 * np.pi * u_perp * s_max
-    m_margin = _beam_m_support(bt, s.info, 1e-6) + np.ceil(
-        4.0 * np.cbrt(np.maximum(x, 1.0))
-    ).astype(int)
-    m_cut = np.minimum(np.ceil(x).astype(int) + m_margin, mmax + 1)
+    m_cut = _m_cut(bt, win)
     order = np.argsort(m_cut, kind="stable")
+    if chunk is None:
+        chunk = _windowed_chunk(m_cut[order], _auto_chunk(nbase, nfreq, npol, win.Kf), mmax)
 
     _, lam, lam_lo, plan = bt._streaming_ops2(device, dtype)
     if lam_lo is not None:
@@ -526,9 +580,12 @@ def fused_roundtrip(state: dict, sky: torch.Tensor, weight: torch.Tensor | None 
 
 
 def _fused_roundtrip_windowed(state: dict, sky: torch.Tensor, weight) -> torch.Tensor:
-    """The windowed form of :func:`fused_roundtrip` (compact beams)."""
+    """The windowed form of :func:`fused_roundtrip` (compact beams); adds
+    its plan's work to :data:`windowed_gemm_work`."""
+    global windowed_gemm_work
     s = state["sht"]
     nfreq, npol, chunk, nchunk, npairs, Kf, mmax, groups = state["dims"]
+    windowed_gemm_work += sum((c1 - c0) * chunk * Mb for c0, c1, Mb in groups)
     K = npol * Kf
     Ecf, Esf = state["Ecf"], state["Esf"]
     rdt, dev = Ecf.dtype, Ecf.device
